@@ -1,0 +1,31 @@
+"""Batched LZ4 block decode on a device.
+
+Port of ``lz4_sgori_tpu/ops/decode.py:decompress_blocks_device``. The
+engine comes from the routing table; the port has the v7 band's kernel
+(K1, ``kernels/lockstep_v7.py``), whose plain version is the port of the
+JAX package's portable decoder ``_decompress_blocks_impl``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import routing
+from .kernels.lockstep_v7 import decompress_blocks_v7
+
+
+def decompress_blocks_device(comp: torch.Tensor, comp_len: torch.Tensor,
+                             out_size: int, impl: str = "auto",
+                             cost_key=None):
+    """Decode ``comp uint8 [B, slot]`` (zero past ``comp_len``, at least
+    one pad byte) on its device.
+
+    Returns (out uint8 [B, out_size], out_len int32 [B], err bool [B]).
+    ``cost_key`` (the encoder's per-block sequence count, a lane-grouping
+    hint for the TPU's lockstep engines) is accepted and not needed: each
+    block runs on its own warp.
+    """
+    del cost_key
+    engine = routing.select_decode_engine(out_size, True, impl)
+    routing.require_ported(engine)
+    return decompress_blocks_v7(comp, comp_len.to(torch.int32), out_size)

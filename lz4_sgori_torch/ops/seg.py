@@ -1,0 +1,132 @@
+"""The seg engine: segment-parallel block compress (kernels K2, K3, K4
+plus PyTorch glue).
+
+Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
+compress_blocks_lockstep_seg`` at depth 1 for blocks of at most 64 KiB.
+Byte contract: ``golden.compress_dense_seg(block, seg, window,
+hashlog=16, acceleration)`` per block.
+
+Pipeline: mask bytes past ``raw_len`` -> K2 candidates -> K3 per-segment
+parse -> owner run headers and the assembly plan (glue) -> K4 assembly ->
+error fold. What only the TPU needed is left out: the 128-lane group
+packing and tape layouts, the density regrouping of segments (a
+permutation that is inverted again, so the bytes never change), the
+VMEM-fit checks and barrier chains, and the dynamic_update_slice
+assembly fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lz4_sgori_tpu import format as F
+
+from .kernels.asm_seg import assemble_segments
+from .kernels.cand import dense_candidates
+from .kernels.parse_seg import parse_segments
+
+
+def header_max(block_size: int) -> int:
+    """Longest owner header: a literal run can span every bodiless
+    segment of the block (260 bytes at 64 KiB)."""
+    return 1 + max(block_size, 65536) // 255 + 2
+
+
+def run_headers(p1, m1h, last_end, raw_len, block_size: int):
+    """Owner run headers (token' + literal LSIC) of every segment
+    (``lockstep_enc3.py:2197-2234``).
+
+    p1, m1h, last_end: int32 [nb, nseg] from the parse; raw_len int32 [nb].
+    Returns (hdr uint8 [nb*nseg, header_max], hlen int64 [nb, nseg]).
+    """
+    nb, nseg = p1.shape
+    dev = p1.device
+    i64 = torch.int64
+    p1, m1h, le = p1.to(i64), m1h.to(i64), last_end.to(i64)
+    hasm = (m1h >> 16) != 0
+    m1 = m1h & 0xFFFF
+    kk = torch.arange(nseg, dtype=i64, device=dev).expand(nb, nseg)
+    big = 1 << 20
+    # the next segment with a match ends this segment's literal run
+    idx = torch.where(hasm, kk, big)
+    suf = torch.flip(torch.cummin(torch.flip(idx, [1]), dim=1).values, [1])
+    nxt = torch.cat([suf[:, 1:], torch.full((nb, 1), big, dtype=i64,
+                                            device=dev)], dim=1)
+    has_nxt = nxt < big
+    nxt_c = nxt.clamp(max=nseg - 1)
+    run_end = torch.where(has_nxt, torch.gather(p1, 1, nxt_c),
+                          raw_len.to(i64)[:, None])
+    mcn = torch.where(has_nxt, torch.gather(m1, 1, nxt_c).clamp(max=15), 0)
+    owner = hasm | (kk == 0)
+    lrun = (run_end - le).clamp(min=0)
+    q = lrun - F.RUN_MASK
+    nff = q.clamp(min=0) // 255
+    remb = q.clamp(min=0) - 255 * nff
+    hlen = torch.where(owner, 1 + torch.where(q >= 0, nff + 1, 0), 0)
+    tokp = (lrun.clamp(max=F.RUN_MASK) << F.ML_BITS) | mcn
+    hj = torch.arange(header_max(block_size), dtype=i64, device=dev)
+    hj = hj[None, None, :]
+    hdr = torch.where(hj == 0, tokp[..., None],
+                      torch.where(hj <= nff[..., None], 255,
+                                  torch.where(hj == nff[..., None] + 1,
+                                              remb[..., None], 0)))
+    hdr = torch.where(hj < hlen[..., None], hdr, 0)
+    return hdr.to(torch.uint8).reshape(nb * nseg, -1), hlen
+
+
+def assembly_plan(slen, hlen, last_end, raw_len, seg: int):
+    """K4's plan int32 [nb, nseg, 4]: per segment the stream length, the
+    header length, and the raw tail [last_end, segment end) as start and
+    length (``lockstep_enc3.py:2236-2267``)."""
+    nseg = slen.shape[1]
+    le = last_end.to(torch.int64)
+    kk = torch.arange(nseg, dtype=torch.int64, device=le.device)[None, :]
+    s1 = kk * seg + (raw_len.to(torch.int64)[:, None] - kk * seg).clamp(
+        0, seg)
+    return torch.stack([slen.to(torch.int64), hlen.to(torch.int64), le,
+                        s1 - le], dim=2).to(torch.int32)
+
+
+def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
+                        block_size: int, seg: int = 4096,
+                        window: int = 65536, accel: int = 1):
+    """Compress ``[nb, >= block_size]`` uint8 blocks on their device.
+
+    Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past the
+    length, comp_len int32 [nb], err bool [nb], nseq int32 [nb]). A block
+    whose parse failed or whose assembly passed COMPRESSBOUND has
+    ``comp_len`` 0 and ``err`` set (the reference's limited-output
+    failure): the framing layer re-encodes it on the host.
+    """
+    if block_size % seg or block_size // seg > 128:
+        raise ValueError("seg must divide block_size into at most 128 "
+                         "segments")
+    if block_size > 65536:
+        raise NotImplementedError(
+            "blocks above 64 KiB need the seg_big engine (ROADMAP Queue 2 "
+            "K9)")
+    nb = raw.shape[0]
+    nseg = block_size // seg
+    dev = raw.device
+    raw_len = raw_len.to(device=dev, dtype=torch.int32)
+    rawm = raw[:, :block_size]
+    cpos = torch.arange(block_size, device=dev)
+    rawm = torch.where(cpos[None, :] < raw_len[:, None], rawm, 0).to(
+        torch.uint8).contiguous()
+
+    cand = dense_candidates(rawm, raw_len)
+    streams, slen, serr, last_end, nseq, p1, m1h = parse_segments(
+        rawm, cand, raw_len, seg=seg, window=window, accel=accel)
+
+    shp = (nb, nseg)
+    le = last_end.reshape(shp).to(torch.int64)
+    hdr, hlen = run_headers(p1.reshape(shp), m1h.reshape(shp), le,
+                            raw_len, block_size)
+    plan = assembly_plan(slen.reshape(shp), hlen, le, raw_len, seg)
+
+    bound = F.compress_bound(block_size)
+    comp, comp_len = assemble_segments(streams, hdr, rawm, plan, bound + 8)
+    err = (serr.reshape(shp) != 0).any(dim=1) | (comp_len > bound)
+    comp_len = torch.where(err, 0, comp_len)
+    nseq_b = nseq.reshape(shp).sum(dim=1, dtype=torch.int32)
+    return comp, comp_len, err, nseq_b

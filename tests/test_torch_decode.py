@@ -1,0 +1,191 @@
+"""K1's plain version (the port's decoder on CPU tensors) against
+golden.decompress, the JAX portable decoder and the JAX v7 kernel in
+interpret mode. Outputs are bytes, so every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import make_mutants
+from lz4_sgori_torch.ops.decode import decompress_blocks_device
+from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+from lz4_sgori_tpu import format as F
+from lz4_sgori_tpu import golden
+from lz4_sgori_tpu.utils import oracle
+
+
+def _pack(payloads, width=None):
+    width = width or -(-(max(len(c) for c in payloads) + 8) // 32) * 32
+    comp = np.zeros((len(payloads), width), np.uint8)
+    clen = np.zeros(len(payloads), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    return comp, clen
+
+
+def _decode(comp, clen, out_size):
+    out, out_len, err = K1.decompress_blocks_v7(
+        torch.from_numpy(comp), torch.from_numpy(clen), out_size)
+    return out.numpy(), out_len.numpy(), err.numpy()
+
+
+def _golden_verdicts(payloads, out_size):
+    res = []
+    for c in payloads:
+        try:
+            res.append(golden.decompress(bytes(c), out_size))
+        except golden.DecodeError:
+            res.append(None)
+    return res
+
+
+def _check_against_golden(payloads, out_size):
+    comp, clen = _pack(payloads)
+    out, out_len, err = _decode(comp, clen, out_size)
+    for j, want in enumerate(_golden_verdicts(payloads, out_size)):
+        assert bool(err[j]) == (want is None), j
+        if want is None:
+            assert out_len[j] == 0 and not out[j].any(), j
+        else:
+            assert out_len[j] == len(want), j
+            assert out[j, :len(want)].tobytes() == want, j
+            assert not out[j, len(want):].any(), j
+    return comp, clen, out, out_len, err
+
+
+@pytest.mark.parametrize("block_size", [4096, 65536])
+def test_plain_roundtrip_fixtures(fixtures, block_size):
+    payloads = []
+    for data in fixtures.values():
+        for i in range(0, max(len(data), 1), block_size):
+            rb = data[i:i + block_size]
+            payloads.append(golden.compress(rb))
+            if oracle.available() and rb:
+                payloads.append(oracle.compress(rb))
+    _check_against_golden(payloads, block_size)
+
+
+MALFORMED = [
+    b"\xf0" + b"A" * 10,
+    golden.compress(b"x" * 1640),
+    b"\x10A\x00\x00",                 # offset zero
+    b"\x10A\x50\x00",                 # offset beyond output
+    b"\x1f",
+    b"\x12AB\x01\x00" + b"\xff" * 6,
+    golden.compress(bytes(range(256)) * 8),   # past capacity
+    b"\x0fABCDEFGHIJKLMNO",           # literal-only terminal
+    b"\xff",                          # truncated LSIC literal length
+    b"\x10",                          # literal run exceeds input
+    b"\x04abcd\x00\x00\x00",          # zero offset
+    b"\x04abcd\xff\xff\x00",          # offset outside output
+    b"\x14a\x00",                     # match but offset truncated
+    b"\x00",                          # empty terminal block
+]
+
+
+def test_plain_malformed_cases():
+    _check_against_golden(MALFORMED, 2048)
+
+
+def test_plain_overlap_periods():
+    datas = [(bytes(range(97, 97 + p)) * (3000 // p + 1))[:3000]
+             for p in range(1, 10)]
+    _check_against_golden([golden.compress(d) for d in datas], 4096)
+
+
+def test_plain_empty_and_bad_lengths():
+    comp = np.zeros((3, 64), np.uint8)
+    clen = np.array([0, 1, 65], np.int32)         # empty, b"\x00", > slot
+    out, out_len, err = _decode(comp, clen, 4096)
+    assert err.tolist() == [True, False, True]
+    assert out_len.tolist() == [0, 0, 0]
+
+
+def test_plain_mutant_pool_matches_golden_and_jax(fixtures):
+    """A seeded pool of corrupted streams: err must equal golden's verdict
+    and the JAX portable decoder's, and bytes must agree on accepts."""
+    from lz4_sgori_tpu.ops.decode import _decompress_blocks_impl
+
+    bs = 4096
+    bases = [golden.compress(fixtures[k][:bs]) for k in
+             ("text_small", "zeros_4k", "random_4k", "rle_period3",
+              "structured")]
+    rng = np.random.default_rng(2024)
+    slot = F.compress_bound(bs) + 8
+    muts = make_mutants(bases, rng, 160, slot - 8)
+    comp, clen, out, out_len, err = _check_against_golden(muts, bs)
+    jout, jlen, jerr = map(np.asarray, _decompress_blocks_impl(
+        comp, clen, bs))
+    assert np.array_equal(err, jerr)
+    ok = ~err
+    assert np.array_equal(out_len[ok], jlen[ok])
+    assert np.array_equal(out[ok], jout[ok])
+    assert 0 < int(err.sum()) < len(muts)
+
+
+def test_plain_matches_jax_portable_decoder(fixtures):
+    from lz4_sgori_tpu.ops.decode import _decompress_blocks_impl
+
+    bs = 16384
+    data = fixtures["mixed"]
+    payloads = [golden.compress(data[i:i + bs])
+                for i in range(0, len(data), bs)] + MALFORMED
+    comp, clen = _pack(payloads, F.compress_bound(bs) + 8)
+    out, out_len, err = _decode(comp, clen, bs)
+    jout, jlen, jerr = map(np.asarray, _decompress_blocks_impl(
+        comp, clen, bs))
+    assert np.array_equal(err, jerr)
+    ok = ~err
+    assert np.array_equal(out_len[ok], jlen[ok])
+    assert np.array_equal(out[ok], jout[ok])
+
+
+def test_plain_matches_jax_v7_interpret():
+    """The test_v7_parity shape through the JAX v7 kernel (interpret mode)
+    and the port's decoder."""
+    from lz4_sgori_tpu.ops.pallas.lockstep_v7 import (
+        decompress_blocks_lockstep_v7)
+    rng = np.random.RandomState(3)
+    out_size = 4096
+    period = bytes(rng.randint(0, 256, 1500, np.int64).astype(np.uint8))
+    blocks = [
+        bytes(out_size),
+        (b"the quick brown fox " * 300)[:out_size],
+        bytes(rng.randint(0, 256, out_size, np.int64).astype(np.uint8)),
+        (period * 4)[:out_size],
+        b"ab" * (out_size // 2),
+        (b"A" * 300 + b"\xff" * 300) * 6,
+        b"z" * 2037,
+        b"",
+    ]
+    comp, clen = _pack([golden.compress(b) for b in blocks])
+    jout, jlen, jerr = map(np.asarray, decompress_blocks_lockstep_v7(
+        comp, clen, out_size, sr=512, unroll=3, transfers=1,
+        interpret=True, sort=True))
+    out, out_len, err = _decode(comp, clen, out_size)
+    assert not err.any() and not jerr.any()
+    assert np.array_equal(out_len, jlen)
+    for j, b in enumerate(blocks):
+        assert out[j, :len(b)].tobytes() == b == jout[j, :len(b)].tobytes()
+
+
+def test_device_wrapper_routes_v7_and_counts_nothing_on_cpu():
+    before = K1.launches
+    comp, clen = _pack([golden.compress(b"hello hello hello hello")])
+    out, out_len, err = decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), 16384,
+        cost_key=torch.zeros(1, dtype=torch.int32))
+    assert not bool(err[0]) and int(out_len[0]) == 23
+    assert K1.launches == before          # CPU tensors run the plain version
+
+
+def test_wrapper_rejects_bad_inputs():
+    comp = torch.zeros((2, 64), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        K1.decompress_blocks_v7(comp.to(torch.int32),
+                                torch.ones(2, dtype=torch.int32), 4096)
+    with pytest.raises(TypeError):
+        K1.decompress_blocks_v7(comp, torch.ones(3, dtype=torch.int32), 4096)
+    with pytest.raises(ValueError):
+        K1.decompress_blocks_v7(comp, torch.ones(2, dtype=torch.int32), 0)

@@ -1,0 +1,159 @@
+"""The four CUDA kernels (K1-K4) against their plain PyTorch versions
+and their golden oracles, on the card. Marked ``cuda``; each test skips
+itself when no card is present. Run on a CUDA machine with
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import make_mutants
+from lz4_sgori_torch.ops import seg as S
+from lz4_sgori_torch.ops.kernels import asm_seg as K4
+from lz4_sgori_torch.ops.kernels import cand as K2
+from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+from lz4_sgori_torch.ops.kernels import parse_seg as K3
+from lz4_sgori_tpu import format as F
+from lz4_sgori_tpu import golden
+
+pytestmark = pytest.mark.cuda
+
+LOREM = (b"Lorem ipsum dolor sit amet, consectetur adipiscing elit, sed "
+         b"do eiusmod tempor incididunt ut labore et dolore magna aliqua. ")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _blocks(bs, seed=42):
+    rng = np.random.default_rng(seed)
+    return [
+        (LOREM * (bs // 64))[:bs],
+        bytes(bs // 4) + rng.integers(0, 256, bs // 2,
+                                      dtype=np.uint8).tobytes()
+        + (b"ab" * bs)[:bs // 4],
+        rng.integers(0, 256, bs, dtype=np.uint8).tobytes(),
+        (LOREM * 3)[:300], b"", b"abcabcabcabcabcabc", b"aaaaaaaaaaaa",
+        bytes(bs), (b"x" * 4095 + b"Q") * (bs // 4096),
+        (LOREM * (bs // 64))[:bs - 4096 - 77],
+    ]
+
+
+def _batch(blocks, bs, dev):
+    raw = np.zeros((len(blocks), bs), np.uint8)
+    rlen = np.zeros(len(blocks), np.int32)
+    for i, b in enumerate(blocks):
+        raw[i, :len(b)] = np.frombuffer(b, np.uint8)
+        rlen[i] = len(b)
+    return torch.from_numpy(raw).to(dev), torch.from_numpy(rlen).to(dev)
+
+
+def test_k2_candidates(dev):
+    bs = 65536
+    blocks = _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    got = K2.dense_candidates(raw, rlen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K2.dense_candidates_plain(raw, rlen))
+    got = got.cpu().numpy()
+    for j in (0, 1, 3, 5, 8):
+        b = blocks[j]
+        want = np.zeros(bs, np.int64)
+        want[:len(b)] = golden.dense_candidates(b, 16, val16_filter=False)
+        assert np.array_equal(got[j], want), j
+
+
+def test_k3_parse(dev):
+    bs, seg = 16384, 4096
+    blocks = _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    got = K3.parse_segments(raw, cand, rlen, seg=seg)
+    want = K3.parse_segments_plain(raw, cand, rlen, seg=seg)
+    torch.cuda.synchronize()
+    assert not got[2].any() and not want[2].any()
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    nseg = bs // seg
+    for j, b in enumerate(blocks):
+        for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg)):
+            r = j * nseg + k
+            assert streams[r, :slen[r]].tobytes() == pt["stream"], (j, k)
+            assert int(got[3][r]) == pt["last_end"], (j, k)
+
+
+def test_k4_assembly_and_engine_bytes(dev):
+    rng = np.random.default_rng(9)
+    nb, nseg, scap, hmax, bs = 3, 4, 40, 12, 96
+    args = [rng.integers(0, 256, shape, dtype=np.uint8)
+            for shape in ((nb * nseg, scap), (nb * nseg, hmax), (nb, bs))]
+    plan = np.stack([rng.integers(0, scap + 1, (nb, nseg)),
+                     rng.integers(0, hmax + 1, (nb, nseg)),
+                     rng.integers(0, bs // 2, (nb, nseg)),
+                     rng.integers(0, bs // 2, (nb, nseg))],
+                    axis=2).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (*args, plan)]
+    out, out_len = K4.assemble_segments(*t, 200)
+    pout, plen = K4.assemble_segments_plain(*t, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(out_len, plen)
+
+    bs = 65536
+    blocks = _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    comp, clen, err, _ = S.compress_blocks_seg(raw, rlen, bs)
+    assert not err.any()
+    comp, clen = comp.cpu().numpy(), clen.cpu().numpy()
+    for j, b in enumerate(blocks):
+        assert comp[j, :clen[j]].tobytes() == \
+            golden.compress_dense_seg(b, 4096, 65536, 16), j
+        assert not comp[j, clen[j]:].any(), j
+
+
+def test_k1_decode_and_mutants(dev):
+    bs = 65536
+    bases = [golden.compress(b) for b in _blocks(bs)]
+    rng = np.random.default_rng(77)
+    slot = F.compress_bound(bs) + 8
+    payloads = bases + make_mutants(bases, rng, 256, slot - 8)
+    comp = np.zeros((len(payloads), slot), np.uint8)
+    clen = np.zeros(len(payloads), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    ct, lt = torch.from_numpy(comp).to(dev), torch.from_numpy(clen).to(dev)
+    out, out_len, err = K1.decompress_blocks_v7(ct, lt, bs)
+    pout, plen, perr = K1.decompress_blocks_plain(ct, lt, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(err, perr) and torch.equal(out_len, plen)
+    assert torch.equal(out, pout)
+    out, out_len, err = out.cpu().numpy(), out_len.cpu().numpy(), \
+        err.cpu().numpy()
+    for j, c in enumerate(payloads):
+        try:
+            want = golden.decompress(c, bs)
+        except golden.DecodeError:
+            want = None
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out[j, :out_len[j]].tobytes() == want, j
+
+
+def test_slice_runs_every_kernel(dev):
+    import lz4_sgori_torch
+    from lz4_sgori_tpu.utils.stats import Stats
+    data = b"".join(_blocks(65536)[:4]) * 2
+    for m in (K1, K2, K3, K4):
+        m.launches = 0
+    stats = Stats()
+    container = lz4_sgori_torch.compress(data, 65536, stats=stats)
+    assert lz4_sgori_torch.decompress(container) == data
+    assert stats.encode_fallbacks == 0
+    assert min(m.launches for m in (K1, K2, K3, K4)) > 0

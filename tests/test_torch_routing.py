@@ -1,0 +1,73 @@
+"""The port's routing table against the JAX package's, on the kernel
+column (the JAX table's TPU column), across the fio block-size envelope;
+engines the port lacks raise NotImplementedError instead of rerouting."""
+
+import numpy as np
+import pytest
+import torch
+
+from lz4_sgori_torch import routing as R
+from lz4_sgori_torch.ops.decode import decompress_blocks_device
+from lz4_sgori_torch.ops.encode import compress_blocks_device
+from lz4_sgori_tpu.ops import routing as J
+
+FIO_SIZES = [4096, 8192, 16384, 32768, 65536, 131072, 262144,
+             524288, 1048576, 2097152, 4194304, 96 * 1024, 65536 + 4096]
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+def test_decode_table_matches_jax(kernel):
+    for n in FIO_SIZES:
+        for impl in J.DECODE_IMPLS:
+            assert R.select_decode_engine(n, kernel, impl) == \
+                J.select_decode_engine(n, kernel, impl), (n, impl)
+    assert R.select_decode_engine(65536) == "v7"
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+def test_encode_table_matches_jax(kernel):
+    for n in FIO_SIZES:
+        for d in (1, 3, 5):
+            for impl in J.ENCODE_IMPLS:
+                e = R.select_encode_engine(n, d, kernel, impl)
+                assert e == J.select_encode_engine(n, d, kernel, impl)
+                assert R.encode_depth_cap(e, d) == J.encode_depth_cap(e, d)
+    for n in FIO_SIZES:
+        assert R.seg_for(n) == J.seg_for(n)
+    assert R.select_encode_engine(65536, 1) == "seg"
+
+
+def test_unknown_impls_raise():
+    with pytest.raises(ValueError, match="unknown decode impl"):
+        R.select_decode_engine(65536, True, "scalar")
+    with pytest.raises(ValueError, match="unknown encode impl"):
+        R.select_encode_engine(65536, 1, True, "scalar")
+
+
+@pytest.mark.parametrize("engine", sorted(R.UNPORTED))
+def test_unported_engines_raise(engine):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        R.require_ported(engine)
+
+
+def test_unported_requests_raise_end_to_end(monkeypatch):
+    raw = torch.zeros((1, 4096), dtype=torch.uint8)
+    rl = torch.tensor([4096], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K7"):
+        compress_blocks_device(raw, rl, 4096)              # enc3 band
+    raw = torch.zeros((1, 65536), dtype=torch.uint8)
+    rl = torch.tensor([100], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K8"):
+        compress_blocks_device(raw, rl, 65536, match_depth=3)
+    with pytest.raises(NotImplementedError, match="K7"):
+        compress_blocks_device(raw, rl, 65536, match_depth=5)
+    monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
+    with pytest.raises(NotImplementedError, match="K10"):
+        compress_blocks_device(raw, rl, 65536)
+    comp = torch.from_numpy(np.zeros((1, 64), np.uint8))
+    clen = torch.tensor([1], dtype=torch.int32)
+    for out_size, item in ((4096, "K5"), (1 << 20, "K6")):
+        with pytest.raises(NotImplementedError, match=item):
+            decompress_blocks_device(comp, clen, out_size)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        decompress_blocks_device(comp, clen, 65536, impl="xla")
