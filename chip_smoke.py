@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of the 64 KiB compress -> verify ->
-decompress path from ``lz4_sgori_torch/csrc`` and then, on a 32 MiB
-synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, 512 blocks
-of 64 KiB, held on the card):
+Builds the six CUDA kernels of the port from ``lz4_sgori_torch/csrc``
+(one nvcc each, all started together) and drives two paths on a 32 MiB
+synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, held on the
+card).
+
+The 64 KiB compress -> verify -> decompress path (512 blocks; engines
+seg and v7, kernels K1-K4):
 
 1. compares each kernel with its plain PyTorch version on the same
    inputs (a 32-block subset, exactly: the outputs are bytes);
@@ -20,6 +23,30 @@ of 64 KiB, held on the card):
 5. times the kernel path and each kernel against its plain version with
    CUDA events.
 
+The 4 KiB block-device path (8192 blocks; engines enc3 and v6, kernels
+K2, K7 and K5), in ``_smoke_4k``:
+
+6. K7 and K5 against their plain versions exactly (K7 on all five outputs
+   of a 64-block subset, and against K3 then K4 at seg = block size; K5 at
+   4 KiB, 8 KiB, and 256 KiB on blocks of ``native.compress``);
+7. the golden contract: 64 blocks at 4 KiB and their tails, acceleration 8,
+   the non-aligned enc3 sizes 5,000 and 60,000 with edge blocks, and
+   seg_splice at 96 and 196 KiB, each decoded through its routed engine;
+8. ``lz4_sgori_torch.compress`` / ``decompress`` at 4 KiB with the
+   counters reset just before: round trip, zero host fallbacks, K2, K7
+   and K5 launched and K1, K3 and K4 not, every block decoding under the
+   native decoder (and liblz4 where present);
+9. the ratio of bench.py's config-3 mix (4096 zero-or-random 4 KiB
+   chunks) against the TPU record of the same bytes;
+10. a ProxyStore over a 32 MiB backing file, written with 8192
+    sequential 4 KiB requests and read back under sha256, 1024 chunks
+    through a CompressedStore, and the CLI's ``verify`` sweep at 4, 8, 64
+    and 96 KiB, which launches all six kernels;
+11. 1024 corrupted 4 KiB streams through the v6 route against
+    golden.decompress's verdict;
+12. times with CUDA events: the 4 KiB kernel path, K2, K7 and K5 beside
+    their plain versions, and the ProxyStore's write latency.
+
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX. The last two
 lines are the per-kernel JSON record and the device JSON line.
@@ -32,9 +59,11 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+DEVICE = "cuda"
 BLOCK = 65536
 CORPUS_BYTES = 32 << 20
 SUBSET = 32
@@ -44,6 +73,15 @@ MUTANTS = 1024
 # are device-independent, so the port should reproduce them
 TPU_RECORD = {"ratio": 2.661, "size_vs_lz4": 0.9906}
 
+BLOCK4 = 4096
+SUBSET4 = 64
+GOLDEN4 = 64
+MIX_CHUNKS = 4096
+# TPU record of bench.py's config-3 mix (BENCH_r05.json
+# bdev_4k_mix_ratio, engine enc3): the same bytes, so the same ratio
+TPU_MIX_RATIO = 1.9376
+STORE_CHUNKS_COMPRESSED = 1024
+
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
      "lz4_sgori_tpu/ops/pallas/lockstep_v7.py:209"),
@@ -51,7 +89,13 @@ KERNELS = [
     ("K3 parse_seg", "parse_seg",
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
     ("K4 asm_seg", "asm_seg", "lz4_sgori_tpu/ops/pallas/asm_seg.py:56"),
+    ("K5 decode_v6", "decode_v6",
+     "lz4_sgori_tpu/ops/pallas/lockstep_v6.py:283"),
+    ("K7 parse_enc3", "parse_enc3",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
 ]
+PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
+PATH4 = ("cand", "parse_enc3", "decode_v6")
 
 
 def _mutate(b: bytearray, rng) -> bytes:
@@ -123,6 +167,15 @@ def need(cond: bool, what: str) -> None:
         raise Failed(what)
 
 
+def check_launches(counts: dict, path: str, used, idle) -> None:
+    """Every kernel of ``used`` launched on the path, none of ``idle``."""
+    for k in used:
+        need(counts[k] > 0, f"kernel {k} was not launched on the {path} "
+                            "path")
+    for k in idle:
+        need(counts[k] == 0, f"kernel {k} was launched on the {path} path")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -151,15 +204,18 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import _build
     from lz4_sgori_torch.ops.kernels import asm_seg as K4
     from lz4_sgori_torch.ops.kernels import cand as K2
+    from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+    from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
     from lz4_sgori_tpu import format as F
     from lz4_sgori_tpu import golden, native
     from lz4_sgori_tpu.utils import oracle
     from lz4_sgori_tpu.utils.stats import Stats
 
-    mods = {"decode_v7": K1, "cand": K2, "parse_seg": K3, "asm_seg": K4}
-    dev = torch.device("cuda")
+    mods = {"decode_v7": K1, "cand": K2, "parse_seg": K3, "asm_seg": K4,
+            "decode_v6": K5, "parse_enc3": K7}
+    dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()[0]
@@ -174,9 +230,9 @@ def _smoke(torch) -> int:
     print(f"nvcc: {_run([_build.nvcc_path(), '--version']).splitlines()[-1]}")
 
     t0 = time.perf_counter()
-    for m in mods.values():
-        m.load_kernel()
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.load_kernel(), mods.values()))
+    print(f"build: {time.perf_counter() - t0:.1f} s in parallel for "
           + ", ".join(f"{k} {v:.1f} s" for k, v in
                       _build.build_seconds.items()))
     for k, log in _build.build_log.items():
@@ -283,17 +339,17 @@ def _smoke(torch) -> int:
     sync()
     t0 = time.perf_counter()
     container = lz4_sgori_torch.compress(data, BLOCK, stats=stats,
-                                         device="cuda")
+                                         device=DEVICE)
     t_enc = time.perf_counter() - t0
     t0 = time.perf_counter()
-    back = lz4_sgori_torch.decompress(container, stats=stats, device="cuda")
+    back = lz4_sgori_torch.decompress(container, stats=stats, device=DEVICE)
     t_dec = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     need(back == data, "main path round trip differs")
     need(stats.encode_fallbacks == 0,
          f"{stats.encode_fallbacks} host fallbacks on the main path")
-    for k, c in counts.items():
-        need(c > 0, f"kernel {k} was not launched on the main path")
+    check_launches(counts, "64 KiB", PATH64,
+                   [k for k in mods if k not in PATH64])
     cb = B.CompressedBlocks.from_container(container)
     need(native.available(), "the native codec did not build (g++?)")
     lz_native = 0
@@ -382,12 +438,16 @@ def _smoke(torch) -> int:
     for k, (a, b) in sub_times.items():
         print(f"[{card}] {k} on {SUBSET} blocks: kernel {a:.4f} ms, "
               f"plain {b:.4f} ms")
-    errs = {"decode_v7": err1, "cand": err2, "parse_seg": err3,
-            "asm_seg": err4}
+
+    r4 = _smoke_4k(torch, data, card, time_ms, maxdiff, mods)
+    errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
+            "parse_seg": err3, "asm_seg": err4, **r4["errs"]}
+    sub_times.update(r4["sub_times"])
     record = {"kernels": [
         {"name": label, "route": "cuda",
          "source": f"lz4_sgori_torch/csrc/{key}.cu", "replaces": where,
-         "launches": counts[key], "max_abs_err": errs[key],
+         "launches": counts[key] + r4["counts"][key],
+         "max_abs_err": errs[key],
          "ms": sub_times[key][0], "plain_ms": sub_times[key][1]}
         for label, key, where in KERNELS]}
     print(f"card: {card}")
@@ -396,6 +456,333 @@ def _smoke(torch) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _pack_streams(streams, slot: int):
+    comp = np.zeros((len(streams), slot), np.uint8)
+    clen = np.zeros(len(streams), np.int32)
+    for j, c in enumerate(streams):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    return comp, clen
+
+
+def _batch(blocks, bs: int):
+    raw = np.zeros((len(blocks), bs), np.uint8)
+    rlen = np.zeros(len(blocks), np.int32)
+    for j, b in enumerate(blocks):
+        raw[j, :len(b)] = np.frombuffer(b, np.uint8)
+        rlen[j] = len(b)
+    return raw, rlen
+
+
+def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
+    """Phases 6-12: the 4 KiB block-device path. Returns the per-kernel
+    errors, launch counts and subset times of K5 and K7 for the record."""
+    import hashlib
+    import tempfile
+
+    import lz4_sgori_torch
+    from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import cli
+    from lz4_sgori_torch import store as ST
+    from lz4_sgori_torch.ops import seg as S
+    from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops.enc3 import compress_blocks_enc3
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
+    from lz4_sgori_torch.ops.kernels import cand as K2
+    from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
+    from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+    from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
+    from lz4_sgori_tpu import format as F
+    from lz4_sgori_tpu import golden, native
+    from lz4_sgori_tpu.utils import oracle
+    from lz4_sgori_tpu.utils.stats import Stats
+
+    dev = torch.device(DEVICE)
+
+    def to_dev(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def decodes_to(res, blocks, what):
+        out, out_len, err = (t.cpu().numpy() for t in res)
+        for j, b in enumerate(blocks):
+            need(not err[j] and out_len[j] == len(b)
+                 and out[j, :len(b)].tobytes() == b,
+                 f"{what}: block {j} does not decode to its bytes")
+
+    raw_np, rlen_np = B.split_blocks(data, BLOCK4)
+    raw, rlen = to_dev(raw_np, rlen_np)
+    nb = raw.shape[0]
+    slot4 = F.compress_bound(BLOCK4) + 8
+
+    # ---- phase 6: K7 and K5 against their plain versions ----
+    t0 = time.perf_counter()
+    sub = torch.arange(0, nb, max(1, nb // SUBSET4), device=dev)[:SUBSET4]
+    rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+    sub_blocks = [raw_np[j, :rlen_np[j]].tobytes() for j in sub.tolist()]
+    cs = K2.dense_candidates(rs, ls)
+    err2 = maxdiff(cs, K2.dense_candidates_plain(rs, ls))
+    need(err2 == 0, f"K2 differs from its plain version at 4 KiB by {err2}")
+    k7 = K7.parse_blocks_enc3(rs, cs, ls)
+    p7 = K7.parse_blocks_enc3_plain(rs, cs, ls)
+    err7 = max(maxdiff(a, b) for a, b in zip(k7, p7))
+    need(err7 == 0, f"K7 differs from its plain version by {err7}")
+    need(not bool(k7[2].any()), "K7 flagged a subset block")
+    sc, sl, serr, sns = S.compress_blocks_seg(rs, ls, BLOCK4, seg=BLOCK4)
+    need(not bool(serr.any()) and torch.equal(sc, k7[0])
+         and torch.equal(sl, k7[1]) and torch.equal(sns, k7[4]),
+         "K7 differs from K3 then K4 at seg = block size")
+
+    e5 = []
+    d5 = K5.decompress_blocks_v6(k7[0], k7[1], BLOCK4)
+    e5.append(max(maxdiff(x, y) for x, y in zip(
+        d5, K1.decompress_blocks_plain(k7[0], k7[1], BLOCK4))))
+    decodes_to(d5, sub_blocks, "K5 at 4 KiB")
+    b8 = [data[j * 8192:(j + 1) * 8192] for j in range(SUBSET4)]
+    r8, l8 = to_dev(*_batch(b8, 8192))
+    c8, n8 = compress_blocks_device(r8, l8, 8192)
+    d5 = K5.decompress_blocks_v6(c8, n8, 8192)
+    e5.append(max(maxdiff(x, y) for x, y in zip(
+        d5, K1.decompress_blocks_plain(c8, n8, 8192))))
+    decodes_to(d5, b8, "K5 at 8 KiB")
+    bs256 = 262144
+    b256 = [data[j * bs256:(j + 1) * bs256] for j in
+            np.linspace(0, len(data) // bs256 - 1, 8).astype(int)]
+    c256, n256 = to_dev(*_pack_streams([native.compress(b) for b in b256],
+                                       F.compress_bound(bs256) + 8))
+    d5 = K5.decompress_blocks_v6(c256, n256, bs256)
+    e5.append(max(maxdiff(x, y) for x, y in zip(
+        d5, K1.decompress_blocks_plain(c256, n256, bs256))))
+    decodes_to(d5, b256, "K5 at 256 KiB")
+    err5 = max(e5)
+    need(err5 == 0, f"K5 differs from its plain version by {err5}")
+    print(f"phase K7/K5 == plain: ok; K7 on {SUBSET4} blocks of 4 KiB (all "
+          f"five outputs) and == K3 then K4 at seg 4096; K5 at 4 KiB, 8 KiB "
+          f"and 256 KiB ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 7: the golden contract ----
+    t0 = time.perf_counter()
+    gsel = np.linspace(0, nb - 1, GOLDEN4).astype(np.int64)
+    gi = torch.from_numpy(gsel).to(dev)
+    gblocks = [raw_np[j, :rlen_np[j]].tobytes() for j in gsel]
+    gc, gl, ge, gt = (t.cpu().numpy() for t in compress_blocks_enc3(
+        raw[gi], rlen[gi], BLOCK4, return_tails=True))
+    dc, dl = compress_blocks_device(raw[gi], rlen[gi], BLOCK4)
+    need(np.array_equal(dc.cpu().numpy(), gc)
+         and np.array_equal(dl.cpu().numpy(), gl),
+         "compress_blocks_device at 4 KiB differs from the enc3 engine")
+    for j, b in enumerate(gblocks):
+        want = golden.compress_dense(b, 1, hashlog=16)
+        need(not ge[j] and gc[j, :gl[j]].tobytes() == want,
+             f"4 KiB block {gsel[j]}: bytes differ from golden.compress_dense")
+        need(int(gt[j]) == golden.tail_offset(want),
+             f"4 KiB block {gsel[j]}: tail differs from golden.tail_offset")
+    decodes_to(decompress_blocks_device(dc, dl, BLOCK4), gblocks,
+               "v6 route at 4 KiB")
+
+    cases = [("acceleration 8", BLOCK4, 8, gblocks[:8])]
+    for bs in (5000, 60000):
+        offs = np.linspace(0, len(data) - bs, 4).astype(int)
+        edge = [b"", data[:1], data[:12], data[:13], data[:bs // 3]]
+        cases.append((f"block size {bs}", bs, 1,
+                      [data[o:o + bs] for o in offs] + edge))
+    for what, bs, acc, blocks in cases:
+        r, l = to_dev(*_batch(blocks, bs))
+        c, n = compress_blocks_device(r, l, bs, acceleration=acc)
+        cn, nn = c.cpu().numpy(), n.cpu().numpy()
+        for j, b in enumerate(blocks):
+            need(cn[j, :nn[j]].tobytes()
+                 == golden.compress_dense(b, acc, hashlog=16),
+                 f"{what}: block {j} differs from golden.compress_dense")
+        decodes_to(decompress_blocks_device(c, n, bs), blocks,
+                   f"{what}, routed decode")
+        decodes_to(K5.decompress_blocks_v6(c, n, bs), blocks, f"{what}, K5")
+    for bs, nblk in ((96 * 1024, 3), (196 * 1024, 2)):
+        blocks = [data[j * bs:(j + 1) * bs] for j in range(nblk - 1)]
+        blocks.append(data[:bs - 12345])
+        r, l = to_dev(*_batch(blocks, bs))
+        c, n = compress_blocks_device(r, l, bs)
+        cn, nn = c.cpu().numpy(), n.cpu().numpy()
+        for j, b in enumerate(blocks):
+            need(cn[j, :nn[j]].tobytes() == golden.compress_segmented(b),
+                 f"seg_splice at {bs}: block {j} differs from "
+                 "golden.compress_segmented")
+        decodes_to(decompress_blocks_device(c, n, bs), blocks,
+                   f"seg_splice at {bs}, routed decode")
+    print(f"phase golden 4 KiB: ok on {GOLDEN4} blocks with tails, "
+          "acceleration 8, enc3 at 5000 and 60000 with edge blocks, "
+          "seg_splice at 96 and 196 KiB "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 8: the 4 KiB main path, counters reset just before ----
+    for m in mods.values():
+        m.launches = 0
+    stats = Stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    container = lz4_sgori_torch.compress(data, BLOCK4, stats=stats,
+                                         device=DEVICE)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = lz4_sgori_torch.decompress(container, stats=stats, device=DEVICE)
+    t_dec = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in mods.items()}
+    need(back == data, "4 KiB main path round trip differs")
+    need(stats.encode_fallbacks == 0,
+         f"{stats.encode_fallbacks} host fallbacks on the 4 KiB path")
+    check_launches(counts, "4 KiB", PATH4,
+                   [k for k in mods if k not in PATH4])
+    cb = B.CompressedBlocks.from_container(container)
+    lz_native = 0
+    for j in range(nb):
+        blk = raw_np[j, :rlen_np[j]].tobytes()
+        c = cb.comp[j, :cb.comp_len[j]].tobytes()
+        need(native.decompress(c, BLOCK4) == blk,
+             f"4 KiB block {j} fails the native decoder")
+        if oracle.available():
+            need(oracle.decompress(c, BLOCK4) == blk,
+                 f"4 KiB block {j} fails liblz4")
+        lz_native += len(native.compress(blk))
+    print(f"4 KiB path: round trip ok, host fallbacks 0, launches {counts}")
+    print(f"4 KiB path: native decode ok, liblz4 decode "
+          f"{'ok' if oracle.available() else 'not run (liblz4 absent)'}")
+    print(f"4 KiB path: ratio {len(data) / cb.compressed_size:.4f}, size "
+          f"{cb.compressed_size / lz_native:.4f}x native "
+          "LZ4_compress_default per 4 KiB block")
+    print(f"4 KiB path wall: compress {t_enc:.3f} s "
+          f"({len(data) / t_enc / 1e9:.4f} GB/s), decompress {t_dec:.3f} s "
+          f"({len(data) / t_dec / 1e9:.4f} GB/s), host framing included")
+
+    # ---- phase 9: bench.py's config-3 mix ----
+    rng = np.random.RandomState(77)
+    chunks = []
+    for _ in range(MIX_CHUNKS):
+        if rng.rand() < 0.5:
+            chunks.append(np.zeros(BLOCK4, np.uint8))
+        else:
+            chunks.append(rng.randint(0, 256, BLOCK4).astype(np.uint8))
+    mraw = np.stack(chunks)
+    mr, ml = to_dev(mraw, np.full(MIX_CHUNKS, BLOCK4, np.int32))
+    mc, mn = compress_blocks_device(mr, ml, BLOCK4)
+    need(bool((mn > 0).all()), "config-3 mix: a block failed to encode")
+    mo, mol, me = decompress_blocks_device(mc, mn, BLOCK4)
+    need(not bool(me.any()) and torch.equal(mo, mr),
+         "config-3 mix: the round trip differs")
+    mix_ratio = mraw.size / int(mn.sum())
+    need(round(mix_ratio, 4) == TPU_MIX_RATIO,
+         f"config-3 mix ratio {mix_ratio:.4f} != {TPU_MIX_RATIO}")
+    print(f"phase config-3 mix: ratio {mix_ratio:.4f} (TPU record of the "
+          f"same bytes: {TPU_MIX_RATIO})")
+
+    # ---- phase 10: the stores ----
+    nreq = len(data) // BLOCK4
+    with tempfile.TemporaryDirectory() as tmp:
+        st = ST.ProxyStore(os.path.join(tmp, "backing.img"),
+                           chunk_size=BLOCK4, capacity=nreq * BLOCK4,
+                           device=DEVICE)
+        lat = []
+        t0 = time.perf_counter()
+        for i in range(nreq):
+            t1 = time.perf_counter()
+            st.write(i * BLOCK4, data[i * BLOCK4:(i + 1) * BLOCK4])
+            lat.append(time.perf_counter() - t1)
+        t_store = time.perf_counter() - t0
+        got = st.read(0, nreq * BLOCK4)
+        need(hashlib.sha256(got).digest()
+             == hashlib.sha256(data[:nreq * BLOCK4]).digest(),
+             "ProxyStore read-back differs under sha256")
+        w = st.stats.as_dict()["write"]
+        need(w["reqs_total"] == nreq and w["reqs_failed"] == 0
+             and st.stats.encode_fallbacks == 0,
+             f"ProxyStore stats: {w}, fallbacks {st.stats.encode_fallbacks}")
+        st.close()
+        cst = ST.CompressedStore(os.path.join(tmp, "cstore"),
+                                 chunk_size=BLOCK4, device=DEVICE)
+        for i in range(STORE_CHUNKS_COMPRESSED):
+            cst.write_chunk(i, data[i * BLOCK4:(i + 1) * BLOCK4])
+        for i in range(STORE_CHUNKS_COMPRESSED):
+            need(cst.read_chunk(i) == data[i * BLOCK4:(i + 1) * BLOCK4],
+                 f"CompressedStore chunk {i} differs")
+        need(cst.stats.encode_fallbacks == 0, "CompressedStore fell back")
+        # the CLI's fio-style sweep over a 4 MiB file: every ported engine
+        path = os.path.join(tmp, "sweep.bin")
+        with open(path, "wb") as f:
+            f.write(data[:4 << 20])
+        for m in mods.values():
+            m.launches = 0
+        rc = cli.main(["--device", DEVICE, "verify", path, "--block-sizes",
+                       "4", "8", "64", "96"])
+        need(rc == 0, f"lz4j verify exited {rc}")
+        cli_counts = {k: m.launches for k, m in mods.items()}
+        check_launches(cli_counts, "CLI verify", list(mods), [])
+    lat_ms = 1e3 * float(np.median(lat))
+    print(f"phase store: ProxyStore {nreq} writes of 4 KiB, sha256 "
+          f"read-back ok, 0 failed, 0 fallbacks; CompressedStore "
+          f"{STORE_CHUNKS_COMPRESSED} chunks ok; lz4j verify at 4, 8, 64 "
+          f"and 96 KiB ok, launches {cli_counts}")
+    print(f"[{card}] ProxyStore.write of 4 KiB: median {lat_ms:.4f} ms, "
+          f"p99 {1e3 * float(np.percentile(lat, 99)):.4f} ms, "
+          f"{nreq * BLOCK4 / t_store / 1e9:.4f} GB/s over {nreq} sequential "
+          "requests")
+
+    # ---- phase 11: malformed 4 KiB streams through the v6 route ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4321)
+    bases = [cb.comp[j, :cb.comp_len[j]].tobytes()
+             for j in range(0, nb, max(1, nb // 64))]
+    muts = make_mutants(bases, rng, MUTANTS, slot4 - 8)
+    uc, ul = to_dev(*_pack_streams(muts, slot4))
+    uo, ull, ue = (t.cpu().numpy() for t in
+                   decompress_blocks_device(uc, ul, BLOCK4))
+    n_err = 0
+    for j, m in enumerate(muts):
+        try:
+            want = golden.decompress(m, BLOCK4)
+        except golden.DecodeError:
+            want = None
+        need(bool(ue[j]) == (want is None),
+             f"4 KiB mutant {j}: err {bool(ue[j])} vs golden {want is None}")
+        if want is None:
+            n_err += 1
+        else:
+            need(ull[j] == len(want) and uo[j, :len(want)].tobytes() == want,
+                 f"4 KiB mutant {j}: bytes differ from golden")
+    print(f"phase malformed 4 KiB (v6 route): {len(muts)} mutants, {n_err} "
+          f"rejected, err == golden for all "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 12: times ----
+    ms_enc = time_ms(lambda: compress_blocks_device(raw, rlen, BLOCK4), 5)
+    fc, fl = compress_blocks_device(raw, rlen, BLOCK4)
+    ms_dec = time_ms(lambda: decompress_blocks_device(fc, fl, BLOCK4), 5)
+    print(f"[{card}] 4 KiB kernel path over the corpus: encode "
+          f"{ms_enc:.3f} ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode "
+          f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
+    fcand = K2.dense_candidates(raw, rlen)
+    full = {"cand": time_ms(lambda: K2.dense_candidates(raw, rlen), 5),
+            "parse_enc3": time_ms(
+                lambda: K7.parse_blocks_enc3(raw, fcand, rlen), 5),
+            "decode_v6": ms_dec}
+    print(f"[{card}] kernels over the 4 KiB corpus (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in full.items()))
+    sub_times = {
+        "cand": (time_ms(lambda: K2.dense_candidates(rs, ls), 10),
+                 time_ms(lambda: K2.dense_candidates_plain(rs, ls), 3)),
+        "parse_enc3": (time_ms(lambda: K7.parse_blocks_enc3(rs, cs, ls), 10),
+                       time_ms(lambda: K7.parse_blocks_enc3_plain(rs, cs, ls),
+                               1)),
+        "decode_v6": (time_ms(lambda: K5.decompress_blocks_v6(
+            k7[0], k7[1], BLOCK4), 10),
+            time_ms(lambda: K1.decompress_blocks_plain(
+                k7[0], k7[1], BLOCK4), 3)),
+    }
+    for k, (a, b) in sub_times.items():
+        print(f"[{card}] {k} on {SUBSET4} blocks of 4 KiB: kernel {a:.4f} "
+              f"ms, plain {b:.4f} ms")
+    del sub_times["cand"]       # the record keeps K2's 64 KiB subset times
+    return {"errs": {"cand": err2, "parse_enc3": err7, "decode_v6": err5},
+            "counts": counts, "sub_times": sub_times}
 
 
 if __name__ == "__main__":

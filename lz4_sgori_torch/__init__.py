@@ -7,10 +7,12 @@ classes of ``blocks``) by import.
 
 Layer map (top-down):
 
+- ``cli`` / ``store``        — the lz4j CLI, ProxyStore and CompressedStore
 - ``blocks``                 — framing, write verify, container
 - ``routing``                — the engine table (kernel column)
 - ``ops.encode`` / ``ops.decode`` — batched device encode and decode
-- ``ops.seg``                — the seg engine's glue between kernels
+- ``ops.seg`` / ``ops.enc3`` — the seg and enc3 engines' glue between
+  kernels
 - ``ops.kernels``            — one wrapper + plain version per CUDA kernel
 - ``csrc``                   — the CUDA C++ kernels for sm_90a
 """

@@ -5,7 +5,8 @@
 // lockstep through a mode machine with banded window walks, because
 // Mosaic has no per-lane scalar loop. Here each segment is one thread
 // running the scalar parse of golden.compress_dense_seg_parts
-// (lz4_sgori_tpu/golden.py:481-583) at depth 1.
+// (lz4_sgori_tpu/golden.py:481-583) at depth 1. The loop itself is
+// greedy_parse.cuh, shared with K7 (parse_enc3.cu).
 //
 // Per segment k of block b (global byte coordinates):
 //   s0 = k*seg, s1 = s0 + clamp(n - s0, 0, seg),
@@ -28,10 +29,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ uint32_t rd32(const uint8_t* s, int i) {
-  return (uint32_t)s[i] | ((uint32_t)s[i + 1] << 8) |
-         ((uint32_t)s[i + 2] << 16) | ((uint32_t)s[i + 3] << 24);
-}
+#include "greedy_parse.cuh"
 
 __global__ void parse_seg_kernel(
     const uint8_t* __restrict__ raw, const int* __restrict__ cand,
@@ -45,101 +43,19 @@ __global__ void parse_seg_kernel(
   if (t >= nb * nseg) return;
   const int blk = t / nseg;
   const int k = t - blk * nseg;
-  const uint8_t* src = raw + (size_t)blk * bs;
-  const int* cd = cand + (size_t)blk * bs;
-  uint8_t* dst = streams + (size_t)t * scap;
   const int n = min(max(raw_len[blk], 0), bs);
   const int s0 = k * seg;
   const int s1 = s0 + min(max(n - s0, 0), seg);
-  const int mfl = min(s1 - 4, n - 12);
-  const int mlim = min(s1, n - 5);
-  int anchor = s0;
-  int pos = max(s0, 1);
-  bool frag = k > 0;
-  int p1 = 0, m1 = 0, ns = 0, o = 0;
-  bool has_match = false, bad = false;
-
-#define EMIT(byte)                  \
-  do {                              \
-    if (o >= scap) { bad = true; } \
-    else { dst[o++] = (uint8_t)(byte); } \
-  } while (0)
-
-  while (!bad) {
-    // skip-accelerated search, fresh schedule per sequence
-    int fpos = pos, step = 1, smn = accel << 6, mpos = 0;
-    bool found = false;
-    while (fpos + step <= mfl + 1) {
-      pos = fpos;
-      fpos += step;
-      step = smn >> 6;
-      smn++;
-      const int d = cd[pos];
-      if (d > 0 && d <= wlim && d <= pos && rd32(src, pos - d) == rd32(src, pos)) {
-        mpos = pos - d;
-        found = true;
-        break;
-      }
-    }
-    if (!found) break;
-    // catch-up, capped at the anchor (the segment start for the first
-    // sequence)
-    while (pos > anchor && mpos > 0 && src[pos - 1] == src[mpos - 1]) {
-      pos--;
-      mpos--;
-    }
-    const int lit = pos - anchor;
-    int token_at = -1, token = 0;
-    if (!frag) {
-      token_at = o;
-      EMIT(0);
-      if (lit >= 15) {
-        token = 15 << 4;
-        int rem = lit - 15;
-        for (; rem >= 255; rem -= 255) EMIT(255);
-        EMIT(rem);
-      } else {
-        token = lit << 4;
-      }
-    }
-    if (bad || lit > scap - o) { bad = true; break; }
-    for (int i = anchor; i < pos; i++) dst[o++] = src[i];
-    const int off = pos - mpos;
-    EMIT(off & 255);
-    EMIT(off >> 8);
-    const int p = pos + 4, m = mpos + 4;
-    const int lim = mlim - p;
-    int mc = 0;
-    while (mc < lim && src[p + mc] == src[m + mc]) mc++;
-    pos = p + mc;
-    if (mc >= 15) {
-      if (!frag) token += 15;
-      int rem = mc - 15;
-      for (; rem >= 255; rem -= 255) EMIT(255);
-      EMIT(rem);
-    } else if (!frag) {
-      token += mc;
-    }
-    if (bad) break;
-    if (frag) {
-      p1 = p - 4;
-      m1 = mc;
-      frag = false;
-    } else {
-      dst[token_at] = (uint8_t)token;
-    }
-    has_match = true;
-    ns++;
-    anchor = pos;
-    if (pos > mfl) break;
-  }
-#undef EMIT
-  slen[t] = o;
-  serr[t] = bad ? 1 : 0;
-  last_end[t] = anchor;
-  nseq[t] = ns;
-  p1_out[t] = p1;
-  m1h_out[t] = m1 | (has_match ? 1 << 16 : 0);
+  const ParseState st = greedy_parse(
+      raw + (size_t)blk * bs, cand + (size_t)blk * bs,
+      streams + (size_t)t * scap, scap, s0, min(s1 - 4, n - 12),
+      min(s1, n - 5), k > 0, wlim, accel);
+  slen[t] = st.o;
+  serr[t] = st.bad ? 1 : 0;
+  last_end[t] = st.anchor;
+  nseq[t] = st.nseq;
+  p1_out[t] = st.p1;
+  m1h_out[t] = st.m1 | (st.has_match ? 1 << 16 : 0);
 }
 
 extern "C" int lz4t_parse_seg(const void* raw, const void* cand,

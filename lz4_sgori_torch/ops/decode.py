@@ -1,9 +1,10 @@
 """Batched LZ4 block decode on a device.
 
 Port of ``lz4_sgori_tpu/ops/decode.py:decompress_blocks_device``. The
-engine comes from the routing table; the port has the v7 band's kernel
-(K1, ``kernels/lockstep_v7.py``), whose plain version is the port of the
-JAX package's portable decoder ``_decompress_blocks_impl``.
+engine comes from the routing table: the v7 band (16-128 KiB) runs K1
+(``kernels/lockstep_v7.py``), the v6 bands (under 16 KiB and 132-256 KiB)
+run K5 (``kernels/lockstep_v6.py``). Both kernels' plain version is the
+port of the JAX package's portable decoder ``_decompress_blocks_impl``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import torch
 
 from .. import routing
+from .kernels.lockstep_v6 import decompress_blocks_v6
 from .kernels.lockstep_v7 import decompress_blocks_v7
+
+_ENGINES = {"v6": decompress_blocks_v6, "v7": decompress_blocks_v7}
 
 
 def decompress_blocks_device(comp: torch.Tensor, comp_len: torch.Tensor,
@@ -28,4 +32,4 @@ def decompress_blocks_device(comp: torch.Tensor, comp_len: torch.Tensor,
     del cost_key
     engine = routing.select_decode_engine(out_size, True, impl)
     routing.require_ported(engine)
-    return decompress_blocks_v7(comp, comp_len.to(torch.int32), out_size)
+    return _ENGINES[engine](comp, comp_len.to(torch.int32), out_size)

@@ -1,0 +1,59 @@
+"""The enc3 engine: block-per-lane compress (kernels K2 and K7 plus
+PyTorch glue).
+
+Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
+compress_blocks_lockstep_enc3`` at depth 1 for blocks of at most 64 KiB.
+Byte contract: ``golden.compress_dense(block, accel, hashlog=16)`` per
+block. The routing table sends it blocks under 8 KiB (the 4 KiB
+block-device path), blocks of at most 64 KiB that are not 4 KiB
+multiples, and the 64 KiB segments of the seg_splice engine.
+
+Pipeline: mask bytes past ``raw_len`` -> K2 candidates -> K7 whole-block
+parse. K7 writes each block whole, terminal sequence included, so no
+assembly pass follows. What only the TPU needed is left out: the
+128-lane tape packing (``pack_tapes``/``unpack_tapes``) and
+``_pack_cand``'s two positions per row, the density regrouping of
+blocks (a permutation that is inverted again, so the bytes never
+change), the ``optimization_barrier`` chains, and the per-group
+invocation when a grid does not fit VMEM.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernels.cand import dense_candidates
+from .kernels.parse_enc3 import MAX_BLOCK, parse_blocks_enc3
+
+
+def compress_blocks_enc3(raw: torch.Tensor, raw_len: torch.Tensor,
+                         block_size: int, accel: int = 1,
+                         return_tails: bool = False,
+                         return_nseq: bool = False):
+    """Compress ``[nb, >= block_size]`` uint8 blocks on their device.
+
+    Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past
+    the length, comp_len int32 [nb], err bool [nb]), then ``tails`` (the
+    terminal sequence's offset) with ``return_tails`` and ``nseq`` with
+    ``return_nseq``, in that order. ``err`` marks a block past
+    ``compress_bound`` (its ``comp_len`` is 0).
+    """
+    if block_size > MAX_BLOCK:
+        raise ValueError(
+            f"enc3 serves blocks of at most {MAX_BLOCK} bytes (K2's "
+            "candidate table and K7's 16-bit offsets); larger blocks go "
+            "through seg_splice or seg_big")
+    dev = raw.device
+    raw_len = raw_len.to(device=dev, dtype=torch.int32)
+    pos = torch.arange(block_size, device=dev)
+    rawm = torch.where(pos[None, :] < raw_len[:, None],
+                       raw[:, :block_size], 0).to(torch.uint8).contiguous()
+    cand = dense_candidates(rawm, raw_len)
+    comp, comp_len, err, tails, nseq = parse_blocks_enc3(rawm, cand, raw_len,
+                                                         accel)
+    res = (comp, comp_len, err)
+    if return_tails:
+        res += (tails,)
+    if return_nseq:
+        res += (nseq,)
+    return res

@@ -1,19 +1,30 @@
 """Batched LZ4 block encode on a device.
 
-Port of ``lz4_sgori_tpu/ops/encode.py:compress_blocks_device`` and
-``compress_blocks_seg_dispatch``, restricted to what the port has: the
-``seg`` engine at depth 1 (kernels K2-K4, ``ops/seg.py``). Every other
-engine, depth and the mlen mode raise ``NotImplementedError`` naming
-their ROADMAP item.
+Port of ``lz4_sgori_tpu/ops/encode.py:compress_blocks_device`` and its
+kernel dispatches, restricted to what the port has, at depth 1:
+
+- ``seg`` (8-64 KiB, 4 KiB multiples): kernels K2-K4, ``ops/seg.py``;
+- ``enc3`` (under 8 KiB, and other sizes up to 64 KiB): K2 and K7,
+  ``ops/enc3.py``;
+- ``seg_splice`` (above 64 KiB, not 64 KiB multiples): 64 KiB segments
+  through ``enc3`` with tails, spliced on the host.
+
+Every other engine, depth and the mlen mode raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
+from lz4_sgori_tpu import format as F
+from lz4_sgori_tpu import golden
+
 from .. import routing
+from .enc3 import compress_blocks_enc3
 from .seg import compress_blocks_seg
 
 
@@ -24,17 +35,81 @@ def compress_blocks_device(raw: torch.Tensor, raw_len: torch.Tensor,
     """Compress ``raw uint8 [nb, >= block_size]`` on its device.
 
     Returns (comp uint8 [nb, compress_bound(block_size) + 8], comp_len
-    int32 [nb]) and, with ``return_cost``, the per-block sequence count.
-    ``comp_len`` 0 marks a block the engine could not encode (see
-    ``compress_blocks_seg_dispatch``).
+    int32 [nb]) and, with ``return_cost``, the per-block sequence count
+    (``comp_len`` for seg_splice, as in the JAX package). ``comp_len`` 0
+    marks a block the engine could not encode: the framing layer
+    re-encodes it on the host.
     """
     md = match_depth or 1
     engine = routing.select_encode_engine(block_size, md, True, impl)
     depth = routing.encode_depth_cap(engine, md)
     routing.require_ported(engine, depth)
-    comp, comp_len, cost = compress_blocks_seg_dispatch(
-        raw, raw_len, block_size, acceleration, return_nseq=True)
+    if depth < md:
+        import warnings
+        warnings.warn(
+            f"match_depth={md} exceeds the {engine} engine's depth cap; "
+            f"running depth {depth} (see routing.py).", stacklevel=2)
+    if engine == "seg_splice":
+        comp, comp_len = _compress_blocks_segmented(raw, raw_len, block_size,
+                                                    acceleration)
+        cost = comp_len
+    elif engine == "enc3":
+        comp, comp_len, cost = compress_blocks_enc3_dispatch(
+            raw, raw_len, block_size, acceleration)
+    else:
+        comp, comp_len, cost = compress_blocks_seg_dispatch(
+            raw, raw_len, block_size, acceleration, return_nseq=True)
     return (comp, comp_len, cost) if return_cost else (comp, comp_len)
+
+
+def _compress_blocks_segmented(raw: torch.Tensor, raw_len: torch.Tensor,
+                               block_size: int, acceleration: int = 1):
+    """The seg_splice engine for blocks above 64 KiB: 64 KiB segments
+    through ``enc3`` with their tails, then ``golden.splice_segments`` on
+    the host into one LZ4 block per input block. Byte contract:
+    ``golden.compress_segmented``. A segment error or a spliced block past
+    ``compress_bound`` gives ``comp_len`` 0."""
+    seg = 65536
+    nb, slot = raw.shape
+    dev = raw.device
+    nseg = -(-block_size // seg)
+    segslot = nseg * seg
+    if slot < segslot:
+        raw = torch.nn.functional.pad(raw, (0, segslot - slot))
+    segs = raw[:, :segslot].reshape(nb * nseg, seg)
+    sidx = torch.arange(nseg, dtype=torch.int32, device=dev)[None, :]
+    seg_len = (raw_len.to(device=dev, dtype=torch.int32)[:, None]
+               - sidx * seg).clamp(0, seg).reshape(-1)
+    comp_s, clen_s, err_s, tail_s = compress_blocks_enc3(
+        segs, seg_len, seg, accel=acceleration, return_tails=True)
+    comp_s, clen_s, err_s, tail_s = (t.cpu().numpy() for t in
+                                     (comp_s, clen_s, err_s, tail_s))
+    rlen = raw_len.cpu().numpy()
+    bound = F.compress_bound(block_size)
+    out = np.zeros((nb, bound + 8), np.uint8)
+    out_len = np.zeros(nb, np.int32)
+    for b in range(nb):
+        rows = range(b * nseg, b * nseg + max(1, -(-int(rlen[b]) // seg)))
+        if any(err_s[r] for r in rows):
+            continue
+        blob = golden.splice_segments(
+            [comp_s[r, :clen_s[r]].tobytes() for r in rows],
+            [int(tail_s[r]) for r in rows])
+        if len(blob) > bound:
+            continue
+        out[b, :len(blob)] = np.frombuffer(blob, np.uint8)
+        out_len[b] = len(blob)
+    return torch.from_numpy(out).to(dev), torch.from_numpy(out_len).to(dev)
+
+
+def compress_blocks_enc3_dispatch(raw, raw_len, block_size: int,
+                                  acceleration: int = 1):
+    """The enc3 engine, byte-exact to golden.compress_dense(hashlog=16):
+    (comp, comp_len, nseq). A block past COMPRESSBOUND folds into
+    comp_len 0 for the framing layer's verify and host fallback."""
+    comp, comp_len, err, nseq = compress_blocks_enc3(
+        raw, raw_len, block_size, accel=acceleration, return_nseq=True)
+    return comp, torch.where(err, 0, comp_len), nseq
 
 
 def compress_blocks_seg_dispatch(raw, raw_len, block_size: int,

@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own
 shared library under ``lz4_sgori_torch/_build/`` at first use (never at
-import: machines without ``nvcc`` import every module). Every C entry
+import: machines without ``nvcc`` import every module). The headers
+``csrc/*.cuh`` enter every library's cache key. Different kernels build
+concurrently (one nvcc each), so a caller that loads them from a thread
+pool builds them all in the time of the slowest. Every C entry
 takes pointers and the stream as ``void*`` and lengths as ``int``, and
 returns ``cudaGetLastError()`` after its launch; ``check`` turns a
 non-zero code into an exception.
@@ -26,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}      # ptxas register / shared-memory report
@@ -43,8 +47,11 @@ def nvcc_path() -> str:
 
 def _build(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(h for h in os.listdir(CSRC) if h.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(so):
         return so
@@ -67,6 +74,8 @@ def load(name: str, entries: dict[str, str]) -> ctypes.CDLL:
     or the stream (``c_void_p``), ``i`` for a length (``c_int``)."""
     kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_build(name))

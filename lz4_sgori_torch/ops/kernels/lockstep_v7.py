@@ -35,10 +35,9 @@ def load_kernel():
     return _build.load("decode_v7", {"lz4t_decode_v7": "pppppiiip"})
 
 
-def decompress_blocks_v7(comp: torch.Tensor, comp_len: torch.Tensor,
-                         out_size: int):
-    """Decode a batch of LZ4 blocks (K1)."""
-    global launches
+def check_decode_args(comp: torch.Tensor, comp_len: torch.Tensor,
+                      out_size: int) -> None:
+    """The input checks of both decode wrappers (K1 and K5)."""
     if comp.dtype != torch.uint8 or comp.dim() != 2:
         raise TypeError(f"comp must be uint8 [B, slot], got {comp.dtype} "
                         f"{tuple(comp.shape)}")
@@ -48,23 +47,37 @@ def decompress_blocks_v7(comp: torch.Tensor, comp_len: torch.Tensor,
         raise ValueError("comp and comp_len must be on one device")
     if not 0 < out_size <= F.MAX_INPUT_SIZE:
         raise ValueError(f"out_size out of range: {out_size}")
-    if comp.device.type == "cpu":
-        return decompress_blocks_plain(comp, comp_len, out_size)
-    if comp.device.type != "cuda":
+    if comp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {comp.device}")
+
+
+def launch_decode(entry, comp: torch.Tensor, comp_len: torch.Tensor,
+                  out_size: int):
+    """Launch a decode kernel's C entry (the ``lz4t_decode_*`` signature)
+    on CUDA tensors."""
     comp = comp.contiguous()
     comp_len = comp_len.contiguous()
     nb, slot = comp.shape
     out = torch.empty((nb, out_size), dtype=torch.uint8, device=comp.device)
     out_len = torch.empty(nb, dtype=torch.int32, device=comp.device)
     err = torch.empty(nb, dtype=torch.bool, device=comp.device)
-    lib = load_kernel()
-    _build.check(lib.lz4t_decode_v7(
-        comp.data_ptr(), comp_len.data_ptr(), out.data_ptr(),
-        out_len.data_ptr(), err.data_ptr(), nb, slot, out_size,
-        _build.stream(comp.device)), "decode_v7")
-    launches += 1
+    _build.check(entry(comp.data_ptr(), comp_len.data_ptr(), out.data_ptr(),
+                       out_len.data_ptr(), err.data_ptr(), nb, slot,
+                       out_size, _build.stream(comp.device)), entry.__name__)
     return out, out_len, err
+
+
+def decompress_blocks_v7(comp: torch.Tensor, comp_len: torch.Tensor,
+                         out_size: int):
+    """Decode a batch of LZ4 blocks (K1)."""
+    global launches
+    check_decode_args(comp, comp_len, out_size)
+    if comp.device.type == "cpu":
+        return decompress_blocks_plain(comp, comp_len, out_size)
+    res = launch_decode(load_kernel().lz4t_decode_v7, comp, comp_len,
+                        out_size)
+    launches += 1
+    return res
 
 
 def _parse_all_positions(b: torch.Tensor, comp_len: torch.Tensor):

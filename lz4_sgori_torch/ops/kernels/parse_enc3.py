@@ -1,0 +1,114 @@
+"""K7, the whole-block greedy parse of the enc3 engine: CUDA kernel
+wrapper and plain version.
+
+``parse_blocks_enc3`` launches ``csrc/parse_enc3.cu`` (the port of
+``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:_parse_kernel`` in
+block-per-lane mode) for a CUDA tensor and runs ``parse_blocks_enc3_plain``
+for a CPU tensor.
+
+Contract: per block, ``golden.compress_dense(block, accel, hashlog=16)``
+(``lz4_sgori_tpu/golden.py:1028-1141``) over K2's candidates. That equals
+K3's parse over one segment spanning the whole block plus the terminal
+literal-only sequence, which is how the plain version computes it. Both
+return
+
+  out uint8 [B, compress_bound(block_size) + 8] (zero past out_len),
+  out_len int32 [B], err bool [B], tails int32 [B] (the stream offset
+  of the terminal sequence, ``golden.tail_offset``), nseq int32 [B]
+  (sequences with a match).
+
+A block whose stream would pass ``compress_bound(block_size)`` sets
+``err`` and has an all-zero row and 0 in ``out_len``, ``tails`` and
+``nseq``. Blocks are at most 64 KiB (K2's limit).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lz4_sgori_tpu import format as F
+
+from . import _build
+from .cand import MAX_BLOCK
+from .parse_seg import _lsic_len, parse_segments_plain
+
+launches = 0
+
+
+def load_kernel():
+    """Build (once) and load csrc/parse_enc3.cu."""
+    return _build.load("parse_enc3", {"lz4t_parse_enc3": "ppppppppiiiiip"})
+
+
+def parse_blocks_enc3(raw: torch.Tensor, cand: torch.Tensor,
+                      raw_len: torch.Tensor, accel: int = 1):
+    """Parse every block whole (K7)."""
+    global launches
+    if raw.dtype != torch.uint8 or raw.dim() != 2:
+        raise TypeError("raw must be uint8 [B, block_size]")
+    if cand.dtype != torch.int32 or cand.shape != raw.shape:
+        raise TypeError("cand must be int32 [B, block_size]")
+    if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
+        raise TypeError("raw_len must be int32 [B]")
+    if not (raw.device == cand.device == raw_len.device):
+        raise ValueError("raw, cand and raw_len must be on one device")
+    nb, bs = raw.shape
+    if bs > MAX_BLOCK:
+        raise ValueError(f"blocks above {MAX_BLOCK} bytes go through "
+                         "seg_splice")
+    accel = max(int(accel), 1)
+    if raw.device.type == "cpu":
+        return parse_blocks_enc3_plain(raw, cand, raw_len, accel)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    raw, cand, raw_len = raw.contiguous(), cand.contiguous(), \
+        raw_len.contiguous()
+    cap = F.compress_bound(bs)
+    dev = raw.device
+    out = torch.zeros((nb, cap + 8), dtype=torch.uint8, device=dev)
+    out_len, tails, nseq = (torch.empty(nb, dtype=torch.int32, device=dev)
+                            for _ in range(3))
+    err = torch.empty(nb, dtype=torch.bool, device=dev)
+    lib = load_kernel()
+    _build.check(lib.lz4t_parse_enc3(
+        raw.data_ptr(), cand.data_ptr(), raw_len.data_ptr(), out.data_ptr(),
+        out_len.data_ptr(), err.data_ptr(), tails.data_ptr(),
+        nseq.data_ptr(), nb, bs, cap + 8, cap, accel, _build.stream(dev)),
+        "parse_enc3")
+    launches += 1
+    return out, out_len, err, tails, nseq
+
+
+def parse_blocks_enc3_plain(raw, cand, raw_len, accel: int = 1):
+    """Plain PyTorch K7: K3's plain parse at ``seg = block_size``, then the
+    terminal sequence placed by a per-byte select."""
+    nb, bs = raw.shape
+    dev = raw.device
+    i64 = torch.int64
+    cap = F.compress_bound(bs)
+    streams, slen, serr, last_end, nseq, _, _ = parse_segments_plain(
+        raw, cand, raw_len, seg=bs, window=65536, accel=accel)
+    n = raw_len.to(i64).clamp(0, bs)
+    tpos = slen.to(i64)[:, None]
+    anchor = last_end.to(i64)[:, None]
+    lit = n[:, None] - anchor
+    hlen = 1 + _lsic_len(lit)
+    total = tpos + hlen + lit
+    err = (serr != 0) | (total[:, 0] > cap)
+
+    o = torch.arange(cap + 8, dtype=i64, device=dev)[None, :]
+    rel = o - tpos
+    hdr = torch.where(rel == 0, lit.clamp(max=15) << 4,
+                      torch.where(rel < hlen - 1, 255, (lit - 15) % 255))
+    lit_b = torch.gather(raw.to(i64), 1,
+                         (anchor + rel - hlen).clamp(0, bs - 1))
+    body = torch.gather(streams.to(i64), 1, o.clamp(max=cap - 1).expand(
+        nb, -1))
+    val = torch.where(o < tpos, body,
+                      torch.where(rel < hlen, hdr,
+                                  torch.where(o < total, lit_b, 0)))
+    keep = ~err[:, None]
+    out = torch.where(keep, val, 0).to(torch.uint8)
+    zero = torch.zeros_like(slen)
+    return (out, torch.where(err, zero, total[:, 0].to(torch.int32)), err,
+            torch.where(err, zero, slen), torch.where(err, zero, nseq))

@@ -24,11 +24,8 @@ DECODE_IMPLS = ("auto", "xla", "lockstep", "lockstep_v6", "lockstep_v7",
 # engine -> ROADMAP item that ports it (Queue 1 / Queue 2 numbering)
 UNPORTED = {
     "xla": "Queue 1 item 7 (portable and exhaustive encode/decode)",
-    "v6": "Queue 2 K5 (lockstep_v6 decode band)",
     "v8": "Queue 2 K6 (lockstep_v8 decode band)",
-    "enc3": "Queue 2 K7 (block-per-lane enc3 parse)",
     "seg_big": "Queue 2 K9 (seg_big piecewise candidates)",
-    "seg_splice": "Queue 1 item 8 (seg_splice host splice)",
 }
 
 

@@ -189,3 +189,108 @@ def test_wrapper_rejects_bad_inputs():
         K1.decompress_blocks_v7(comp, torch.ones(3, dtype=torch.int32), 4096)
     with pytest.raises(ValueError):
         K1.decompress_blocks_v7(comp, torch.ones(2, dtype=torch.int32), 0)
+
+
+def _v6_blocks(out_size):
+    rng = np.random.RandomState(5)
+    period = bytes(rng.randint(0, 256, 700, np.int64).astype(np.uint8))
+    return [
+        bytes(out_size),
+        (b"the quick brown fox " * 200)[:out_size],
+        bytes(rng.randint(0, 256, out_size, np.int64).astype(np.uint8)),
+        (period * 4)[:out_size],
+        b"ab" * (out_size // 2),
+        bytes(range(256)) * (out_size // 256),
+        b"z" * 37,
+        b"",
+    ]
+
+
+def test_v6_route_matches_jax_v6_interpret():
+    """test_v6_parity_ring_and_far's blocks through the port's v6 route
+    (K5's plain version on CPU tensors) and the JAX v6 kernel in
+    interpret mode: out, out_len and err are equal."""
+    from lz4_sgori_tpu.ops.pallas.lockstep_v6 import (
+        decompress_blocks_lockstep_v6)
+    out_size = 2048
+    blocks = _v6_blocks(out_size)
+    comp, clen = _pack([golden.compress(b) for b in blocks])
+    jout, jlen, jerr = map(np.asarray, decompress_blocks_lockstep_v6(
+        comp, clen, out_size, sr=64, interpret=True))
+    out, out_len, err = (t.numpy() for t in decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), out_size))
+    assert not err.any() and np.array_equal(err, jerr)
+    assert np.array_equal(out_len, jlen)
+    assert np.array_equal(out, jout)
+    for j, b in enumerate(blocks):
+        assert out[j, :len(b)].tobytes() == b
+
+
+def test_v6_route_malformed_matches_jax_v6_interpret():
+    """test_v6_malformed's streams and the port's malformed table at
+    out_size 64: err equals the JAX v6 kernel's and golden's verdict."""
+    from lz4_sgori_tpu.ops.pallas.lockstep_v6 import (
+        decompress_blocks_lockstep_v6)
+    cases = [b"\xf0" + b"A" * 10, b"\x10A\x00\x00", b"\x10A\x50\x00",
+             b"\x1f", b"\x12AB\x01\x00" + b"\xff" * 6,
+             golden.compress(b"x" * 64)] + [m for m in MALFORMED
+                                             if len(m) <= 56]
+    comp, clen = _pack(cases, 64)
+    jout, jlen, jerr = map(np.asarray, decompress_blocks_lockstep_v6(
+        comp, clen, 64, sr=64, interpret=True))
+    out, out_len, err = (t.numpy() for t in decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), 64))
+    assert np.array_equal(err, jerr)
+    for j, want in enumerate(_golden_verdicts(cases, 64)):
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out_len[j] == jlen[j] == len(want), j
+            assert out[j, :len(want)].tobytes() == want, j
+    assert 0 < int(err.sum()) < len(cases)
+
+
+@pytest.mark.parametrize("out_size,engine", [
+    (4096, "v6"), (8192, "v6"), (65536, "v7"), (196 * 1024, "v6")])
+def test_device_wrapper_routes_by_band(monkeypatch, out_size, engine):
+    """Blocks under 16 KiB and in 132-256 KiB go to K5, 16-128 KiB to K1;
+    CPU tensors launch neither kernel."""
+    from lz4_sgori_torch.ops import decode as D
+    from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
+    called = []
+
+    def spy(name, fn):
+        def run(*args):
+            called.append(name)
+            return fn(*args)
+        return run
+
+    for name, fn in list(D._ENGINES.items()):
+        monkeypatch.setitem(D._ENGINES, name, spy(name, fn))
+    data = (b"hello block device " * (out_size // 19 + 1))[:out_size - 3]
+    comp, clen = _pack([golden.compress(data)])
+    before = (K1.launches, K5.launches)
+    out, out_len, err = decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), out_size)
+    assert called == [engine]
+    assert not bool(err[0]) and out[0, :len(data)].numpy().tobytes() == data
+    assert (K1.launches, K5.launches) == before
+
+
+def test_k5_plain_mutants_match_golden(fixtures):
+    """A seeded pool of corrupted 4 KiB streams through K5 (the v6 route's
+    kernel wrapper): err equals golden's verdict, bytes agree on
+    accepts."""
+    from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
+    bs = 4096
+    bases = [golden.compress(fixtures[k][:bs]) for k in
+             ("text_small", "zeros_4k", "random_4k", "structured")]
+    muts = make_mutants(bases, np.random.default_rng(606), 96,
+                        F.compress_bound(bs))
+    comp, clen = _pack(muts, F.compress_bound(bs) + 8)
+    out, out_len, err = (t.numpy() for t in K5.decompress_blocks_v6(
+        torch.from_numpy(comp), torch.from_numpy(clen), bs))
+    for j, want in enumerate(_golden_verdicts(muts, bs)):
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out[j, :out_len[j]].tobytes() == want, j
+    assert 0 < int(err.sum()) < len(muts)

@@ -1,4 +1,4 @@
-"""The four CUDA kernels (K1-K4) against their plain PyTorch versions
+"""The six CUDA kernels (K1-K5, K7) against their plain PyTorch versions
 and their golden oracles, on the card. Marked ``cuda``; each test skips
 itself when no card is present. Run on a CUDA machine with
 
@@ -13,7 +13,9 @@ from chip_smoke import make_mutants
 from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
+from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
 from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden
@@ -157,3 +159,66 @@ def test_slice_runs_every_kernel(dev):
     assert lz4_sgori_torch.decompress(container) == data
     assert stats.encode_fallbacks == 0
     assert min(m.launches for m in (K1, K2, K3, K4)) > 0
+
+
+@pytest.mark.parametrize("bs", [4096, 60000])
+def test_k7_parse(dev, bs):
+    blocks = [b[:bs] for b in _blocks(max(bs, 8192))] + [
+        b"", b"a", b"x" * 13]
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    got = K7.parse_blocks_enc3(raw, cand, rlen)
+    want = K7.parse_blocks_enc3_plain(raw, cand, rlen)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, out_len, err, tails, _ = (t.cpu().numpy() for t in got)
+    assert not err.any()
+    for j, b in enumerate(blocks):
+        w = golden.compress_dense(b, hashlog=16)
+        assert out[j, :out_len[j]].tobytes() == w, j
+        assert not out[j, out_len[j]:].any(), j
+        assert int(tails[j]) == golden.tail_offset(w), j
+
+
+@pytest.mark.parametrize("bs", [4096, 262144])
+def test_k5_decode_and_mutants(dev, bs):
+    bases = [golden.compress(b[:bs]) for b in _blocks(bs)]
+    rng = np.random.default_rng(55)
+    slot = F.compress_bound(bs) + 8
+    payloads = bases + make_mutants(bases, rng, 128, slot - 8)
+    comp = np.zeros((len(payloads), slot), np.uint8)
+    clen = np.zeros(len(payloads), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    ct, lt = torch.from_numpy(comp).to(dev), torch.from_numpy(clen).to(dev)
+    out, out_len, err = K5.decompress_blocks_v6(ct, lt, bs)
+    pout, plen, perr = K1.decompress_blocks_plain(ct, lt, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(err, perr) and torch.equal(out_len, plen)
+    assert torch.equal(out, pout)
+    out, out_len, err = out.cpu().numpy(), out_len.cpu().numpy(), \
+        err.cpu().numpy()
+    for j, c in enumerate(payloads):
+        try:
+            want = golden.decompress(c, bs)
+        except golden.DecodeError:
+            want = None
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out[j, :out_len[j]].tobytes() == want, j
+
+
+def test_block_device_path_runs_k2_k7_k5(dev):
+    import lz4_sgori_torch
+    from lz4_sgori_tpu.utils.stats import Stats
+    data = b"".join(b[:4096] for b in _blocks(4096)) * 3
+    for m in (K1, K2, K3, K4, K5, K7):
+        m.launches = 0
+    stats = Stats()
+    container = lz4_sgori_torch.compress(data, 4096, stats=stats)
+    assert lz4_sgori_torch.decompress(container) == data
+    assert stats.encode_fallbacks == 0
+    assert min(m.launches for m in (K2, K5, K7)) > 0
+    assert K1.launches == K3.launches == K4.launches == 0

@@ -51,23 +51,44 @@ def test_unported_engines_raise(engine):
 
 
 def test_unported_requests_raise_end_to_end(monkeypatch):
-    raw = torch.zeros((1, 4096), dtype=torch.uint8)
-    rl = torch.tensor([4096], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K7"):
-        compress_blocks_device(raw, rl, 4096)              # enc3 band
-    raw = torch.zeros((1, 65536), dtype=torch.uint8)
+    raw = torch.zeros((1, 131072), dtype=torch.uint8)
     rl = torch.tensor([100], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K9"):
+        compress_blocks_device(raw, rl, 131072)           # seg_big band
+    raw = torch.zeros((1, 4096), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="K8"):
-        compress_blocks_device(raw, rl, 65536, match_depth=3)
-    with pytest.raises(NotImplementedError, match="K7"):
-        compress_blocks_device(raw, rl, 65536, match_depth=5)
+        compress_blocks_device(raw, rl, 4096, match_depth=3)   # enc3 deep
+    raw = torch.zeros((1, 65536), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="K8"):
+        compress_blocks_device(raw, rl, 65536, match_depth=5)  # enc3 depth 5
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
     with pytest.raises(NotImplementedError, match="K10"):
         compress_blocks_device(raw, rl, 65536)
     comp = torch.from_numpy(np.zeros((1, 64), np.uint8))
     clen = torch.tensor([1], dtype=torch.int32)
-    for out_size, item in ((4096, "K5"), (1 << 20, "K6")):
-        with pytest.raises(NotImplementedError, match=item):
-            decompress_blocks_device(comp, clen, out_size)
+    with pytest.raises(NotImplementedError, match="K6"):
+        decompress_blocks_device(comp, clen, 1 << 20)
     with pytest.raises(NotImplementedError, match="item 7"):
         decompress_blocks_device(comp, clen, 65536, impl="xla")
+
+
+@pytest.mark.parametrize("block_size,encode,decode", [
+    (1, "enc3", "v6"), (4, "enc3", "v6"), (1024, "enc3", "v6"),
+    (4096, "enc3", "v6"), (5000, "enc3", "v6"),
+    (96 * 1024, "seg_splice", "v7")])
+def test_ported_requests_route_through_the_port(fixtures, block_size,
+                                                encode, decode):
+    """Requests in the enc3, v6 and seg_splice bands run on the port:
+    a container round trip on CPU tensors with no host fallback."""
+    import lz4_sgori_torch
+    from lz4_sgori_tpu.utils.stats import Stats
+    assert R.select_encode_engine(block_size, 1) == encode
+    assert R.select_decode_engine(block_size) == decode
+    R.require_ported(encode)
+    R.require_ported(decode)
+    data = fixtures["text_small"][:min(3 * block_size + 1, 6000)]
+    stats = Stats()
+    container = lz4_sgori_torch.compress(data, block_size, stats=stats,
+                                         device="cpu")
+    assert lz4_sgori_torch.decompress(container, device="cpu") == data
+    assert stats.encode_fallbacks == 0
