@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels of the port from ``lz4_sgori_torch/csrc``
-(one nvcc each, all started together) and drives two paths on a 32 MiB
-synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, held on the
-card).
+Builds the eight CUDA kernels of the port from ``lz4_sgori_torch/csrc``
+(one nvcc each, all started together) and drives three paths: two on a
+32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, held
+on the card) and the big-block path on bench.py's config 6 (128 MiB,
+seed 55, 1 MiB blocks).
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -47,6 +48,34 @@ K2, K7 and K5), in ``_smoke_4k``:
 12. times with CUDA events: the 4 KiB kernel path, K2, K7 and K5 beside
     their plain versions, and the ProxyStore's write latency.
 
+The big-block path (128 KiB-4 MiB; engines seg_big and v8, kernels K9,
+K3, K4 and K6), in ``_smoke_big``; the pure-Python golden oracles of its
+blocks run in a pool of worker processes:
+
+13. K9 and K6 against their plain versions exactly (K9 on 4 blocks of
+    1 MiB and one of 4 MiB, and against golden.dense_candidates_piecewise
+    on 2; K6 at 512 KiB, 1 MiB and 4 MiB on blocks of ``native.compress``);
+14. the golden contract: ``compress_blocks_device`` at 128 KiB, 256 KiB,
+    512 KiB, 1 MiB and 4 MiB (a full and a short block each) and at
+    acceleration 8 at 1 MiB equals golden.compress_dense_seg_big, and
+    each decodes through its routed engine;
+15. config 6 through ``lz4_sgori_torch.compress`` / ``decompress`` with the
+    counters reset just before: round trip, zero host fallbacks, K9, K3,
+    K4 and K6 launched and K1, K2, K5 and K7 not, every block decoding
+    under the native decoder (and liblz4 where present), 8 blocks equal
+    to golden, and the ratio and size against the TPU record of the same
+    bytes;
+16. two ProxyStores over 32 MiB backing files, shaped as fio's
+    ``test_1m.fio`` and ``test_4m.fio`` (32 sequential 1 MiB writes, 8 of
+    4 MiB), read back under sha256;
+17. the CLI's default ``verify`` sweep (4 KiB-4 MiB, eleven sizes) over
+    8 MiB, which launches all eight kernels;
+18. 512 corrupted 1 MiB streams through the v8 route against
+    golden.decompress's verdict;
+19. times with CUDA events: config 6's encode and decode kernel paths, K9,
+    K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
+    both at 4 MiB.
+
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX. The last two
 lines are the per-kernel JSON record and the device JSON line.
@@ -82,6 +111,20 @@ MIX_CHUNKS = 4096
 TPU_MIX_RATIO = 1.9376
 STORE_CHUNKS_COMPRESSED = 1024
 
+BIG_BLOCK = 1 << 20
+BIG_CORPUS_BYTES = 128 << 20
+BIG_SEED = 55
+BIG_SUBSET = 4
+BIG_SIZES = (131072, 262144, 524288, 1 << 20, 4 << 20)
+BIG_GOLDEN = 8
+BIG_MUTANTS = 512
+# fio test_1m.fio and test_4m.fio: (chunk and request size, requests)
+BIG_STORE_RUNS = ((1 << 20, 32), (4 << 20, 8))
+SWEEP_BYTES = 8 << 20
+# TPU record of bench.py's config 6 (BENCH_r05.json big_1m_ratio and
+# big_1m_size_vs_lz4, engine seg_big): the same bytes, so the same numbers
+TPU_BIG_RECORD = {"ratio": 3.3538, "size_vs_lz4": 0.9711}
+
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
      "lz4_sgori_tpu/ops/pallas/lockstep_v7.py:209"),
@@ -91,11 +134,19 @@ KERNELS = [
     ("K4 asm_seg", "asm_seg", "lz4_sgori_tpu/ops/pallas/asm_seg.py:56"),
     ("K5 decode_v6", "decode_v6",
      "lz4_sgori_tpu/ops/pallas/lockstep_v6.py:283"),
+    ("K6 decode_v8", "decode_v8",
+     "lz4_sgori_tpu/ops/pallas/lockstep_v8.py:84"),
     ("K7 parse_enc3", "parse_enc3",
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
+    ("K9 cand_piecewise", "cand_piecewise",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1790"),
 ]
 PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
 PATH4 = ("cand", "parse_enc3", "decode_v6")
+PATHBIG = ("cand_piecewise", "parse_seg", "asm_seg", "decode_v8")
+# the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
+SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
+          "parse_enc3")
 
 
 def _mutate(b: bytearray, rng) -> bytes:
@@ -158,6 +209,42 @@ def _run(cmd) -> str:
     return (p.stdout.strip() or p.stderr.strip()) or f"rc {p.returncode}"
 
 
+def _golden_seg_big(args) -> bytes:
+    block, seg, accel = args
+    from lz4_sgori_tpu import golden
+    return golden.compress_dense_seg_big(block, seg, acceleration=accel)
+
+
+def _golden_piecewise(block: bytes) -> np.ndarray:
+    from lz4_sgori_tpu import golden
+    return np.asarray(golden.dense_candidates_piecewise(block), np.int64)
+
+
+def _golden_verdict(args):
+    """(length, sha256) of golden.decompress(stream, out_size), or None
+    where it raises."""
+    import hashlib
+
+    from lz4_sgori_tpu import golden
+    stream, out_size = args
+    try:
+        out = golden.decompress(stream, out_size)
+    except golden.DecodeError:
+        return None
+    return len(out), hashlib.sha256(out).digest()
+
+
+def golden_pool():
+    """Worker processes for the pure-Python golden oracles of the big
+    blocks (about 2.5 s per 1 MiB block each), started fresh: they never
+    touch the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+
+
 class Failed(Exception):
     pass
 
@@ -204,8 +291,10 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import _build
     from lz4_sgori_torch.ops.kernels import asm_seg as K4
     from lz4_sgori_torch.ops.kernels import cand as K2
+    from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
     from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+    from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
     from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
     from lz4_sgori_tpu import format as F
@@ -214,7 +303,8 @@ def _smoke(torch) -> int:
     from lz4_sgori_tpu.utils.stats import Stats
 
     mods = {"decode_v7": K1, "cand": K2, "parse_seg": K3, "asm_seg": K4,
-            "decode_v6": K5, "parse_enc3": K7}
+            "decode_v6": K5, "decode_v8": K6, "parse_enc3": K7,
+            "cand_piecewise": K9}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -440,13 +530,15 @@ def _smoke(torch) -> int:
               f"plain {b:.4f} ms")
 
     r4 = _smoke_4k(torch, data, card, time_ms, maxdiff, mods)
+    rb = _smoke_big(torch, card, time_ms, maxdiff, mods)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
-            "parse_seg": err3, "asm_seg": err4, **r4["errs"]}
+            "parse_seg": err3, "asm_seg": err4, **r4["errs"], **rb["errs"]}
     sub_times.update(r4["sub_times"])
+    sub_times.update(rb["sub_times"])
     record = {"kernels": [
         {"name": label, "route": "cuda",
          "source": f"lz4_sgori_torch/csrc/{key}.cu", "replaces": where,
-         "launches": counts[key] + r4["counts"][key],
+         "launches": counts[key] + r4["counts"][key] + rb["counts"][key],
          "max_abs_err": errs[key],
          "ms": sub_times[key][0], "plain_ms": sub_times[key][1]}
         for label, key, where in KERNELS]}
@@ -465,6 +557,15 @@ def _pack_streams(streams, slot: int):
         comp[j, :len(c)] = np.frombuffer(c, np.uint8)
         clen[j] = len(c)
     return comp, clen
+
+
+def decodes_to(res, blocks, what: str) -> None:
+    """A decoder's (out, out_len, err) holds exactly ``blocks``."""
+    out, out_len, err = (t.cpu().numpy() for t in res)
+    for j, b in enumerate(blocks):
+        need(not err[j] and out_len[j] == len(b)
+             and out[j, :len(b)].tobytes() == b,
+             f"{what}: block {j} does not decode to its bytes")
 
 
 def _batch(blocks, bs: int):
@@ -503,13 +604,6 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
 
     def to_dev(*arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
-
-    def decodes_to(res, blocks, what):
-        out, out_len, err = (t.cpu().numpy() for t in res)
-        for j, b in enumerate(blocks):
-            need(not err[j] and out_len[j] == len(b)
-                 and out[j, :len(b)].tobytes() == b,
-                 f"{what}: block {j} does not decode to its bytes")
 
     raw_np, rlen_np = B.split_blocks(data, BLOCK4)
     raw, rlen = to_dev(raw_np, rlen_np)
@@ -715,7 +809,7 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
                        "4", "8", "64", "96"])
         need(rc == 0, f"lz4j verify exited {rc}")
         cli_counts = {k: m.launches for k, m in mods.items()}
-        check_launches(cli_counts, "CLI verify", list(mods), [])
+        check_launches(cli_counts, "CLI verify", SWEEP4, [])
     lat_ms = 1e3 * float(np.median(lat))
     print(f"phase store: ProxyStore {nreq} writes of 4 KiB, sha256 "
           f"read-back ok, 0 failed, 0 fallbacks; CompressedStore "
@@ -782,6 +876,281 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
               f"ms, plain {b:.4f} ms")
     del sub_times["cand"]       # the record keeps K2's 64 KiB subset times
     return {"errs": {"cand": err2, "parse_enc3": err7, "decode_v6": err5},
+            "counts": counts, "sub_times": sub_times}
+
+
+def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
+    """Phases 13-19: the big-block path (128 KiB-4 MiB; engines seg_big
+    and v8, with v7 and v6 at 128 and 256 KiB; kernels K9, K3, K4 and K6).
+    Returns the per-kernel errors, launch counts and subset times of K6
+    and K9 for the record."""
+    import hashlib
+    import tempfile
+
+    import lz4_sgori_torch
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import cli
+    from lz4_sgori_torch import routing as R
+    from lz4_sgori_torch import store as ST
+    from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
+    from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
+    from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+    from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
+    from lz4_sgori_torch.ops.kernels import parse_seg as K3
+    from lz4_sgori_tpu import format as F
+    from lz4_sgori_tpu import native
+    from lz4_sgori_tpu.utils import oracle
+    from lz4_sgori_tpu.utils.stats import Stats
+
+    dev = torch.device(DEVICE)
+    bs = BIG_BLOCK
+    seg = R.seg_for(bs)
+    top = BIG_SIZES[-1]
+    slot = F.compress_bound(bs) + 8
+
+    def to_dev(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    t0 = time.perf_counter()
+    data = _synth_corpus(BIG_CORPUS_BYTES, seed=BIG_SEED)
+    raw_np, rlen_np = B.split_blocks(data, bs)
+    raw, rlen = to_dev(raw_np, rlen_np)
+    nb = raw.shape[0]
+    print(f"big corpus: {len(data)} bytes, {nb} blocks of {bs} (seed "
+          f"{BIG_SEED}, {time.perf_counter() - t0:.1f} s to make)")
+
+    with golden_pool() as pool:
+        # ---- phase 13: K9 and K6 against their plain versions ----
+        t0 = time.perf_counter()
+        sub = torch.arange(0, nb, max(1, nb // BIG_SUBSET),
+                           device=dev)[:BIG_SUBSET]
+        rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+        psel = sub.tolist()[:2]
+        gpw = [pool.submit(_golden_piecewise,
+                           raw_np[j, :rlen_np[j]].tobytes()) for j in psel]
+        c9 = K9.dense_candidates_piecewise(rs, ls)
+        r4m, l4m = to_dev(*_batch([data[:top]], top))
+        err9 = max(maxdiff(c9, K9.dense_candidates_piecewise_plain(rs, ls)),
+                   maxdiff(K9.dense_candidates_piecewise(r4m, l4m),
+                           K9.dense_candidates_piecewise_plain(r4m, l4m)))
+        need(err9 == 0, f"K9 differs from its plain version by {err9}")
+        c9n = c9.cpu().numpy()
+        for i, f in enumerate(gpw):
+            w = f.result()
+            need(np.array_equal(c9n[i, :len(w)], w)
+                 and not c9n[i, len(w):].any(),
+                 f"K9 block {psel[i]} differs from "
+                 "golden.dense_candidates_piecewise")
+        e6 = []
+        k6_in = {}
+        for dbs, nblk in ((524288, 4), (bs, BIG_SUBSET), (top, 2)):
+            offs = np.linspace(0, len(data) - dbs, nblk).astype(int)
+            blocks = [data[o:o + dbs] for o in offs]
+            blocks[-1] = blocks[-1][:dbs - 12345]      # a short block
+            c, n = to_dev(*_pack_streams([native.compress(b) for b in blocks],
+                                         F.compress_bound(dbs) + 8))
+            d6 = K6.decompress_blocks_v8(c, n, dbs)
+            e6.append(max(maxdiff(x, y) for x, y in zip(
+                d6, K1.decompress_blocks_plain(c, n, dbs))))
+            decodes_to(d6, blocks, f"K6 at {dbs}")
+            k6_in[dbs] = (c, n)
+        err6 = max(e6)
+        need(err6 == 0, f"K6 differs from its plain version by {err6}")
+        print(f"phase K9/K6 == plain: ok; K9 on {BIG_SUBSET} blocks of {bs} "
+              f"and one of {top}, == golden on {len(psel)}; K6 at 524288, "
+              f"{bs} and {top} on native.compress streams "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 14: the golden contract of seg_big ----
+        t0 = time.perf_counter()
+        jobs = []
+        for gbs, acc in [(g, 1) for g in BIG_SIZES] + [(bs, 8)]:
+            o = 2 * gbs if acc > 1 else 0
+            blocks = [data[o:o + gbs], data[o + gbs:o + 2 * gbs - 12345]]
+            futs = [pool.submit(_golden_seg_big, (b, R.seg_for(gbs), acc))
+                    for b in blocks]
+            r, l = to_dev(*_batch(blocks, gbs))
+            need(R.select_encode_engine(gbs, 1) == "seg_big",
+                 f"{gbs} does not route to seg_big")
+            c, n = compress_blocks_device(r, l, gbs, acceleration=acc)
+            decodes_to(decompress_blocks_device(c, n, gbs), blocks,
+                       f"seg_big at {gbs}, acceleration {acc}, routed "
+                       f"decode ({R.select_decode_engine(gbs)})")
+            jobs.append((gbs, acc, c.cpu().numpy(), n.cpu().numpy(), futs))
+        for gbs, acc, cn, nn, futs in jobs:
+            for j, f in enumerate(futs):
+                need(cn[j, :nn[j]].tobytes() == f.result(),
+                     f"seg_big at {gbs}, acceleration {acc}: block {j} "
+                     "differs from golden.compress_dense_seg_big")
+        print(f"phase golden big: seg_big == golden.compress_dense_seg_big "
+              f"at {', '.join(str(g) for g in BIG_SIZES)} (a full and a "
+              f"short block each) and acceleration 8 at {bs}; routed "
+              f"decodes ok ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 15: config 6, counters reset just before ----
+        for m in mods.values():
+            m.launches = 0
+        stats = Stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        container = lz4_sgori_torch.compress(data, bs, stats=stats,
+                                             device=DEVICE)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = lz4_sgori_torch.decompress(container, stats=stats,
+                                          device=DEVICE)
+        t_dec = time.perf_counter() - t0
+        counts = {k: m.launches for k, m in mods.items()}
+        need(back == data, "config 6 round trip differs")
+        need(stats.encode_fallbacks == 0,
+             f"{stats.encode_fallbacks} host fallbacks on config 6")
+        check_launches(counts, "big-block", PATHBIG,
+                       [k for k in mods if k not in PATHBIG])
+        t0 = time.perf_counter()
+        cb = B.CompressedBlocks.from_container(container)
+        gsel = np.linspace(0, nb - 1, BIG_GOLDEN).astype(np.int64)
+        gfut = [pool.submit(_golden_seg_big,
+                            (raw_np[j, :rlen_np[j]].tobytes(), seg, 1))
+                for j in gsel]
+        lz_native = lz_lib = 0
+        for j in range(nb):
+            blk = raw_np[j, :rlen_np[j]].tobytes()
+            c = cb.comp[j, :cb.comp_len[j]].tobytes()
+            need(native.decompress(c, bs) == blk,
+                 f"config 6 block {j} fails the native decoder")
+            if oracle.available():
+                need(oracle.decompress(c, bs) == blk,
+                     f"config 6 block {j} fails liblz4")
+                lz_lib += len(oracle.compress(blk))
+            lz_native += len(native.compress(blk))
+        for j, f in zip(gsel, gfut):
+            need(cb.comp[j, :cb.comp_len[j]].tobytes() == f.result(),
+                 f"config 6 block {j} differs from "
+                 "golden.compress_dense_seg_big")
+        ratio = len(data) / cb.compressed_size
+        vs_lz4 = cb.compressed_size / lz_native
+        print(f"config 6: round trip ok, host fallbacks 0, launches {counts}")
+        print(f"config 6: native decode ok, liblz4 decode "
+              f"{'ok' if oracle.available() else 'not run (liblz4 absent)'}"
+              f", {BIG_GOLDEN} blocks == golden.compress_dense_seg_big "
+              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"config 6: ratio {ratio:.4f}, size {vs_lz4:.4f}x native "
+              "LZ4_compress_default"
+              + (f" ({cb.compressed_size / lz_lib:.4f}x liblz4)" if lz_lib
+                 else "")
+              + f" (TPU record of the same bytes: ratio "
+              f"{TPU_BIG_RECORD['ratio']}, {TPU_BIG_RECORD['size_vs_lz4']}x)")
+        need(round(ratio, 4) == TPU_BIG_RECORD["ratio"]
+             and round(vs_lz4, 4) == TPU_BIG_RECORD["size_vs_lz4"],
+             f"config 6 ratio {ratio:.4f} / size {vs_lz4:.4f} differ from "
+             "the TPU record of the same bytes")
+        print(f"[{card}] config 6 wall: compress {t_enc:.3f} s "
+              f"({len(data) / t_enc / 1e9:.4f} GB/s), decompress "
+              f"{t_dec:.3f} s ({len(data) / t_dec / 1e9:.4f} GB/s), host "
+              "framing included")
+
+        # ---- phases 16-17: fio-shaped stores and the CLI's sweep ----
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            for chunk, nreq in BIG_STORE_RUNS:
+                st = ST.ProxyStore(os.path.join(tmp, f"backing{chunk}.img"),
+                                   chunk_size=chunk, capacity=chunk * nreq,
+                                   device=DEVICE)
+                lat = []
+                for i in range(nreq):
+                    t1 = time.perf_counter()
+                    st.write(i * chunk, data[i * chunk:(i + 1) * chunk])
+                    lat.append(time.perf_counter() - t1)
+                got = st.read(0, nreq * chunk)
+                need(hashlib.sha256(got).digest()
+                     == hashlib.sha256(data[:nreq * chunk]).digest(),
+                     f"ProxyStore({chunk}) read-back differs under sha256")
+                w = st.stats.as_dict()["write"]
+                need(w["reqs_total"] == nreq and w["reqs_failed"] == 0
+                     and st.stats.encode_fallbacks == 0,
+                     f"ProxyStore({chunk}) stats: {w}, fallbacks "
+                     f"{st.stats.encode_fallbacks}")
+                st.close()
+                print(f"[{card}] ProxyStore.write of {chunk} bytes: median "
+                      f"{1e3 * float(np.median(lat)):.4f} ms, max "
+                      f"{1e3 * max(lat):.4f} ms over {nreq} sequential "
+                      "requests; sha256 read-back ok, 0 failed, 0 fallbacks")
+            path = os.path.join(tmp, "sweep.bin")
+            with open(path, "wb") as f:
+                f.write(data[:SWEEP_BYTES])
+            for m in mods.values():
+                m.launches = 0
+            rc = cli.main(["--device", DEVICE, "verify", path])
+            need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
+            cli_counts = {k: m.launches for k, m in mods.items()}
+            check_launches(cli_counts, "CLI default verify", list(mods), [])
+        print(f"phase big stores and sweep: lz4j verify's default sweep "
+              f"(4 KiB-4 MiB) over {SWEEP_BYTES} bytes ok, launches "
+              f"{cli_counts} ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 18: malformed 1 MiB streams through the v8 route ----
+        t0 = time.perf_counter()
+        need(R.select_decode_engine(bs) == "v8", f"{bs} does not route to v8")
+        rng = np.random.default_rng(8765)
+        bases = [cb.comp[j, :cb.comp_len[j]].tobytes()
+                 for j in range(0, nb, max(1, nb // 16))]
+        muts = make_mutants(bases, rng, BIG_MUTANTS, slot - 8)
+        verdicts = pool.map(_golden_verdict, [(m, bs) for m in muts],
+                            chunksize=8)
+        uc, ul = to_dev(*_pack_streams(muts, slot))
+        uo, ull, ue = (t.cpu().numpy() for t in
+                       decompress_blocks_device(uc, ul, bs))
+        n_err = 0
+        for j, want in enumerate(verdicts):
+            need(bool(ue[j]) == (want is None),
+                 f"1 MiB mutant {j}: err {bool(ue[j])} vs golden "
+                 f"{want is None}")
+            if want is None:
+                n_err += 1
+            else:
+                need((int(ull[j]), hashlib.sha256(
+                    uo[j, :ull[j]].tobytes()).digest()) == want,
+                     f"1 MiB mutant {j}: bytes differ from golden")
+        print(f"phase malformed 1 MiB (v8 route): {len(muts)} mutants, "
+              f"{n_err} rejected, err == golden for all "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 19: times ----
+    ms_enc = time_ms(lambda: compress_blocks_device(raw, rlen, bs), 3)
+    fc, fl = compress_blocks_device(raw, rlen, bs)
+    ms_dec = time_ms(lambda: decompress_blocks_device(fc, fl, bs), 3)
+    print(f"[{card}] config 6 kernel path over {len(data)} bytes: encode "
+          f"{ms_enc:.3f} ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode "
+          f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
+    fcand = K9.dense_candidates_piecewise(raw, rlen)
+    full = {"cand_piecewise": time_ms(
+                lambda: K9.dense_candidates_piecewise(raw, rlen), 3),
+            "parse_seg": time_ms(
+                lambda: K3.parse_segments(raw, fcand, rlen, seg=seg), 3),
+            "decode_v8": ms_dec}
+    print(f"[{card}] kernels over config 6 (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in full.items()))
+    c1, n1 = k6_in[bs]
+    c4, n4 = k6_in[top]
+    sub_times = {
+        "cand_piecewise": (
+            time_ms(lambda: K9.dense_candidates_piecewise(rs, ls), 10),
+            time_ms(lambda: K9.dense_candidates_piecewise_plain(rs, ls), 3)),
+        "decode_v8": (time_ms(lambda: K6.decompress_blocks_v8(c1, n1, bs), 5),
+                      time_ms(lambda: K1.decompress_blocks_plain(c1, n1, bs),
+                              1)),
+    }
+    for k, (a, b) in sub_times.items():
+        print(f"[{card}] {k} on {BIG_SUBSET} blocks of {bs}: kernel {a:.4f} "
+              f"ms, plain {b:.4f} ms")
+    print(f"[{card}] at {top}: K9 on one block "
+          f"{time_ms(lambda: K9.dense_candidates_piecewise(r4m, l4m), 5):.4f}"
+          f" ms, K6 on two blocks "
+          f"{time_ms(lambda: K6.decompress_blocks_v8(c4, n4, top), 3):.4f}"
+          " ms")
+    return {"errs": {"cand_piecewise": err9, "decode_v8": err6},
             "counts": counts, "sub_times": sub_times}
 
 

@@ -11,8 +11,8 @@ Layer map (top-down):
 - ``blocks``                 — framing, write verify, container
 - ``routing``                — the engine table (kernel column)
 - ``ops.encode`` / ``ops.decode`` — batched device encode and decode
-- ``ops.seg`` / ``ops.enc3`` — the seg and enc3 engines' glue between
-  kernels
+- ``ops.seg`` / ``ops.enc3`` — the seg, seg_big and enc3 engines' glue
+  between kernels
 - ``ops.kernels``            — one wrapper + plain version per CUDA kernel
 - ``csrc``                   — the CUDA C++ kernels for sm_90a
 """

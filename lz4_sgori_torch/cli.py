@@ -10,7 +10,9 @@ JAX CLI's ``--platform``.
     python -m lz4_sgori_torch.cli verify FILE --block-sizes 4 8 64 96 \
         --device cuda
 
-A block size whose engine is not ported yet ends the sweep with a
+The default ``verify`` sweep is the fio envelope, 4 KiB-4 MiB; every
+size of it runs on the port's kernels. A request the port does not serve
+yet (``compress --match-depth 3``: the deep modes) ends with a
 ``lz4j: error: ... ROADMAP ...`` line and exit code 1.
 """
 

@@ -3,7 +3,8 @@
 Port of ``lz4_sgori_tpu/ops/decode.py:decompress_blocks_device``. The
 engine comes from the routing table: the v7 band (16-128 KiB) runs K1
 (``kernels/lockstep_v7.py``), the v6 bands (under 16 KiB and 132-256 KiB)
-run K5 (``kernels/lockstep_v6.py``). Both kernels' plain version is the
+run K5 (``kernels/lockstep_v6.py``), and blocks above 256 KiB run K6
+(``kernels/lockstep_v8.py``). The three kernels' plain version is the
 port of the JAX package's portable decoder ``_decompress_blocks_impl``.
 """
 
@@ -14,8 +15,10 @@ import torch
 from .. import routing
 from .kernels.lockstep_v6 import decompress_blocks_v6
 from .kernels.lockstep_v7 import decompress_blocks_v7
+from .kernels.lockstep_v8 import decompress_blocks_v8
 
-_ENGINES = {"v6": decompress_blocks_v6, "v7": decompress_blocks_v7}
+_ENGINES = {"v6": decompress_blocks_v6, "v7": decompress_blocks_v7,
+            "v8": decompress_blocks_v8}
 
 
 def decompress_blocks_device(comp: torch.Tensor, comp_len: torch.Tensor,

@@ -4,13 +4,16 @@ Port of ``lz4_sgori_tpu/ops/encode.py:compress_blocks_device`` and its
 kernel dispatches, restricted to what the port has, at depth 1:
 
 - ``seg`` (8-64 KiB, 4 KiB multiples): kernels K2-K4, ``ops/seg.py``;
+- ``seg_big`` (64 KiB multiples above 64 KiB, 128 KiB-4 MiB on the fio
+  envelope): kernels K9, K3 and K4 with ``seg = routing.seg_for(bs)``,
+  ``ops/seg.py``;
 - ``enc3`` (under 8 KiB, and other sizes up to 64 KiB): K2 and K7,
   ``ops/enc3.py``;
 - ``seg_splice`` (above 64 KiB, not 64 KiB multiples): 64 KiB segments
   through ``enc3`` with tails, spliced on the host.
 
-Every other engine, depth and the mlen mode raise ``NotImplementedError``
-naming their ROADMAP item.
+Every other engine, depth and the mlen mode (where the JAX package would
+run it) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ def compress_blocks_device(raw: torch.Tensor, raw_len: torch.Tensor,
     elif engine == "enc3":
         comp, comp_len, cost = compress_blocks_enc3_dispatch(
             raw, raw_len, block_size, acceleration)
+    elif engine == "seg_big":
+        comp, comp_len, cost = compress_blocks_seg_dispatch(
+            raw, raw_len, block_size, acceleration,
+            seg=routing.seg_for(block_size), return_nseq=True)
     else:
         comp, comp_len, cost = compress_blocks_seg_dispatch(
             raw, raw_len, block_size, acceleration, return_nseq=True)
@@ -115,11 +122,14 @@ def compress_blocks_enc3_dispatch(raw, raw_len, block_size: int,
 def compress_blocks_seg_dispatch(raw, raw_len, block_size: int,
                                  acceleration: int = 1, seg: int = 4096,
                                  return_nseq: bool = False):
-    """The seg engine, byte-exact to golden.compress_dense_seg. A parse
-    error or an assembled block past COMPRESSBOUND (the reference's
-    limited-output condition) folds into comp_len 0 for the framing
-    layer's verify and host fallback."""
-    if os.environ.get("LZ4J_ENC_MLEN") == "1":
+    """The seg and seg_big engines, byte-exact to golden.compress_dense_seg
+    (compress_dense_seg_big above 64 KiB). A parse error or an assembled
+    block past COMPRESSBOUND (the reference's limited-output condition)
+    folds into comp_len 0 for the framing layer's verify and host
+    fallback. ``LZ4J_ENC_MLEN=1`` raises where the JAX package would run
+    its mlen pass 1 (depth 1, blocks of at most 64 KiB); elsewhere the
+    JAX package ignores it, and so does the port."""
+    if os.environ.get("LZ4J_ENC_MLEN") == "1" and block_size <= 65536:
         raise NotImplementedError(
             "LZ4J_ENC_MLEN=1 (mlen pass 1) is not ported yet: ROADMAP "
             "Queue 2 K10")

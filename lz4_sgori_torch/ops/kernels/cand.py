@@ -27,26 +27,28 @@ def load_kernel():
     return _build.load("cand", {"lz4t_cand": "pppiip"})
 
 
-def _check(raw: torch.Tensor, raw_len: torch.Tensor) -> None:
+def check_cand_args(raw: torch.Tensor, raw_len: torch.Tensor) -> None:
+    """The input checks of both pass-1 wrappers (K2 and K9)."""
     if raw.dtype != torch.uint8 or raw.dim() != 2:
         raise TypeError("raw must be uint8 [B, block_size]")
     if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
         raise TypeError("raw_len must be int32 [B]")
     if raw_len.device != raw.device:
         raise ValueError("raw and raw_len must be on one device")
-    if raw.shape[1] > MAX_BLOCK:
-        raise ValueError(f"blocks above {MAX_BLOCK} bytes need the "
-                         "piecewise pass 1 (ROADMAP Queue 2 K9)")
+    if raw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {raw.device}")
 
 
 def dense_candidates(raw: torch.Tensor, raw_len: torch.Tensor):
     """Per-position offset to the latest earlier equal-hash16 position."""
     global launches
-    _check(raw, raw_len)
+    check_cand_args(raw, raw_len)
+    if raw.shape[1] > MAX_BLOCK:
+        raise ValueError(f"blocks above {MAX_BLOCK} bytes need the "
+                         "piecewise pass 1: cand_piecewise."
+                         "dense_candidates_piecewise (K9)")
     if raw.device.type == "cpu":
         return dense_candidates_plain(raw, raw_len)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
     raw = raw.contiguous()
     raw_len = raw_len.contiguous()
     nb, bs = raw.shape
@@ -68,18 +70,20 @@ def hash16(v: torch.Tensor) -> torch.Tensor:
     return (prod & 0xFFFFFFFF) >> 16
 
 
-def dense_candidates_plain(raw: torch.Tensor, raw_len: torch.Tensor):
-    """Plain PyTorch pass 1: a stable sort of (hash, position) keys per
-    block; a position's candidate is its predecessor in the same bucket."""
-    nb, bs = raw.shape
-    dev = raw.device
-    b = raw.to(torch.int64)
-    pad = torch.zeros((nb, 3), dtype=torch.int64, device=dev)
-    bp = torch.cat([b, pad], dim=1)
-    v = bp[:, :bs] | (bp[:, 1:bs + 1] << 8) | (bp[:, 2:bs + 2] << 16) \
-        | (bp[:, 3:bs + 3] << 24)
-    pos = torch.arange(bs, dtype=torch.int64, device=dev).expand(nb, bs)
-    act = pos < (raw_len.to(torch.int64)[:, None] - 3)
+def read32_words(b: torch.Tensor, width: int) -> torch.Tensor:
+    """Little-endian read32 at positions [0, width) of int64 byte rows
+    ``b [R, >= width + 3]``."""
+    return b[:, :width] | (b[:, 1:width + 1] << 8) \
+        | (b[:, 2:width + 2] << 16) | (b[:, 3:width + 3] << 24)
+
+
+def bucket_offsets(v: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """Per row of read32 words ``v int64 [R, W]`` (W <= 2^17), the offset
+    of each active position to the latest earlier active position of the
+    same hash16 bucket, else 0: a stable sort of (hash, position) keys,
+    where a position's candidate is its predecessor in the same bucket."""
+    pos = torch.arange(v.shape[1], dtype=torch.int64,
+                       device=v.device).expand_as(v)
     h = torch.where(act, hash16(v), 1 << 16)        # inactive: own bucket
     key = (h << 17) | pos
     skey, _ = torch.sort(key, dim=1)
@@ -90,6 +94,13 @@ def dense_candidates_plain(raw: torch.Tensor, raw_len: torch.Tensor):
     prev = torch.zeros_like(sp)
     prev[:, 1:] = sp[:, :-1]
     d_sorted = torch.where(same & (sh < (1 << 16)), sp - prev, 0)
-    cand = torch.zeros((nb, bs), dtype=torch.int64, device=dev)
-    cand.scatter_(1, sp, d_sorted)
-    return cand.to(torch.int32)
+    return torch.zeros_like(sp).scatter_(1, sp, d_sorted)
+
+
+def dense_candidates_plain(raw: torch.Tensor, raw_len: torch.Tensor):
+    """Plain PyTorch pass 1: ``bucket_offsets`` over each whole block."""
+    nb, bs = raw.shape
+    bp = torch.nn.functional.pad(raw.to(torch.int64), (0, 3))
+    pos = torch.arange(bs, dtype=torch.int64, device=raw.device)
+    act = pos[None, :] < (raw_len.to(torch.int64)[:, None] - 3)
+    return bucket_offsets(read32_words(bp, bs), act).to(torch.int32)

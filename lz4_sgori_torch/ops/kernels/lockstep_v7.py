@@ -37,7 +37,7 @@ def load_kernel():
 
 def check_decode_args(comp: torch.Tensor, comp_len: torch.Tensor,
                       out_size: int) -> None:
-    """The input checks of both decode wrappers (K1 and K5)."""
+    """The input checks of the decode wrappers (K1, K5 and K6)."""
     if comp.dtype != torch.uint8 or comp.dim() != 2:
         raise TypeError(f"comp must be uint8 [B, slot], got {comp.dtype} "
                         f"{tuple(comp.shape)}")

@@ -1,18 +1,22 @@
-"""The seg engine: segment-parallel block compress (kernels K2, K3, K4
-plus PyTorch glue).
+"""The seg and seg_big engines: segment-parallel block compress (kernels
+K2 or K9, K3, K4 plus PyTorch glue).
 
 Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
-compress_blocks_lockstep_seg`` at depth 1 for blocks of at most 64 KiB.
-Byte contract: ``golden.compress_dense_seg(block, seg, window,
-hashlog=16, acceleration)`` per block.
+compress_blocks_lockstep_seg`` at depth 1. Byte contract per block:
+``golden.compress_dense_seg(block, seg, window, hashlog=16,
+acceleration)`` for blocks of at most 64 KiB (engine seg), and
+``golden.compress_dense_seg_big(block, seg, acceleration=...)`` for
+blocks above 64 KiB, which must be 64 KiB multiples (engine seg_big).
 
-Pipeline: mask bytes past ``raw_len`` -> K2 candidates -> K3 per-segment
-parse -> owner run headers and the assembly plan (glue) -> K4 assembly ->
-error fold. What only the TPU needed is left out: the 128-lane group
-packing and tape layouts, the density regrouping of segments (a
-permutation that is inverted again, so the bytes never change), the
-VMEM-fit checks and barrier chains, and the dynamic_update_slice
-assembly fallback.
+Pipeline: mask bytes past ``raw_len`` -> pass-1 candidates (K2 over the
+whole block up to 64 KiB, K9's piecewise windows above) -> K3
+per-segment parse -> owner run headers and the assembly plan (glue) ->
+K4 assembly -> error fold. What only the TPU needed is left out: the
+128-lane group packing and tape layouts, the density regrouping of
+segments (a permutation that is inverted again, so the bytes never
+change), the VMEM-fit checks and barrier chains, the padded piece and
+straddle copies of pass 1, and the dynamic_update_slice assembly
+fallback.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from lz4_sgori_tpu import format as F
 
 from .kernels.asm_seg import assemble_segments
 from .kernels.cand import dense_candidates
+from .kernels.cand_piecewise import dense_candidates_piecewise
 from .kernels.parse_seg import parse_segments
 
 
@@ -38,6 +43,8 @@ def run_headers(p1, m1h, last_end, raw_len, block_size: int):
 
     p1, m1h, last_end: int32 [nb, nseg] from the parse; raw_len int32 [nb].
     Returns (hdr uint8 [nb*nseg, header_max], hlen int64 [nb, nseg]).
+    The header bytes are built in uint8 (at 4 MiB, ``header_max`` is
+    16,451 bytes for each of 128 segments a block).
     """
     nb, nseg = p1.shape
     dev = p1.device
@@ -64,14 +71,16 @@ def run_headers(p1, m1h, last_end, raw_len, block_size: int):
     remb = q.clamp(min=0) - 255 * nff
     hlen = torch.where(owner, 1 + torch.where(q >= 0, nff + 1, 0), 0)
     tokp = (lrun.clamp(max=F.RUN_MASK) << F.ML_BITS) | mcn
-    hj = torch.arange(header_max(block_size), dtype=i64, device=dev)
-    hj = hj[None, None, :]
-    hdr = torch.where(hj == 0, tokp[..., None],
-                      torch.where(hj <= nff[..., None], 255,
-                                  torch.where(hj == nff[..., None] + 1,
-                                              remb[..., None], 0)))
-    hdr = torch.where(hj < hlen[..., None], hdr, 0)
-    return hdr.to(torch.uint8).reshape(nb * nseg, -1), hlen
+    # byte j of a header: the token at 0, 255 in [1, nff], the LSIC
+    # remainder at nff + 1, cut at hlen
+    i32, u8 = torch.int32, torch.uint8
+    hj = torch.arange(header_max(block_size), dtype=i32, device=dev)
+    nff3 = nff.to(i32)[..., None]
+    live = hj < hlen.to(i32)[..., None]
+    hdr = ((hj <= nff3) & live).to(u8) * 255
+    hdr = torch.where((hj == nff3 + 1) & live, remb.to(u8)[..., None], hdr)
+    hdr[..., 0] = torch.where(hlen > 0, tokp, 0).to(u8)
+    return hdr.reshape(nb * nseg, -1), hlen
 
 
 def assembly_plan(slen, hlen, last_end, raw_len, seg: int):
@@ -101,10 +110,10 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
     if block_size % seg or block_size // seg > 128:
         raise ValueError("seg must divide block_size into at most 128 "
                          "segments")
-    if block_size > 65536:
-        raise NotImplementedError(
-            "blocks above 64 KiB need the seg_big engine (ROADMAP Queue 2 "
-            "K9)")
+    big = block_size > 65536
+    if big and block_size % 65536:
+        raise ValueError("blocks above 64 KiB must be multiples of 64 KiB "
+                         "(piecewise pass-1 stretches)")
     nb = raw.shape[0]
     nseg = block_size // seg
     dev = raw.device
@@ -114,7 +123,8 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
     rawm = torch.where(cpos[None, :] < raw_len[:, None], rawm, 0).to(
         torch.uint8).contiguous()
 
-    cand = dense_candidates(rawm, raw_len)
+    cand = (dense_candidates_piecewise(rawm, raw_len) if big
+            else dense_candidates(rawm, raw_len))
     streams, slen, serr, last_end, nseq, p1, m1h = parse_segments(
         rawm, cand, raw_len, seg=seg, window=window, accel=accel)
 

@@ -24,8 +24,6 @@ DECODE_IMPLS = ("auto", "xla", "lockstep", "lockstep_v6", "lockstep_v7",
 # engine -> ROADMAP item that ports it (Queue 1 / Queue 2 numbering)
 UNPORTED = {
     "xla": "Queue 1 item 7 (portable and exhaustive encode/decode)",
-    "v8": "Queue 2 K6 (lockstep_v8 decode band)",
-    "seg_big": "Queue 2 K9 (seg_big piecewise candidates)",
 }
 
 

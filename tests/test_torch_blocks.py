@@ -149,6 +149,8 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, lz4_sgori_torch, lz4_sgori_torch.blocks, "
             "lz4_sgori_torch.ops.seg, lz4_sgori_torch.ops.enc3, "
+            "lz4_sgori_torch.ops.kernels.cand_piecewise, "
+            "lz4_sgori_torch.ops.kernels.lockstep_v8, "
             "lz4_sgori_torch.store, lz4_sgori_torch.cli; "
             "sys.exit(1 if 'jax' in sys.modules else 0)")
     assert subprocess.run([sys.executable, "-c", code],

@@ -1,6 +1,7 @@
-"""K1's plain version (the port's decoder on CPU tensors) against
-golden.decompress, the JAX portable decoder and the JAX v7 kernel in
-interpret mode. Outputs are bytes, so every comparison is exact."""
+"""K1's plain version (the port's decoder on CPU tensors, also K5's and
+K6's) against golden.decompress, the JAX portable decoder and the JAX
+v6, v7 and v8 kernels in interpret mode. Outputs are bytes, so every
+comparison is exact."""
 
 import numpy as np
 import pytest
@@ -250,12 +251,14 @@ def test_v6_route_malformed_matches_jax_v6_interpret():
 
 
 @pytest.mark.parametrize("out_size,engine", [
-    (4096, "v6"), (8192, "v6"), (65536, "v7"), (196 * 1024, "v6")])
+    (4096, "v6"), (8192, "v6"), (65536, "v7"), (196 * 1024, "v6"),
+    (512 * 1024, "v8")])
 def test_device_wrapper_routes_by_band(monkeypatch, out_size, engine):
-    """Blocks under 16 KiB and in 132-256 KiB go to K5, 16-128 KiB to K1;
-    CPU tensors launch neither kernel."""
+    """Blocks under 16 KiB and in 132-256 KiB go to K5, 16-128 KiB to K1,
+    above 256 KiB to K6; CPU tensors launch none of the kernels."""
     from lz4_sgori_torch.ops import decode as D
     from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
+    from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
     called = []
 
     def spy(name, fn):
@@ -268,12 +271,12 @@ def test_device_wrapper_routes_by_band(monkeypatch, out_size, engine):
         monkeypatch.setitem(D._ENGINES, name, spy(name, fn))
     data = (b"hello block device " * (out_size // 19 + 1))[:out_size - 3]
     comp, clen = _pack([golden.compress(data)])
-    before = (K1.launches, K5.launches)
+    before = (K1.launches, K5.launches, K6.launches)
     out, out_len, err = decompress_blocks_device(
         torch.from_numpy(comp), torch.from_numpy(clen), out_size)
     assert called == [engine]
     assert not bool(err[0]) and out[0, :len(data)].numpy().tobytes() == data
-    assert (K1.launches, K5.launches) == before
+    assert (K1.launches, K5.launches, K6.launches) == before
 
 
 def test_k5_plain_mutants_match_golden(fixtures):
@@ -294,3 +297,92 @@ def test_k5_plain_mutants_match_golden(fixtures):
         if want is not None:
             assert out[j, :out_len[j]].tobytes() == want, j
     assert 0 < int(err.sum()) < len(muts)
+
+
+def _v8_parity_blocks(out_size):
+    rng = np.random.RandomState(11)
+    period = bytes(rng.randint(0, 256, 1500, np.int64).astype(np.uint8))
+    return [
+        bytes(out_size),
+        (b"the quick brown fox " * 300)[:out_size],
+        bytes(rng.randint(0, 256, out_size, np.int64).astype(np.uint8)),
+        (period * 4)[:out_size],
+        b"ab" * (out_size // 2),
+        bytes(range(256)) * (out_size // 256),
+        b"z" * 2037,
+        b"",
+    ]
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_v8_route_matches_jax_v8_interpret(sort):
+    """test_v8_parity's blocks through the port's forced v8 route (K6's
+    plain version on CPU tensors) and the JAX v8 kernel in interpret
+    mode: err, out_len and the bytes up to out_len are equal. Past out_len
+    the JAX rows keep the kernel's copy slack (11 bytes after the
+    2,037-byte block); the port's rows are zero there, as K1's contract
+    says."""
+    from lz4_sgori_tpu.ops.pallas.lockstep_v8 import (
+        decompress_blocks_lockstep_v8)
+    out_size = 4096
+    blocks = _v8_parity_blocks(out_size)
+    comp, clen = _pack([golden.compress(b) for b in blocks])
+    jout, jlen, jerr = map(np.asarray, decompress_blocks_lockstep_v8(
+        comp, clen, out_size, sr=512, unroll=2, transfers=1,
+        interpret=True, sort=sort))
+    out, out_len, err = (t.numpy() for t in decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), out_size,
+        impl="lockstep_v8"))
+    assert not err.any() and np.array_equal(err, jerr)
+    assert np.array_equal(out_len, jlen)
+    for j, b in enumerate(blocks):
+        assert out[j, :len(b)].tobytes() == b == jout[j, :len(b)].tobytes()
+        assert not out[j, len(b):].any(), j
+
+
+def test_v8_route_malformed_matches_jax_v8_interpret():
+    """test_v8_malformed's streams through the forced v8 route and the JAX
+    v8 kernel: err equals the JAX kernel's and golden's verdict, and the
+    bytes agree where a stream decodes."""
+    from lz4_sgori_tpu.ops.pallas.lockstep_v8 import (
+        decompress_blocks_lockstep_v8)
+    out_size = 2048
+    cases = [b"\xf0" + b"A" * 10, golden.compress(b"x" * 1640),
+             b"\x10A\x00\x00", b"\x10A\x50\x00", b"\x1f",
+             b"\x12AB\x01\x00" + b"\xff" * 6,
+             golden.compress(bytes(range(256)) * 8),
+             golden.compress(b"hello world " * 100)]
+    comp, clen = _pack(cases)
+    jout, jlen, jerr = map(np.asarray, decompress_blocks_lockstep_v8(
+        comp, clen, out_size, sr=512, unroll=2, transfers=1,
+        interpret=True, sort=False))
+    out, out_len, err = (t.numpy() for t in decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), out_size,
+        impl="lockstep_v8"))
+    assert np.array_equal(err, jerr) and np.array_equal(out_len, jlen)
+    for j, want in enumerate(_golden_verdicts(cases, out_size)):
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out[j, :len(want)].tobytes() == want, j
+            assert jout[j, :len(want)].tobytes() == want, j
+    assert 0 < int(err.sum()) < len(cases)
+
+
+def test_v8_auto_route_at_512k_matches_golden():
+    """One 512 KiB block through the auto route (v8): the decode equals
+    golden.decompress, and a truncated copy is an error as in golden."""
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
+    bs = 524288
+    data = _synth_corpus(bs, seed=8)
+    c = golden.compress(data)
+    payloads = [c, c[:-7]]
+    comp, clen = _pack(payloads, F.compress_bound(bs) + 8)
+    before = K6.launches
+    out, out_len, err = (t.numpy() for t in decompress_blocks_device(
+        torch.from_numpy(comp), torch.from_numpy(clen), bs))
+    assert K6.launches == before          # CPU tensors run the plain version
+    verdicts = _golden_verdicts(payloads, bs)
+    assert verdicts[0] == data and verdicts[1] is None
+    assert not err[0] and out_len[0] == bs and out[0].tobytes() == data
+    assert err[1] and out_len[1] == 0 and not out[1].any()

@@ -1,8 +1,8 @@
-"""The six CUDA kernels (K1-K5, K7) against their plain PyTorch versions
-and their golden oracles, on the card. Marked ``cuda``; each test skips
-itself when no card is present. Run on a CUDA machine with
+"""The eight CUDA kernels (K1-K7, K9) against their plain PyTorch
+versions and their golden oracles, on the card. Marked ``cuda``; each
+test skips itself when no card is present. Run on a CUDA machine with
 
-    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
 
 import numpy as np
@@ -13,12 +13,15 @@ from chip_smoke import make_mutants
 from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
+from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
 from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
 from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
 from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_tpu import format as F
-from lz4_sgori_tpu import golden
+from lz4_sgori_tpu import golden, native
+from test_torch_seg_big import big_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +225,67 @@ def test_block_device_path_runs_k2_k7_k5(dev):
     assert stats.encode_fallbacks == 0
     assert min(m.launches for m in (K2, K5, K7)) > 0
     assert K1.launches == K3.launches == K4.launches == 0
+
+
+@pytest.mark.parametrize("bs", [131072, 1 << 20])
+def test_k9_candidates(dev, bs):
+    """K9 against its plain version on every case of big_blocks, and
+    against golden.dense_candidates_piecewise on the corpus block and the
+    period-1,000 block (candidates at a piece's position 65,535 and the
+    next half-piece's first positions)."""
+    blocks = big_blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    got = K9.dense_candidates_piecewise(raw, rlen)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K9.dense_candidates_piecewise_plain(raw, rlen))
+    got = got.cpu().numpy()
+    for j in (0, 4):
+        want = np.zeros(bs, np.int64)
+        want[:len(blocks[j])] = golden.dense_candidates_piecewise(blocks[j])
+        assert np.array_equal(got[j], want), j
+    assert got[4, 65535] == 1000
+
+
+@pytest.mark.parametrize("bs,nmut", [(524288, 64), (4 << 20, 16)])
+def test_k6_decode_and_mutants(dev, bs, nmut):
+    bases = [native.compress(b) for b in big_blocks(bs)]
+    rng = np.random.default_rng(56)
+    slot = F.compress_bound(bs) + 8
+    payloads = bases + make_mutants(bases, rng, nmut, slot - 8)
+    comp = np.zeros((len(payloads), slot), np.uint8)
+    clen = np.zeros(len(payloads), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    ct, lt = torch.from_numpy(comp).to(dev), torch.from_numpy(clen).to(dev)
+    out, out_len, err = K6.decompress_blocks_v8(ct, lt, bs)
+    pout, plen, perr = K1.decompress_blocks_plain(ct, lt, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(err, perr) and torch.equal(out_len, plen)
+    assert torch.equal(out, pout)
+    out, out_len, err = out.cpu().numpy(), out_len.cpu().numpy(), \
+        err.cpu().numpy()
+    for j, c in enumerate(payloads):
+        try:
+            want = golden.decompress(c, bs)
+        except golden.DecodeError:
+            want = None
+        assert bool(err[j]) == (want is None), j
+        if want is not None:
+            assert out[j, :out_len[j]].tobytes() == want, j
+
+
+def test_big_block_path_runs_k9_k3_k4_k6(dev):
+    import lz4_sgori_torch
+    from lz4_sgori_tpu.utils.stats import Stats
+    bs = 1 << 20
+    data = b"".join(big_blocks(bs)[:4])
+    mods = (K1, K2, K3, K4, K5, K6, K7, K9)
+    for m in mods:
+        m.launches = 0
+    stats = Stats()
+    container = lz4_sgori_torch.compress(data, bs, stats=stats)
+    assert lz4_sgori_torch.decompress(container) == data
+    assert stats.encode_fallbacks == 0
+    assert min(m.launches for m in (K3, K4, K6, K9)) > 0
+    assert K1.launches == K2.launches == K5.launches == K7.launches == 0

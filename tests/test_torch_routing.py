@@ -1,6 +1,7 @@
 """The port's routing table against the JAX package's, on the kernel
 column (the JAX table's TPU column), across the fio block-size envelope;
-engines the port lacks raise NotImplementedError instead of rerouting."""
+engines and depths the port lacks raise NotImplementedError instead of
+rerouting."""
 
 import numpy as np
 import pytest
@@ -51,10 +52,16 @@ def test_unported_engines_raise(engine):
 
 
 def test_unported_requests_raise_end_to_end(monkeypatch):
+    """What the port lacks raises; the seg_big encode (K9) and the v8
+    decode (K6) are ported and run."""
+    from lz4_sgori_tpu import golden
     raw = torch.zeros((1, 131072), dtype=torch.uint8)
     rl = torch.tensor([100], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K9"):
-        compress_blocks_device(raw, rl, 131072)           # seg_big band
+    comp, clen = compress_blocks_device(raw, rl, 131072)  # seg_big band
+    assert comp[0, :clen[0]].numpy().tobytes() == \
+        golden.compress_dense_seg_big(bytes(100), 4096)
+    with pytest.raises(NotImplementedError, match="K8"):
+        compress_blocks_device(raw, rl, 131072, match_depth=3)  # seg_big deep
     raw = torch.zeros((1, 4096), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="K8"):
         compress_blocks_device(raw, rl, 4096, match_depth=3)   # enc3 deep
@@ -66,8 +73,8 @@ def test_unported_requests_raise_end_to_end(monkeypatch):
         compress_blocks_device(raw, rl, 65536)
     comp = torch.from_numpy(np.zeros((1, 64), np.uint8))
     clen = torch.tensor([1], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K6"):
-        decompress_blocks_device(comp, clen, 1 << 20)
+    out, out_len, err = decompress_blocks_device(comp, clen, 1 << 20)  # v8
+    assert not bool(err[0]) and int(out_len[0]) == 0
     with pytest.raises(NotImplementedError, match="item 7"):
         decompress_blocks_device(comp, clen, 65536, impl="xla")
 
@@ -75,11 +82,13 @@ def test_unported_requests_raise_end_to_end(monkeypatch):
 @pytest.mark.parametrize("block_size,encode,decode", [
     (1, "enc3", "v6"), (4, "enc3", "v6"), (1024, "enc3", "v6"),
     (4096, "enc3", "v6"), (5000, "enc3", "v6"),
-    (96 * 1024, "seg_splice", "v7")])
+    (96 * 1024, "seg_splice", "v7"), (128 * 1024, "seg_big", "v7"),
+    (512 * 1024, "seg_big", "v8")])
 def test_ported_requests_route_through_the_port(fixtures, block_size,
                                                 encode, decode):
-    """Requests in the enc3, v6 and seg_splice bands run on the port:
-    a container round trip on CPU tensors with no host fallback."""
+    """Requests in the enc3, v6, seg_splice, seg_big and v8 bands run on
+    the port: a container round trip on CPU tensors with no host
+    fallback."""
     import lz4_sgori_torch
     from lz4_sgori_tpu.utils.stats import Stats
     assert R.select_encode_engine(block_size, 1) == encode
