@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the eight CUDA kernels of the port from ``lz4_sgori_torch/csrc``
-(one nvcc each, all started together) and drives three paths: two on a
+Builds the eleven CUDA kernels of the port from ``lz4_sgori_torch/csrc``
+(one nvcc each, all started together) and drives four paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, held
-on the card) and the big-block path on bench.py's config 6 (128 MiB,
-seed 55, 1 MiB blocks).
+on the card), the big-block path on bench.py's config 6 (128 MiB,
+seed 55, 1 MiB blocks) and the deep modes on its config 5 (128 MiB, seed
+1234, 64 KiB blocks).
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -69,16 +70,40 @@ blocks run in a pool of worker processes:
     ``test_1m.fio`` and ``test_4m.fio`` (32 sequential 1 MiB writes, 8 of
     4 MiB), read back under sha256;
 17. the CLI's default ``verify`` sweep (4 KiB-4 MiB, eleven sizes) over
-    8 MiB, which launches all eight kernels;
+    8 MiB, which launches all eight depth-1 kernels and none of K8's;
 18. 512 corrupted 1 MiB streams through the v8 route against
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
     K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
     both at 4 MiB.
 
+The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
+64 KiB blocks; depth 3 on seg, depth 5 on enc3 over the first 8 MiB;
+kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
+
+20. the gaps kernel (K2's tape at links 2 and 4, K9's tape with its
+    floor), K8-seg and K8-enc3 (4 KiB and 64 KiB, depth 3 and 5) against
+    their plain versions exactly, and the tapes against golden;
+21. the golden contract of each deep row of the routing table: seg at
+    depth 2-3, seg_big at depth 3, enc3 at depth 3 (acceleration 1 and 8)
+    and 5, and seg_splice capped at depth 1 with its warning;
+22. config 5 through ``lz4_sgori_torch.compress`` / ``decompress`` at
+    depth 3, then its first 8 MiB at depth 5, with the counters reset
+    just before each: round trip, zero host fallbacks, the deep kernels
+    launched and K3, K7 and K9 not, every block decoding under the native
+    decoder (and liblz4 where present), blocks equal to golden, and the
+    ratio and sizes against the TPU record of the same bytes;
+23. a ProxyStore at depth 3, a CompressedStore at depth 5 and
+    ``lz4j compress --match-depth 3`` and ``5`` round trips;
+24. times with CUDA events: the deep encode paths, the gaps kernel and
+    K8-seg over the corpus beside K3, K8-enc3 over the depth-5 slice, and
+    each deep kernel beside its plain version.
+
 Any failure exits non-zero with no result line. It needs a CUDA card
-and the repository beside it; it imports nothing of JAX. The last two
-lines are the per-kernel JSON record and the device JSON line.
+and the repository beside it; it imports nothing of JAX or of the JAX
+package, whose backend-neutral modules the port copies. The last two
+lines are the per-kernel JSON record (with each kernel's bytes bound)
+and the device JSON line.
 """
 
 from __future__ import annotations
@@ -125,6 +150,21 @@ SWEEP_BYTES = 8 << 20
 # big_1m_size_vs_lz4, engine seg_big): the same bytes, so the same numbers
 TPU_BIG_RECORD = {"ratio": 3.3538, "size_vs_lz4": 0.9711}
 
+DEEP_BLOCK = 65536
+DEEP_CORPUS_BYTES = 128 << 20
+DEEP_SEED = 1234
+DEEP5_BYTES = 8 << 20
+DEEP_SUBSET = 32
+DEEP_GOLDEN = 8
+DEEP_STORE_REQUESTS = 64
+DEEP_STORE_CHUNKS = 256
+# TPU record of bench.py's config 5 (BENCH_r05.json deep_ratio,
+# deep_size_vs_lz4 at depth 3 on engine seg, deep5_size_vs_lz4 at depth 5
+# on engine enc3 over the first 8 MiB; sizes against liblz4's
+# LZ4_compress_default): the same bytes, so the same numbers
+TPU_DEEP_RECORD = {"ratio": 2.8231, "size_vs_lz4": 0.9304,
+                   "deep5_size_vs_lz4": 0.9171}
+
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
      "lz4_sgori_tpu/ops/pallas/lockstep_v7.py:209"),
@@ -140,10 +180,23 @@ KERNELS = [
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
     ("K9 cand_piecewise", "cand_piecewise",
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1790"),
+    ("K8 gaps", "gaps", "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:398"),
+    ("K8 parse_seg_deep", "parse_seg_deep",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
+    ("K8 parse_enc3_deep", "parse_enc3_deep",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
 ]
+# H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
+# bytes per millisecond: the bound of every kernel here. An operation
+# bound would need an integer ALU peak, which the data sheet does not
+# give; each kernel does a few integer operations a byte it moves.
+HBM_BYTES_PER_MS = 3.35e9
 PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
 PATH4 = ("cand", "parse_enc3", "decode_v6")
 PATHBIG = ("cand_piecewise", "parse_seg", "asm_seg", "decode_v8")
+PATHDEEP3 = ("cand", "gaps", "parse_seg_deep", "asm_seg", "decode_v7")
+PATHDEEP5 = ("cand", "gaps", "parse_enc3_deep", "decode_v7")
+DEEP_ONLY = ("gaps", "parse_seg_deep", "parse_enc3_deep")
 # the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
 SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
           "parse_enc3")
@@ -209,15 +262,11 @@ def _run(cmd) -> str:
     return (p.stdout.strip() or p.stderr.strip()) or f"rc {p.returncode}"
 
 
-def _golden_seg_big(args) -> bytes:
-    block, seg, accel = args
-    from lz4_sgori_tpu import golden
-    return golden.compress_dense_seg_big(block, seg, acceleration=accel)
-
-
-def _golden_piecewise(block: bytes) -> np.ndarray:
-    from lz4_sgori_tpu import golden
-    return np.asarray(golden.dense_candidates_piecewise(block), np.int64)
+def _golden_call(args):
+    """``golden.<name>(block, **kwargs)`` in a worker process."""
+    name, block, kwargs = args
+    from lz4_sgori_torch import golden
+    return getattr(golden, name)(block, **kwargs)
 
 
 def _golden_verdict(args):
@@ -225,7 +274,7 @@ def _golden_verdict(args):
     where it raises."""
     import hashlib
 
-    from lz4_sgori_tpu import golden
+    from lz4_sgori_torch import golden
     stream, out_size = args
     try:
         out = golden.decompress(stream, out_size)
@@ -252,6 +301,42 @@ class Failed(Exception):
 def need(cond: bool, what: str) -> None:
     if not cond:
         raise Failed(what)
+
+
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def parse_bytes(inputs, outs) -> int:
+    """Bytes a parse (K3, K7, K8) must move: each input once, the stream
+    bytes it writes (the sum of its lengths, ``outs[1]``) and its other
+    per-lane outputs."""
+    return tensor_bytes(*inputs, *outs[1:]) + int(outs[1].sum())
+
+
+def decode_bytes(comp_len, res) -> int:
+    """Bytes a decode (K1, K5, K6) must move: the compressed payload and
+    its lengths in, the decoded bytes, lengths and flags out."""
+    out, out_len, err = res
+    return int(comp_len.sum()) + int(out_len.sum()) + tensor_bytes(
+        comp_len, out_len, err)
+
+
+def segment_diff(torch, maxdiff, got, want, what: str) -> int:
+    """The largest difference between two segment parses' outputs (K3,
+    K8-seg): the stream bytes within each length and every per-segment
+    output, over the segments without an error; the error flags must be
+    equal. Raises when they differ."""
+    need(torch.equal(got[2], want[2]),
+         f"{what} err differs from its plain version")
+    ok = got[2] == 0
+    err = max(maxdiff(a[ok], b[ok]) for a, b in zip(got[1:], want[1:]))
+    scap = got[0].shape[1]
+    smask = (torch.arange(scap, device=ok.device)[None, :]
+             < got[1][:, None]) & ok[:, None]
+    err = max(err, maxdiff(got[0][smask], want[0][smask]))
+    need(err == 0, f"{what} differs from its plain version by {err}")
+    return err
 
 
 def check_launches(counts: dict, path: str, used, idle) -> None:
@@ -285,26 +370,30 @@ def _smoke(torch) -> int:
     import lz4_sgori_torch
     from __graft_entry__ import _synth_corpus
     from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import format as F
+    from lz4_sgori_torch import golden, native
     from lz4_sgori_torch.ops import seg as S
-    from lz4_sgori_torch.ops.encode import compress_blocks_device
     from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
     from lz4_sgori_torch.ops.kernels import _build
     from lz4_sgori_torch.ops.kernels import asm_seg as K4
     from lz4_sgori_torch.ops.kernels import cand as K2
     from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
+    from lz4_sgori_torch.ops.kernels import gaps as G
     from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
     from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
     from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
+    from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
-    from lz4_sgori_tpu import format as F
-    from lz4_sgori_tpu import golden, native
-    from lz4_sgori_tpu.utils import oracle
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
+    from lz4_sgori_torch.utils import oracle
+    from lz4_sgori_torch.utils.stats import Stats
 
     mods = {"decode_v7": K1, "cand": K2, "parse_seg": K3, "asm_seg": K4,
             "decode_v6": K5, "decode_v8": K6, "parse_enc3": K7,
-            "cand_piecewise": K9}
+            "cand_piecewise": K9, "gaps": G, "parse_seg_deep": K8S,
+            "parse_enc3_deep": K8E}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -371,14 +460,7 @@ def _smoke(torch) -> int:
 
     pk = K3.parse_segments(rs, c_k, ls)
     pp = K3.parse_segments_plain(rs, c_k, ls)
-    need(torch.equal(pk[2], pp[2]), "K3 err differs from its plain version")
-    ok = pk[2] == 0
-    err3 = max(maxdiff(a[ok], b[ok]) for a, b in zip(pk[1:], pp[1:]))
-    scap = pk[0].shape[1]
-    smask = (torch.arange(scap, device=dev)[None, :] < pk[1][:, None]) \
-        & ok[:, None]
-    err3 = max(err3, maxdiff(pk[0][smask], pp[0][smask]))
-    need(err3 == 0, f"K3 differs from its plain version by {err3}")
+    err3 = segment_diff(torch, maxdiff, pk, pp, "K3")
 
     nseg = BLOCK // 4096
     shp = (SUBSET, nseg)
@@ -510,38 +592,50 @@ def _smoke(torch) -> int:
     }
     print(f"[{card}] kernels over the corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
+    # (kernel ms, plain ms, bytes the call must move) on the subset
     sub_times = {
         "cand": (time_ms(lambda: K2.dense_candidates(rs, ls), 10),
-                 time_ms(lambda: K2.dense_candidates_plain(rs, ls), 3)),
+                 time_ms(lambda: K2.dense_candidates_plain(rs, ls), 3),
+                 tensor_bytes(rs, ls, c_k)),
         "parse_seg": (time_ms(lambda: K3.parse_segments(rs, c_k, ls), 10),
                       time_ms(lambda: K3.parse_segments_plain(rs, c_k, ls),
-                              1)),
+                              1), parse_bytes((rs, c_k, ls), pk)),
         "asm_seg": (time_ms(lambda: K4.assemble_segments(
             pk[0], hdr, rs, plan, ocap), 10),
             time_ms(lambda: K4.assemble_segments_plain(
-                pk[0], hdr, rs, plan, ocap), 3)),
+                pk[0], hdr, rs, plan, ocap), 3),
+            int(pk[1].sum()) + int(hlen.sum()) + int(plan[..., 3].sum())
+            + int(a_k[1].sum()) + tensor_bytes(plan, a_k[1])),
         "decode_v7": (time_ms(lambda: K1.decompress_blocks_v7(
             comp_s, clen_s, BLOCK), 10),
             time_ms(lambda: K1.decompress_blocks_plain(
-                comp_s, clen_s, BLOCK), 1)),
+                comp_s, clen_s, BLOCK), 1), decode_bytes(clen_s, d_k)),
     }
-    for k, (a, b) in sub_times.items():
+    for k, (a, b, _) in sub_times.items():
         print(f"[{card}] {k} on {SUBSET} blocks: kernel {a:.4f} ms, "
               f"plain {b:.4f} ms")
 
     r4 = _smoke_4k(torch, data, card, time_ms, maxdiff, mods)
     rb = _smoke_big(torch, card, time_ms, maxdiff, mods)
+    rd = _smoke_deep(torch, card, time_ms, maxdiff, mods)
+    parts = (r4, rb, rd)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
-            "parse_seg": err3, "asm_seg": err4, **r4["errs"], **rb["errs"]}
-    sub_times.update(r4["sub_times"])
-    sub_times.update(rb["sub_times"])
+            "parse_seg": err3, "asm_seg": err4}
+    for r in parts:
+        errs.update({k: max(v, errs.get(k, 0)) for k, v in r["errs"].items()})
+        sub_times.update(r["sub_times"])
     record = {"kernels": [
         {"name": label, "route": "cuda",
          "source": f"lz4_sgori_torch/csrc/{key}.cu", "replaces": where,
-         "launches": counts[key] + r4["counts"][key] + rb["counts"][key],
+         "launches": counts[key] + sum(r["counts"][key] for r in parts),
          "max_abs_err": errs[key],
-         "ms": sub_times[key][0], "plain_ms": sub_times[key][1]}
+         "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
+         "bound_ms": sub_times[key][2] / HBM_BYTES_PER_MS,
+         "bound_by": "bytes", "library_ms": None}
         for label, key, where in KERNELS]}
+    for k in record["kernels"]:
+        print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['ms'] / k['bound_ms']:.1f}x)")
     print(f"card: {card}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -586,6 +680,8 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     import lz4_sgori_torch
     from lz4_sgori_torch import blocks as B
     from lz4_sgori_torch import cli
+    from lz4_sgori_torch import format as F
+    from lz4_sgori_torch import golden, native
     from lz4_sgori_torch import store as ST
     from lz4_sgori_torch.ops import seg as S
     from lz4_sgori_torch.ops.decode import decompress_blocks_device
@@ -595,10 +691,8 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
     from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
-    from lz4_sgori_tpu import format as F
-    from lz4_sgori_tpu import golden, native
-    from lz4_sgori_tpu.utils import oracle
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.utils import oracle
+    from lz4_sgori_torch.utils.stats import Stats
 
     dev = torch.device(DEVICE)
 
@@ -875,6 +969,9 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
         print(f"[{card}] {k} on {SUBSET4} blocks of 4 KiB: kernel {a:.4f} "
               f"ms, plain {b:.4f} ms")
     del sub_times["cand"]       # the record keeps K2's 64 KiB subset times
+    sub_times["parse_enc3"] += (parse_bytes((rs, cs, ls), k7),)
+    sub_times["decode_v6"] += (decode_bytes(k7[1], K5.decompress_blocks_v6(
+        k7[0], k7[1], BLOCK4)),)
     return {"errs": {"cand": err2, "parse_enc3": err7, "decode_v6": err5},
             "counts": counts, "sub_times": sub_times}
 
@@ -891,6 +988,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     from __graft_entry__ import _synth_corpus
     from lz4_sgori_torch import blocks as B
     from lz4_sgori_torch import cli
+    from lz4_sgori_torch import format as F
+    from lz4_sgori_torch import native
     from lz4_sgori_torch import routing as R
     from lz4_sgori_torch import store as ST
     from lz4_sgori_torch.ops.decode import decompress_blocks_device
@@ -899,10 +998,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
     from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
-    from lz4_sgori_tpu import format as F
-    from lz4_sgori_tpu import native
-    from lz4_sgori_tpu.utils import oracle
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.utils import oracle
+    from lz4_sgori_torch.utils.stats import Stats
 
     dev = torch.device(DEVICE)
     bs = BIG_BLOCK
@@ -928,8 +1025,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                            device=dev)[:BIG_SUBSET]
         rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
         psel = sub.tolist()[:2]
-        gpw = [pool.submit(_golden_piecewise,
-                           raw_np[j, :rlen_np[j]].tobytes()) for j in psel]
+        gpw = [pool.submit(_golden_call, ("dense_candidates_piecewise",
+                                          raw_np[j, :rlen_np[j]].tobytes(),
+                                          {})) for j in psel]
         c9 = K9.dense_candidates_piecewise(rs, ls)
         r4m, l4m = to_dev(*_batch([data[:top]], top))
         err9 = max(maxdiff(c9, K9.dense_candidates_piecewise_plain(rs, ls)),
@@ -938,7 +1036,7 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
         need(err9 == 0, f"K9 differs from its plain version by {err9}")
         c9n = c9.cpu().numpy()
         for i, f in enumerate(gpw):
-            w = f.result()
+            w = np.asarray(f.result(), np.int64)
             need(np.array_equal(c9n[i, :len(w)], w)
                  and not c9n[i, len(w):].any(),
                  f"K9 block {psel[i]} differs from "
@@ -969,8 +1067,10 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
         for gbs, acc in [(g, 1) for g in BIG_SIZES] + [(bs, 8)]:
             o = 2 * gbs if acc > 1 else 0
             blocks = [data[o:o + gbs], data[o + gbs:o + 2 * gbs - 12345]]
-            futs = [pool.submit(_golden_seg_big, (b, R.seg_for(gbs), acc))
-                    for b in blocks]
+            futs = [pool.submit(_golden_call, (
+                "compress_dense_seg_big", b,
+                {"seg": R.seg_for(gbs), "acceleration": acc}))
+                for b in blocks]
             r, l = to_dev(*_batch(blocks, gbs))
             need(R.select_encode_engine(gbs, 1) == "seg_big",
                  f"{gbs} does not route to seg_big")
@@ -1011,9 +1111,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
         t0 = time.perf_counter()
         cb = B.CompressedBlocks.from_container(container)
         gsel = np.linspace(0, nb - 1, BIG_GOLDEN).astype(np.int64)
-        gfut = [pool.submit(_golden_seg_big,
-                            (raw_np[j, :rlen_np[j]].tobytes(), seg, 1))
-                for j in gsel]
+        gfut = [pool.submit(_golden_call, (
+            "compress_dense_seg_big", raw_np[j, :rlen_np[j]].tobytes(),
+            {"seg": seg})) for j in gsel]
         lz_native = lz_lib = 0
         for j in range(nb):
             blk = raw_np[j, :rlen_np[j]].tobytes()
@@ -1085,7 +1185,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
             rc = cli.main(["--device", DEVICE, "verify", path])
             need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
             cli_counts = {k: m.launches for k, m in mods.items()}
-            check_launches(cli_counts, "CLI default verify", list(mods), [])
+            check_launches(cli_counts, "CLI default verify",
+                           [k for k in mods if k not in DEEP_ONLY],
+                           DEEP_ONLY)
         print(f"phase big stores and sweep: lz4j verify's default sweep "
               f"(4 KiB-4 MiB) over {SWEEP_BYTES} bytes ok, launches "
               f"{cli_counts} ({time.perf_counter() - t0:.1f} s)")
@@ -1145,12 +1247,390 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     for k, (a, b) in sub_times.items():
         print(f"[{card}] {k} on {BIG_SUBSET} blocks of {bs}: kernel {a:.4f} "
               f"ms, plain {b:.4f} ms")
+    sub_times["cand_piecewise"] += (tensor_bytes(rs, ls, c9),)
+    sub_times["decode_v8"] += (decode_bytes(n1, K6.decompress_blocks_v8(
+        c1, n1, bs)),)
     print(f"[{card}] at {top}: K9 on one block "
           f"{time_ms(lambda: K9.dense_candidates_piecewise(r4m, l4m), 5):.4f}"
           f" ms, K6 on two blocks "
           f"{time_ms(lambda: K6.decompress_blocks_v8(c4, n4, top), 3):.4f}"
           " ms")
     return {"errs": {"cand_piecewise": err9, "decode_v8": err6},
+            "counts": counts, "sub_times": sub_times}
+
+
+def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
+    """Phases 20-24: the deep match modes (K8) on bench.py's config 5
+    (128 MiB, seed 1234, 64 KiB blocks: depth 3 on seg, then depth 5 on
+    enc3 over the first 8 MiB; kernels K2, gaps, K8-seg, K8-enc3, K4 and
+    K1). Returns the per-kernel errors, launch counts (both runs) and
+    subset times of the gaps kernel and both K8 parses for the record."""
+    import hashlib
+    import tempfile
+    import warnings
+
+    import lz4_sgori_torch
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import cli
+    from lz4_sgori_torch import native
+    from lz4_sgori_torch import routing as R
+    from lz4_sgori_torch import store as ST
+    from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
+    from lz4_sgori_torch.ops.kernels import cand as K2
+    from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
+    from lz4_sgori_torch.ops.kernels import gaps as G
+    from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
+    from lz4_sgori_torch.ops.kernels import parse_seg as K3
+    from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
+    from lz4_sgori_torch.utils import oracle
+    from lz4_sgori_torch.utils.stats import Stats
+
+    dev = torch.device(DEVICE)
+    bs = DEEP_BLOCK
+
+    def to_dev(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def spread(n, size, short=777):
+        """``n`` blocks of ``size`` spread over the corpus, the last one
+        short."""
+        offs = np.linspace(0, len(data) - size, n).astype(int)
+        blocks = [data[o:o + size] for o in offs]
+        blocks[-1] = blocks[-1][:size - short]
+        return blocks
+
+    t0 = time.perf_counter()
+    data = _synth_corpus(DEEP_CORPUS_BYTES, seed=DEEP_SEED)
+    raw_np, rlen_np = B.split_blocks(data, bs)
+    raw, rlen = to_dev(raw_np, rlen_np)
+    nb = raw.shape[0]
+    print(f"deep corpus: {len(data)} bytes, {nb} blocks of {bs} (seed "
+          f"{DEEP_SEED}, {time.perf_counter() - t0:.1f} s to make)")
+
+    with golden_pool() as pool:
+        # ---- phase 20: gaps, K8-seg and K8-enc3 against their plain
+        # versions ----
+        t0 = time.perf_counter()
+        sub = torch.arange(0, nb, nb // DEEP_SUBSET, device=dev)[:DEEP_SUBSET]
+        rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+        gsub = [raw_np[j, :rlen_np[j]].tobytes() for j in sub.tolist()[:2]]
+        tape_jobs = [(name, i, pool.submit(_golden_call,
+                                           (name, b, {"hashlog": 16})))
+                     for name in ("dense_gaps", "dense_gaps2")
+                     for i, b in enumerate(gsub)]
+        piece_job = pool.submit(_golden_call, (
+            "dense_candidates_piecewise", data[:1 << 20],
+            {"with_gaps": True}))
+        cs = K2.dense_candidates(rs, ls)
+        gk, g2k = G.chain_gaps(cs, 4)
+        g3k, none = G.chain_gaps(cs, 2)
+        gp, g2p = G.chain_gaps_plain(cs, 4)
+        need(none is None, "the gaps wrapper returned gaps2 at links 2")
+        errg = max(maxdiff(gk, gp), maxdiff(g2k, g2p), maxdiff(g3k, gp))
+        rm, lm = to_dev(*B.split_blocks(data[:4 << 20], 1 << 20))
+        c9 = K9.dense_candidates_piecewise(rm, lm)
+        pwk, _ = G.chain_gaps(c9, 2, K9.PIECE // 2)
+        errg = max(errg, maxdiff(pwk, G.chain_gaps_plain(
+            c9, 2, K9.PIECE // 2)[0]))
+        need(errg == 0, f"gaps differs from its plain version by {errg}")
+        tapes = {"dense_gaps": gk.cpu().numpy(),
+                 "dense_gaps2": g2k.cpu().numpy()}
+        for name, i, f in tape_jobs:
+            w = np.asarray(f.result(), np.int64)
+            need(np.array_equal(tapes[name][i, :len(w)], w)
+                 and not tapes[name][i, len(w):].any(),
+                 f"gaps: subset block {i} differs from golden.{name}")
+        need(np.array_equal(pwk[0].cpu().numpy(),
+                            np.asarray(piece_job.result()[1], np.int64)),
+             "gaps over K9's tape differs from golden."
+             "dense_candidates_piecewise(with_gaps=True)")
+
+        pk = K8S.parse_segments_deep(rs, cs, g3k, ls)
+        err8s = segment_diff(torch, maxdiff, pk, K8S.parse_segments_deep_plain(
+            rs, cs, g3k, ls), "K8-seg")
+
+        err8e = 0
+        enc3_in = {}
+        for ebs, nblk in ((4096, 64), (bs, 8)):
+            blocks = spread(nblk, ebs)
+            r, l = to_dev(*_batch(blocks, ebs))
+            c = K2.dense_candidates(r, l)
+            for depth in (3, 5):
+                g, g2 = G.chain_gaps(c, 4 if depth == 5 else 2)
+                k = K8E.parse_blocks_enc3_deep(r, c, g, g2, l, depth=depth)
+                p = K8E.parse_blocks_enc3_deep_plain(r, c, g, g2, l,
+                                                     depth=depth)
+                err8e = max(err8e, max(maxdiff(a, b) for a, b in zip(k, p)))
+                need(not bool(k[2].any()),
+                     f"K8-enc3 flagged a block at {ebs}, depth {depth}")
+                enc3_in[ebs, depth] = (r, c, g, g2, l, k)
+        need(err8e == 0, f"K8-enc3 differs from its plain version by "
+                         f"{err8e}")
+        print(f"phase gaps/K8 == plain: ok; gaps (links 2 and 4) on "
+              f"{DEEP_SUBSET} blocks of {bs} and == golden on 2, over K9's "
+              f"tape on 4 blocks of 1 MiB and == golden on 1; K8-seg on "
+              f"{DEEP_SUBSET} blocks; K8-enc3 at 4096 and {bs}, depth 3 and 5 "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 21: the golden contract of each deep row ----
+        t0 = time.perf_counter()
+        seg_kw = {"seg": 4096, "window": 65536, "hashlog": 16, "depth": 3}
+        cases = [
+            ("seg", bs, 3, 1, spread(4, bs), "compress_dense_seg", seg_kw),
+            ("seg", 16384, 2, 8, spread(4, 16384), "compress_dense_seg",
+             {**seg_kw, "acceleration": 8}),
+            ("seg_big", 1 << 20, 3, 1, spread(2, 1 << 20),
+             "compress_dense_seg_big", {"seg": R.seg_for(1 << 20),
+                                        "depth": 3}),
+            ("enc3", 4096, 3, 1, spread(8, 4096), "compress_deep",
+             {"hashlog": 16, "depth": 3}),
+            ("enc3", 5000, 3, 8, spread(4, 5000) + [b"", data[:13]],
+             "compress_deep", {"acceleration": 8, "hashlog": 16,
+                               "depth": 3}),
+            ("enc3", bs, 5, 1, spread(2, bs), "compress_deep",
+             {"hashlog": 16, "depth": 5}),
+            ("seg_splice", 96 * 1024, 3, 1, spread(2, 96 * 1024),
+             "compress_segmented", {}),
+        ]
+        jobs = []
+        for engine, cbs, md, acc, blocks, fn, kw in cases:
+            need(R.select_encode_engine(cbs, md) == engine,
+                 f"{cbs} at depth {md} does not route to {engine}")
+            futs = [pool.submit(_golden_call, (fn, b, kw)) for b in blocks]
+            r, l = to_dev(*_batch(blocks, cbs))
+            with warnings.catch_warnings(record=True) as warned:
+                warnings.simplefilter("always")
+                c, n = compress_blocks_device(r, l, cbs, match_depth=md,
+                                              acceleration=acc)
+            capped = R.encode_depth_cap(engine, md) < md
+            need(capped == any("depth cap" in str(w.message)
+                               for w in warned),
+                 f"{engine} at depth {md}: the depth-cap warning is wrong")
+            decodes_to(decompress_blocks_device(c, n, cbs), blocks,
+                       f"{engine} at {cbs}, depth {md}, routed decode")
+            jobs.append((engine, cbs, md, c.cpu().numpy(), n.cpu().numpy(),
+                         fn, futs))
+        for engine, cbs, md, cn, nn, fn, futs in jobs:
+            for j, f in enumerate(futs):
+                need(cn[j, :nn[j]].tobytes() == f.result(),
+                     f"{engine} at {cbs}, depth {md}: block {j} differs "
+                     f"from golden.{fn}")
+        print(f"phase golden deep: seg at 64 KiB (depth 3) and 16 KiB "
+              f"(depth 2, acceleration 8), seg_big at 1 MiB, enc3 at 4096 "
+              f"and 5000 (acceleration 8) at depth 3 and at 64 KiB at depth "
+              f"5, and seg_splice capped at depth 1 with its warning, equal "
+              f"golden; routed decodes ok ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 22: config 5, counters reset just before each run ----
+        def main_run(payload, depth, path, label):
+            for m in mods.values():
+                m.launches = 0
+            stats = Stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            container = lz4_sgori_torch.compress(payload, bs, stats=stats,
+                                                 match_depth=depth,
+                                                 device=DEVICE)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = lz4_sgori_torch.decompress(container, stats=stats,
+                                              device=DEVICE)
+            t_dec = time.perf_counter() - t0
+            counts = {k: m.launches for k, m in mods.items()}
+            need(back == payload, f"{label} round trip differs")
+            need(stats.encode_fallbacks == 0,
+                 f"{stats.encode_fallbacks} host fallbacks on {label}")
+            check_launches(counts, label, path,
+                           [k for k in mods if k not in path])
+            cb = B.CompressedBlocks.from_container(container)
+            lz_native = lz_lib = 0
+            for j in range(cb.num_blocks):
+                blk = payload[j * bs:(j + 1) * bs]
+                c = cb.comp[j, :cb.comp_len[j]].tobytes()
+                need(native.decompress(c, bs) == blk,
+                     f"{label} block {j} fails the native decoder")
+                if oracle.available():
+                    need(oracle.decompress(c, bs) == blk,
+                         f"{label} block {j} fails liblz4")
+                    lz_lib += len(oracle.compress(blk))
+                lz_native += len(native.compress(blk))
+            ratio = len(payload) / cb.compressed_size
+            vs_native = cb.compressed_size / lz_native
+            vs_lib = cb.compressed_size / lz_lib if lz_lib else None
+            print(f"{label}: round trip ok, host fallbacks 0, launches "
+                  f"{counts}")
+            print(f"{label}: native decode ok, liblz4 decode "
+                  f"{'ok' if oracle.available() else 'not run (absent)'}; "
+                  f"ratio {ratio:.4f}, size {vs_native:.4f}x native "
+                  "LZ4_compress_default"
+                  + (f", {vs_lib:.4f}x liblz4" if vs_lib else ""))
+            print(f"[{card}] {label} wall: compress {t_enc:.3f} s "
+                  f"({len(payload) / t_enc / 1e9:.4f} GB/s), decompress "
+                  f"{t_dec:.3f} s ({len(payload) / t_dec / 1e9:.4f} GB/s), "
+                  "host framing included")
+            # the TPU record compares with liblz4; native is the same
+            # function where liblz4 is absent
+            return cb, counts, ratio, vs_lib or vs_native
+
+        t0 = time.perf_counter()
+        gsel = np.linspace(0, nb - 1, DEEP_GOLDEN).astype(np.int64)
+        gfut = [pool.submit(_golden_call, (
+            "compress_dense_seg", raw_np[j, :rlen_np[j]].tobytes(), seg_kw))
+            for j in gsel]
+        cb, counts3, ratio, vs_lz4 = main_run(data, 3, PATHDEEP3,
+                                              "config 5 (depth 3)")
+        for j, f in zip(gsel, gfut):
+            need(cb.comp[j, :cb.comp_len[j]].tobytes() == f.result(),
+                 f"config 5 block {j} differs from golden.compress_dense_seg"
+                 "(depth=3)")
+        print(f"config 5: {DEEP_GOLDEN} blocks == golden.compress_dense_seg"
+              f"(depth=3); TPU record of the same bytes: ratio "
+              f"{TPU_DEEP_RECORD['ratio']}, {TPU_DEEP_RECORD['size_vs_lz4']}x"
+              f" ({time.perf_counter() - t0:.1f} s)")
+        need(round(ratio, 4) == TPU_DEEP_RECORD["ratio"]
+             and round(vs_lz4, 4) == TPU_DEEP_RECORD["size_vs_lz4"],
+             f"config 5 ratio {ratio:.4f} / size {vs_lz4:.4f} differ from "
+             "the TPU record of the same bytes")
+        d5 = data[:DEEP5_BYTES]
+        g5 = [pool.submit(_golden_call, (
+            "compress_deep", d5[j * bs:(j + 1) * bs],
+            {"hashlog": 16, "depth": 5})) for j in (0, DEEP5_BYTES // bs - 1)]
+        cb5, counts5, _, vs5 = main_run(d5, 5, PATHDEEP5,
+                                        "config 5c (depth 5, 8 MiB)")
+        for j, f in zip((0, cb5.num_blocks - 1), g5):
+            need(cb5.comp[j, :cb5.comp_len[j]].tobytes() == f.result(),
+                 f"config 5c block {j} differs from golden.compress_deep"
+                 "(depth=5)")
+        print(f"config 5c: 2 blocks == golden.compress_deep(depth=5); TPU "
+              f"record: {TPU_DEEP_RECORD['deep5_size_vs_lz4']}x")
+        need(round(vs5, 4) == TPU_DEEP_RECORD["deep5_size_vs_lz4"],
+             f"config 5c size {vs5:.4f} differs from the TPU record")
+
+    # ---- phase 23: the stores and the CLI at match depth ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for m in mods.values():
+            m.launches = 0
+        nreq = DEEP_STORE_REQUESTS
+        st = ST.ProxyStore(os.path.join(tmp, "deep.img"), chunk_size=bs,
+                           capacity=nreq * bs, device=DEVICE, match_depth=3)
+        lat = []
+        for i in range(nreq):
+            t1 = time.perf_counter()
+            st.write(i * bs, data[i * bs:(i + 1) * bs])
+            lat.append(time.perf_counter() - t1)
+        need(hashlib.sha256(st.read(0, nreq * bs)).digest()
+             == hashlib.sha256(data[:nreq * bs]).digest(),
+             "ProxyStore at depth 3: read-back differs under sha256")
+        w = st.stats.as_dict()["write"]
+        need(w["reqs_total"] == nreq and w["reqs_failed"] == 0
+             and st.stats.encode_fallbacks == 0,
+             f"ProxyStore at depth 3: {w}, fallbacks "
+             f"{st.stats.encode_fallbacks}")
+        st.close()
+        cst = ST.CompressedStore(os.path.join(tmp, "c5"), chunk_size=4096,
+                                 device=DEVICE, match_depth=5)
+        for i in range(DEEP_STORE_CHUNKS):
+            cst.write_chunk(i, data[i * 4096:(i + 1) * 4096])
+        for i in range(DEEP_STORE_CHUNKS):
+            need(cst.read_chunk(i) == data[i * 4096:(i + 1) * 4096],
+                 f"CompressedStore at depth 5: chunk {i} differs")
+        need(cst.stats.encode_fallbacks == 0,
+             "CompressedStore at depth 5 fell back")
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(data[:4 << 20])
+        for cbs, md in ((bs, 3), (4096, 5)):
+            out = os.path.join(tmp, f"out{md}.lz4j")
+            back = os.path.join(tmp, f"back{md}.bin")
+            need(cli.main(["--device", DEVICE, "compress", src, out,
+                           "--block-size", str(cbs), "--match-depth",
+                           str(md)]) == 0, f"lz4j compress --match-depth "
+                                           f"{md} failed")
+            need(cli.main(["--device", DEVICE, "decompress", out, back]) == 0,
+                 f"lz4j decompress of the depth-{md} container failed")
+            with open(back, "rb") as f:
+                need(f.read() == data[:4 << 20],
+                     f"lz4j round trip at depth {md} differs")
+        store_counts = {k: m.launches for k, m in mods.items()}
+        check_launches(store_counts, "deep stores and CLI",
+                       ("gaps", "parse_seg_deep", "parse_enc3_deep"), [])
+    print(f"phase deep stores and CLI: ProxyStore at depth 3 ({nreq} writes "
+          f"of {bs}, median {1e3 * float(np.median(lat)):.4f} ms), "
+          f"CompressedStore at depth 5 ({DEEP_STORE_CHUNKS} chunks of 4 KiB), "
+          "lz4j compress "
+          f"--match-depth 3 and 5: ok, launches {store_counts} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 24: times ----
+    n5 = DEEP5_BYTES // bs
+    ms_d3 = time_ms(lambda: compress_blocks_device(raw, rlen, bs,
+                                                   match_depth=3), 3)
+    ms_d1 = time_ms(lambda: compress_blocks_device(raw, rlen, bs), 3)
+    ms_d5 = time_ms(lambda: compress_blocks_device(
+        raw[:n5], rlen[:n5], bs, match_depth=5), 3)
+    print(f"[{card}] config 5 kernel path over {len(data)} bytes: depth-3 "
+          f"encode {ms_d3:.3f} ms ({len(data) / ms_d3 / 1e6:.4f} GB/s), "
+          f"depth-1 encode of the same blocks {ms_d1:.3f} ms "
+          f"({len(data) / ms_d1 / 1e6:.4f} GB/s); depth-5 encode of "
+          f"{DEEP5_BYTES} bytes {ms_d5:.3f} ms "
+          f"({DEEP5_BYTES / ms_d5 / 1e6:.4f} GB/s)")
+    fc = K2.dense_candidates(raw, rlen)
+    fg, _ = G.chain_gaps(fc)
+    full = {"cand": time_ms(lambda: K2.dense_candidates(raw, rlen), 3),
+            "gaps": time_ms(lambda: G.chain_gaps(fc), 3),
+            "parse_seg_deep": time_ms(
+                lambda: K8S.parse_segments_deep(raw, fc, fg, rlen), 3),
+            "parse_seg (depth 1)": time_ms(
+                lambda: K3.parse_segments(raw, fc, rlen), 3)}
+    f5c = fc[:n5].contiguous()
+    f5g, f5g2 = G.chain_gaps(f5c, 4)
+    full["gaps (links 4, 8 MiB)"] = time_ms(lambda: G.chain_gaps(f5c, 4), 3)
+    full["parse_enc3_deep (depth 5, 8 MiB)"] = time_ms(
+        lambda: K8E.parse_blocks_enc3_deep(raw[:n5], f5c, f5g, f5g2,
+                                           rlen[:n5], depth=5), 3)
+    print(f"[{card}] kernels over config 5 (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in full.items()))
+    # K8-enc3 runs 32-thread CTAs, one thread a block: 1 and 32 blocks are
+    # one CTA (one warp), the slice's 128 four, so t(32)/t(1) reads the
+    # warp's divergence and t(128)/t(32) how far the extra SMs help
+    scale = {k: time_ms(lambda k=k: K8E.parse_blocks_enc3_deep(
+        raw[:k], f5c[:k], f5g[:k], f5g2[:k], rlen[:k], depth=5), 3)
+        for k in (1, 32)}
+    scale[n5] = full["parse_enc3_deep (depth 5, 8 MiB)"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{card}] K8-enc3 at depth 5 on the first k blocks of 64 KiB "
+          f"(32-thread CTAs; k=1 and 32 one CTA, {n5} on "
+          f"{-(-n5 // 32)} of {sms} SMs), ms: " + ", ".join(
+              f"k={k} {v:.4f}" for k, v in scale.items()))
+    r, c, g, g2, l, k = enc3_in[bs, 5]
+    sub_times = {
+        "gaps": (time_ms(lambda: G.chain_gaps(cs), 10),
+                 time_ms(lambda: G.chain_gaps_plain(cs), 3),
+                 tensor_bytes(cs, g3k)),
+        "parse_seg_deep": (
+            time_ms(lambda: K8S.parse_segments_deep(rs, cs, g3k, ls), 10),
+            time_ms(lambda: K8S.parse_segments_deep_plain(rs, cs, g3k, ls),
+                    1), parse_bytes((rs, cs, g3k, ls), pk)),
+        "parse_enc3_deep": (
+            time_ms(lambda: K8E.parse_blocks_enc3_deep(
+                r, c, g, g2, l, depth=5), 5),
+            time_ms(lambda: K8E.parse_blocks_enc3_deep_plain(
+                r, c, g, g2, l, depth=5), 1),
+            parse_bytes((r, c, g, g2, l), k)),
+    }
+    for key, (a, b, _) in sub_times.items():
+        print(f"[{card}] {key} on its subset: kernel {a:.4f} ms, plain "
+              f"{b:.4f} ms")
+    r4, c4, g4, _, l4, _ = enc3_in[4096, 3]
+    ms4 = time_ms(lambda: K8E.parse_blocks_enc3_deep(r4, c4, g4, None, l4),
+                  10)
+    print(f"[{card}] K8-enc3 at depth 3 on 64 blocks of 4 KiB: {ms4:.4f} ms")
+    counts = {k: counts3[k] + counts5[k] for k in mods}
+    return {"errs": {"gaps": errg, "parse_seg_deep": err8s,
+                     "parse_enc3_deep": err8e},
             "counts": counts, "sub_times": sub_times}
 
 

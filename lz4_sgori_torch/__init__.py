@@ -1,9 +1,10 @@
 """lz4_sgori_torch — the PyTorch and CUDA port of ``lz4_sgori_tpu``.
 
 The JAX package beside it is the reference. This package imports
-``torch`` and never ``jax``; it reuses the JAX package's backend-neutral
-modules (``format``, ``golden``, ``native``, ``utils``, and the container
-classes of ``blocks``) by import.
+``torch`` and nothing of ``jax`` or the JAX package: it keeps its own
+copies of the backend-neutral modules (``format``, ``golden``,
+``native``, ``utils``, and the container of ``blocks``), under the same
+names.
 
 Layer map (top-down):
 
@@ -15,6 +16,8 @@ Layer map (top-down):
   between kernels
 - ``ops.kernels``            — one wrapper + plain version per CUDA kernel
 - ``csrc``                   — the CUDA C++ kernels for sm_90a
+- ``format`` / ``golden`` / ``native`` / ``utils`` — format constants, the
+  scalar oracle, the C++ host codec, stats and the liblz4 oracle
 """
 
 from . import blocks, routing  # noqa: F401

@@ -1,9 +1,11 @@
 """Chunked block framing on PyTorch devices.
 
-Port of ``lz4_sgori_tpu/blocks.py:153-299``: ``compress``,
-``compress_to_blocks`` and ``decompress``. The container format, the
-split/join helpers and ``CompressedBlocks`` are the JAX package's own,
-imported, so containers move freely between the two packages.
+Port of ``lz4_sgori_tpu/blocks.py``: ``compress``, ``compress_to_blocks``
+and ``decompress``, and the port's own copies of the container pieces
+(``split_blocks``, ``join_blocks``, ``CompressedBlocks`` and its
+(de)serialisation, ``VerifyError``, ``_pad_slot``). The container bytes
+are the JAX package's, so containers move freely between the two
+packages.
 
 The write path keeps the reference's contract: a block the device
 engine could not encode (``comp_len`` 0) is re-encoded on the host, every
@@ -18,23 +20,140 @@ CPU. ``device="cpu"`` runs the kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import struct
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from lz4_sgori_tpu import format as F
-from lz4_sgori_tpu import golden, native
-from lz4_sgori_tpu.blocks import (DEFAULT_BLOCK_SIZE, CompressedBlocks,
-                                  VerifyError, _pad_slot, join_blocks,
-                                  split_blocks)
-from lz4_sgori_tpu.utils.stats import Stats
-
+from . import format as F
+from . import golden, native
 from .ops.decode import decompress_blocks_device
 from .ops.encode import compress_blocks_device
+from .utils.stats import Stats
 
 __all__ = ["compress", "compress_to_blocks", "decompress", "to_device",
            "from_device", "CompressedBlocks", "VerifyError"]
+
+MAGIC = b"LZ4J"
+VERSION = 1
+_HEADER = struct.Struct("<4sBBHIIQ")  # magic ver flags pad bs nblocks rawsz
+FLAG_CRC = 1  # per-block crc32 of the raw bytes follows the size table
+
+DEFAULT_BLOCK_SIZE = 65536
+
+
+def split_blocks(data: bytes, block_size: int):
+    """Frame a byte stream into padded dense blocks.
+
+    Returns (raw uint8 [num_blocks, block_size], raw_len int32 [num_blocks]).
+    An empty stream is one empty block.
+    """
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    n = len(data)
+    num = max(1, -(-n // block_size))
+    raw = np.zeros((num, block_size), np.uint8)
+    raw.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
+    raw_len = np.full(num, block_size, np.int32)
+    if n % block_size or n == 0:
+        raw_len[-1] = n - (num - 1) * block_size
+    return raw, raw_len
+
+
+def join_blocks(out: np.ndarray, out_len: np.ndarray) -> bytes:
+    """Inverse of split_blocks: concatenate valid prefixes."""
+    return b"".join(out[j, :out_len[j]].tobytes() for j in range(out.shape[0]))
+
+
+@dataclass
+class CompressedBlocks:
+    """Compressed framing: COMPRESSBOUND-padded slots plus a size vector
+    and, per block, the crc32 of its raw bytes (None: no crc table)."""
+
+    comp: np.ndarray          # uint8 [num_blocks, slot]
+    comp_len: np.ndarray      # int32 [num_blocks]
+    block_size: int
+    raw_size: int
+    raw_crc: np.ndarray | None = None
+
+    @property
+    def num_blocks(self) -> int:
+        return self.comp.shape[0]
+
+    @property
+    def compressed_size(self) -> int:
+        return int(self.comp_len.sum())
+
+    @property
+    def ratio(self) -> float:
+        c = self.compressed_size
+        return self.raw_size / c if c else 0.0
+
+    def to_container(self) -> bytes:
+        """Serialize: header | u32 sizes | [u32 raw crcs] | packed payloads."""
+        flags = FLAG_CRC if self.raw_crc is not None else 0
+        head = _HEADER.pack(MAGIC, VERSION, flags, 0, self.block_size,
+                            self.num_blocks, self.raw_size)
+        sizes = self.comp_len.astype("<u4").tobytes()
+        crcs = (self.raw_crc.astype("<u4").tobytes()
+                if self.raw_crc is not None else b"")
+        payload = b"".join(
+            self.comp[j, :self.comp_len[j]].tobytes()
+            for j in range(self.num_blocks))
+        return head + sizes + crcs + payload
+
+    @classmethod
+    def from_container(cls, blob: bytes) -> "CompressedBlocks":
+        if len(blob) < _HEADER.size:
+            raise ValueError("container too short")
+        magic, ver, flags, _pad, block_size, nblocks, raw_size = \
+            _HEADER.unpack_from(blob, 0)
+        if magic != MAGIC:
+            raise ValueError(f"bad magic {magic!r}")
+        if ver != VERSION:
+            raise ValueError(f"unsupported container version {ver}")
+        # range-check the header before any allocation sized from it
+        if not (1 <= block_size <= F.MAX_INPUT_SIZE):
+            raise ValueError(f"container corrupt (block_size {block_size})")
+        if nblocks < 0 or raw_size < 0 or raw_size > nblocks * block_size:
+            raise ValueError("container corrupt (block count / raw size)")
+        off = _HEADER.size
+        ntab = 2 if flags & FLAG_CRC else 1
+        if len(blob) < off + 4 * nblocks * ntab:
+            raise ValueError("container truncated (size table)")
+        sizes = np.frombuffer(blob, "<u4", nblocks, off).astype(np.int64)
+        off += 4 * nblocks
+        raw_crc = None
+        if flags & FLAG_CRC:
+            raw_crc = np.frombuffer(blob, "<u4", nblocks, off).copy()
+            off += 4 * nblocks
+        slot = F.compress_bound(block_size) + 8
+        if sizes.min() < 0 or sizes.max() > slot:
+            raise ValueError("container corrupt (block size out of range)")
+        if off + int(sizes.sum()) > len(blob):
+            raise ValueError("container truncated (payload)")
+        comp = np.zeros((nblocks, slot), np.uint8)
+        for j in range(nblocks):
+            c = int(sizes[j])
+            comp[j, :c] = np.frombuffer(blob, np.uint8, c, off)
+            off += c
+        return cls(comp=comp, comp_len=sizes.astype(np.int32),
+                   block_size=block_size, raw_size=raw_size,
+                   raw_crc=raw_crc)
+
+
+class VerifyError(RuntimeError):
+    """A compressed block failed decode-verify."""
+
+
+def _pad_slot(comp: np.ndarray, slot: int) -> np.ndarray:
+    if comp.shape[1] >= slot:
+        return comp
+    out = np.zeros((comp.shape[0], slot), np.uint8)
+    out[:, :comp.shape[1]] = comp
+    return out
 
 
 def resolve_device(device) -> torch.device:

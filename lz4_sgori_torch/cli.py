@@ -11,8 +11,9 @@ JAX CLI's ``--platform``.
         --device cuda
 
 The default ``verify`` sweep is the fio envelope, 4 KiB-4 MiB; every
-size of it runs on the port's kernels. A request the port does not serve
-yet (``compress --match-depth 3``: the deep modes) ends with a
+size of it runs on the port's kernels, and ``compress --match-depth 3``
+or ``5`` runs the deep modes. A request the port does not serve yet (the
+``xla`` engine, or ``LZ4J_ENC_MLEN=1`` where it would apply) ends with a
 ``lz4j: error: ... ROADMAP ...`` line and exit code 1.
 """
 

@@ -2,20 +2,23 @@
 PyTorch glue).
 
 Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
-compress_blocks_lockstep_enc3`` at depth 1 for blocks of at most 64 KiB.
-Byte contract: ``golden.compress_dense(block, accel, hashlog=16)`` per
-block. The routing table sends it blocks under 8 KiB (the 4 KiB
-block-device path), blocks of at most 64 KiB that are not 4 KiB
-multiples, and the 64 KiB segments of the seg_splice engine.
+compress_blocks_lockstep_enc3`` for blocks of at most 64 KiB. Byte
+contract per block: ``golden.compress_dense(block, accel, hashlog=16)``
+at depth 1 and ``golden.compress_deep(block, accel, hashlog=16, depth)``
+at depth 3 and 5. The routing table sends it blocks under 8 KiB (the
+4 KiB block-device path), blocks of at most 64 KiB that are not 4 KiB
+multiples, every block of at most 64 KiB at depth 4 and up, and the
+64 KiB segments of the seg_splice engine.
 
-Pipeline: mask bytes past ``raw_len`` -> K2 candidates -> K7 whole-block
-parse. K7 writes each block whole, terminal sequence included, so no
-assembly pass follows. What only the TPU needed is left out: the
-128-lane tape packing (``pack_tapes``/``unpack_tapes``) and
-``_pack_cand``'s two positions per row, the density regrouping of
-blocks (a permutation that is inverted again, so the bytes never
-change), the ``optimization_barrier`` chains, and the per-group
-invocation when a grid does not fit VMEM.
+Pipeline: mask bytes past ``raw_len`` -> K2 candidates -> at depth 3 and
+5 the chain gaps (the gaps kernel; g4 | g5 too at depth 5) -> the
+whole-block parse (K7, or K8-enc3 at depth 3 and 5). Either writes each
+block whole, terminal sequence included, so no assembly pass follows.
+What only the TPU needed is left out: the 128-lane tape packing
+(``pack_tapes``/``unpack_tapes``) and ``_pack_cand``'s two positions per
+row, the density regrouping of blocks (a permutation that is inverted
+again, so the bytes never change), the ``optimization_barrier`` chains,
+and the per-group invocation when a grid does not fit VMEM.
 """
 
 from __future__ import annotations
@@ -23,13 +26,15 @@ from __future__ import annotations
 import torch
 
 from .kernels.cand import dense_candidates
+from .kernels.gaps import chain_gaps
 from .kernels.parse_enc3 import MAX_BLOCK, parse_blocks_enc3
+from .kernels.parse_enc3_deep import parse_blocks_enc3_deep
 
 
 def compress_blocks_enc3(raw: torch.Tensor, raw_len: torch.Tensor,
                          block_size: int, accel: int = 1,
                          return_tails: bool = False,
-                         return_nseq: bool = False):
+                         return_nseq: bool = False, depth: int = 1):
     """Compress ``[nb, >= block_size]`` uint8 blocks on their device.
 
     Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past
@@ -38,6 +43,9 @@ def compress_blocks_enc3(raw: torch.Tensor, raw_len: torch.Tensor,
     ``return_nseq``, in that order. ``err`` marks a block past
     ``compress_bound`` (its ``comp_len`` is 0).
     """
+    if depth not in (1, 3, 5):
+        raise ValueError(f"enc3 runs depth 1, 3 or 5, not {depth} (see "
+                         "routing.encode_depth_cap)")
     if block_size > MAX_BLOCK:
         raise ValueError(
             f"enc3 serves blocks of at most {MAX_BLOCK} bytes (K2's "
@@ -49,8 +57,13 @@ def compress_blocks_enc3(raw: torch.Tensor, raw_len: torch.Tensor,
     rawm = torch.where(pos[None, :] < raw_len[:, None],
                        raw[:, :block_size], 0).to(torch.uint8).contiguous()
     cand = dense_candidates(rawm, raw_len)
-    comp, comp_len, err, tails, nseq = parse_blocks_enc3(rawm, cand, raw_len,
-                                                         accel)
+    if depth > 1:
+        gaps, gaps2 = chain_gaps(cand, 4 if depth == 5 else 2)
+        parts = parse_blocks_enc3_deep(rawm, cand, gaps, gaps2, raw_len,
+                                       accel, depth)
+    else:
+        parts = parse_blocks_enc3(rawm, cand, raw_len, accel)
+    comp, comp_len, err, tails, nseq = parts
     res = (comp, comp_len, err)
     if return_tails:
         res += (tails,)

@@ -1,19 +1,22 @@
 """Batched LZ4 block encode on a device.
 
 Port of ``lz4_sgori_tpu/ops/encode.py:compress_blocks_device`` and its
-kernel dispatches, restricted to what the port has, at depth 1:
+kernel dispatches, restricted to the kernel engines:
 
-- ``seg`` (8-64 KiB, 4 KiB multiples): kernels K2-K4, ``ops/seg.py``;
+- ``seg`` (8-64 KiB, 4 KiB multiples, depth <= 3): kernels K2-K4, and at
+  depth 2-3 K2, gaps, K8-seg and K4, ``ops/seg.py``;
 - ``seg_big`` (64 KiB multiples above 64 KiB, 128 KiB-4 MiB on the fio
-  envelope): kernels K9, K3 and K4 with ``seg = routing.seg_for(bs)``,
-  ``ops/seg.py``;
-- ``enc3`` (under 8 KiB, and other sizes up to 64 KiB): K2 and K7,
-  ``ops/enc3.py``;
-- ``seg_splice`` (above 64 KiB, not 64 KiB multiples): 64 KiB segments
-  through ``enc3`` with tails, spliced on the host.
+  envelope; depth capped at 3): kernels K9, K3 and K4 with
+  ``seg = routing.seg_for(bs)``, and at depth 2-3 K9, gaps, K8-seg and
+  K4, ``ops/seg.py``;
+- ``enc3`` (under 8 KiB, other sizes up to 64 KiB, and every size up to
+  64 KiB at depth 4 and up): K2 and K7, and at depth 3 and 5 K2, gaps
+  and K8-enc3, ``ops/enc3.py``;
+- ``seg_splice`` (above 64 KiB, not 64 KiB multiples; depth capped at
+  1): 64 KiB segments through ``enc3`` with tails, spliced on the host.
 
-Every other engine, depth and the mlen mode (where the JAX package would
-run it) raise ``NotImplementedError`` naming their ROADMAP item.
+The ``xla`` engine and the mlen mode (where the JAX package would run
+it) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,10 +26,8 @@ import os
 import numpy as np
 import torch
 
-from lz4_sgori_tpu import format as F
-from lz4_sgori_tpu import golden
-
-from .. import routing
+from .. import format as F
+from .. import golden, routing
 from .enc3 import compress_blocks_enc3
 from .seg import compress_blocks_seg
 
@@ -46,7 +47,7 @@ def compress_blocks_device(raw: torch.Tensor, raw_len: torch.Tensor,
     md = match_depth or 1
     engine = routing.select_encode_engine(block_size, md, True, impl)
     depth = routing.encode_depth_cap(engine, md)
-    routing.require_ported(engine, depth)
+    routing.require_ported(engine)
     if depth < md:
         import warnings
         warnings.warn(
@@ -58,14 +59,15 @@ def compress_blocks_device(raw: torch.Tensor, raw_len: torch.Tensor,
         cost = comp_len
     elif engine == "enc3":
         comp, comp_len, cost = compress_blocks_enc3_dispatch(
-            raw, raw_len, block_size, acceleration)
+            raw, raw_len, block_size, acceleration, depth=depth)
     elif engine == "seg_big":
         comp, comp_len, cost = compress_blocks_seg_dispatch(
-            raw, raw_len, block_size, acceleration,
+            raw, raw_len, block_size, acceleration, depth=depth,
             seg=routing.seg_for(block_size), return_nseq=True)
     else:
         comp, comp_len, cost = compress_blocks_seg_dispatch(
-            raw, raw_len, block_size, acceleration, return_nseq=True)
+            raw, raw_len, block_size, acceleration, depth=depth,
+            return_nseq=True)
     return (comp, comp_len, cost) if return_cost else (comp, comp_len)
 
 
@@ -110,29 +112,33 @@ def _compress_blocks_segmented(raw: torch.Tensor, raw_len: torch.Tensor,
 
 
 def compress_blocks_enc3_dispatch(raw, raw_len, block_size: int,
-                                  acceleration: int = 1):
-    """The enc3 engine, byte-exact to golden.compress_dense(hashlog=16):
-    (comp, comp_len, nseq). A block past COMPRESSBOUND folds into
+                                  acceleration: int = 1, depth: int = 1):
+    """The enc3 engine, byte-exact to golden.compress_dense(hashlog=16)
+    at depth 1 and golden.compress_deep(hashlog=16, depth) at depth 3
+    and 5: (comp, comp_len, nseq). A block past COMPRESSBOUND folds into
     comp_len 0 for the framing layer's verify and host fallback."""
     comp, comp_len, err, nseq = compress_blocks_enc3(
-        raw, raw_len, block_size, accel=acceleration, return_nseq=True)
+        raw, raw_len, block_size, accel=acceleration, return_nseq=True,
+        depth=depth)
     return comp, torch.where(err, 0, comp_len), nseq
 
 
 def compress_blocks_seg_dispatch(raw, raw_len, block_size: int,
-                                 acceleration: int = 1, seg: int = 4096,
+                                 acceleration: int = 1, depth: int = 1,
+                                 seg: int = 4096,
                                  return_nseq: bool = False):
     """The seg and seg_big engines, byte-exact to golden.compress_dense_seg
-    (compress_dense_seg_big above 64 KiB). A parse error or an assembled
-    block past COMPRESSBOUND (the reference's limited-output condition)
-    folds into comp_len 0 for the framing layer's verify and host
-    fallback. ``LZ4J_ENC_MLEN=1`` raises where the JAX package would run
-    its mlen pass 1 (depth 1, blocks of at most 64 KiB); elsewhere the
-    JAX package ignores it, and so does the port."""
-    if os.environ.get("LZ4J_ENC_MLEN") == "1" and block_size <= 65536:
+    (compress_dense_seg_big above 64 KiB) at ``depth``. A parse error or
+    an assembled block past COMPRESSBOUND (the reference's limited-output
+    condition) folds into comp_len 0 for the framing layer's verify and
+    host fallback. ``LZ4J_ENC_MLEN=1`` raises where the JAX package would
+    run its mlen pass 1 (depth 1, blocks of at most 64 KiB); elsewhere
+    the JAX package ignores it, and so does the port."""
+    if (os.environ.get("LZ4J_ENC_MLEN") == "1" and depth == 1
+            and block_size <= 65536):
         raise NotImplementedError(
             "LZ4J_ENC_MLEN=1 (mlen pass 1) is not ported yet: ROADMAP "
             "Queue 2 K10")
     comp, comp_len, _err, nseq = compress_blocks_seg(
-        raw, raw_len, block_size, seg=seg, accel=acceleration)
+        raw, raw_len, block_size, seg=seg, accel=acceleration, depth=depth)
     return (comp, comp_len, nseq) if return_nseq else (comp, comp_len)

@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from lz4_sgori_tpu import format as F
-
+from ... import format as F
 from . import _build
 
 launches = 0

@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from lz4_sgori_tpu import format as F
-
+from ... import format as F
 from ..primitives import (exclusive_cumsum, next_false_index, segment_ids,
                           shift_left, take1)
 from . import _build

@@ -26,11 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from lz4_sgori_tpu import format as F
-
+from ... import format as F
 from . import _build
 from .cand import MAX_BLOCK
-from .parse_seg import _lsic_len, parse_segments_plain
+from .parse_seg import _lsic_len, check_parse_args, parse_segments_plain
 
 launches = 0
 
@@ -40,54 +39,59 @@ def load_kernel():
     return _build.load("parse_enc3", {"lz4t_parse_enc3": "ppppppppiiiiip"})
 
 
+def check_block_size(raw: torch.Tensor) -> None:
+    if raw.shape[1] > MAX_BLOCK:
+        raise ValueError(f"blocks above {MAX_BLOCK} bytes go through "
+                         "seg_splice")
+
+
+def block_outputs(nb: int, bs: int, dev):
+    """The outputs of a whole-block parse kernel (K7, K8-enc3), allocated
+    on ``dev``: out (zeroed), out_len, err, tails, nseq."""
+    out = torch.zeros((nb, F.compress_bound(bs) + 8), dtype=torch.uint8,
+                      device=dev)
+    out_len, tails, nseq = (torch.empty(nb, dtype=torch.int32, device=dev)
+                            for _ in range(3))
+    err = torch.empty(nb, dtype=torch.bool, device=dev)
+    return out, out_len, err, tails, nseq
+
+
 def parse_blocks_enc3(raw: torch.Tensor, cand: torch.Tensor,
                       raw_len: torch.Tensor, accel: int = 1):
     """Parse every block whole (K7)."""
     global launches
-    if raw.dtype != torch.uint8 or raw.dim() != 2:
-        raise TypeError("raw must be uint8 [B, block_size]")
-    if cand.dtype != torch.int32 or cand.shape != raw.shape:
-        raise TypeError("cand must be int32 [B, block_size]")
-    if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
-        raise TypeError("raw_len must be int32 [B]")
-    if not (raw.device == cand.device == raw_len.device):
-        raise ValueError("raw, cand and raw_len must be on one device")
-    nb, bs = raw.shape
-    if bs > MAX_BLOCK:
-        raise ValueError(f"blocks above {MAX_BLOCK} bytes go through "
-                         "seg_splice")
+    check_parse_args(raw, cand, raw_len)
+    check_block_size(raw)
     accel = max(int(accel), 1)
     if raw.device.type == "cpu":
         return parse_blocks_enc3_plain(raw, cand, raw_len, accel)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
     raw, cand, raw_len = raw.contiguous(), cand.contiguous(), \
         raw_len.contiguous()
+    nb, bs = raw.shape
     cap = F.compress_bound(bs)
-    dev = raw.device
-    out = torch.zeros((nb, cap + 8), dtype=torch.uint8, device=dev)
-    out_len, tails, nseq = (torch.empty(nb, dtype=torch.int32, device=dev)
-                            for _ in range(3))
-    err = torch.empty(nb, dtype=torch.bool, device=dev)
+    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     lib = load_kernel()
     _build.check(lib.lz4t_parse_enc3(
         raw.data_ptr(), cand.data_ptr(), raw_len.data_ptr(), out.data_ptr(),
         out_len.data_ptr(), err.data_ptr(), tails.data_ptr(),
-        nseq.data_ptr(), nb, bs, cap + 8, cap, accel, _build.stream(dev)),
-        "parse_enc3")
+        nseq.data_ptr(), nb, bs, cap + 8, cap, accel,
+        _build.stream(raw.device)), "parse_enc3")
     launches += 1
     return out, out_len, err, tails, nseq
 
 
-def parse_blocks_enc3_plain(raw, cand, raw_len, accel: int = 1):
+def parse_blocks_enc3_plain(raw, cand, raw_len, accel: int = 1, gaps=None,
+                            gaps2=None):
     """Plain PyTorch K7: K3's plain parse at ``seg = block_size``, then the
-    terminal sequence placed by a per-byte select."""
+    terminal sequence placed by a per-byte select. With ``gaps`` (and
+    ``gaps2``) the parse is K8's deep parse (depth 3, or 5)."""
     nb, bs = raw.shape
     dev = raw.device
     i64 = torch.int64
     cap = F.compress_bound(bs)
     streams, slen, serr, last_end, nseq, _, _ = parse_segments_plain(
-        raw, cand, raw_len, seg=bs, window=65536, accel=accel)
+        raw, cand, raw_len, seg=bs, window=65536, accel=accel, gaps=gaps,
+        gaps2=gaps2)
     n = raw_len.to(i64).clamp(0, bs)
     tpos = slen.to(i64)[:, None]
     anchor = last_end.to(i64)[:, None]

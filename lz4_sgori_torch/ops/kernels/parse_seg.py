@@ -22,8 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from lz4_sgori_tpu import format as F
-
+from ... import format as F
 from . import _build
 
 launches = 0
@@ -34,9 +33,35 @@ def load_kernel():
     return _build.load("parse_seg", {"lz4t_parse_seg": "ppppppppppiiiiiip"})
 
 
+def check_parse_args(raw: torch.Tensor, cand: torch.Tensor,
+                     raw_len: torch.Tensor, *tapes: torch.Tensor) -> None:
+    """The input checks of the parse wrappers (K3, K7 and both K8s):
+    ``tapes`` are the deep modes' gaps tapes, shaped as ``cand``."""
+    if raw.dtype != torch.uint8 or raw.dim() != 2:
+        raise TypeError("raw must be uint8 [B, block_size]")
+    for name, t in (("cand", cand),) + tuple(("gaps", t) for t in tapes):
+        if t.dtype != torch.int32 or t.shape != raw.shape:
+            raise TypeError(f"{name} must be int32 [B, block_size]")
+        if t.device != raw.device:
+            raise ValueError("raw, cand, gaps and raw_len must be on one "
+                             "device")
+    if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
+        raise TypeError("raw_len must be int32 [B]")
+    if raw_len.device != raw.device:
+        raise ValueError("raw, cand, gaps and raw_len must be on one device")
+    if raw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {raw.device}")
+
+
 def window_limit(window: int) -> int:
     """Largest usable match distance (golden.py:450)."""
     return F.DISTANCE_MAX if window >= 65536 else window - 64
+
+
+def check_seg(raw: torch.Tensor, seg: int) -> None:
+    if seg < 1 or raw.shape[1] % seg:
+        raise ValueError(f"seg {seg} must divide the block size "
+                         f"{raw.shape[1]}")
 
 
 def parse_segments(raw: torch.Tensor, cand: torch.Tensor,
@@ -44,36 +69,32 @@ def parse_segments(raw: torch.Tensor, cand: torch.Tensor,
                    window: int = 65536, accel: int = 1):
     """Parse every segment of every block (K3)."""
     global launches
-    if raw.dtype != torch.uint8 or raw.dim() != 2:
-        raise TypeError("raw must be uint8 [B, block_size]")
-    if cand.dtype != torch.int32 or cand.shape != raw.shape:
-        raise TypeError("cand must be int32 [B, block_size]")
-    if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
-        raise TypeError("raw_len must be int32 [B]")
-    if not (raw.device == cand.device == raw_len.device):
-        raise ValueError("raw, cand and raw_len must be on one device")
+    check_parse_args(raw, cand, raw_len)
+    check_seg(raw, seg)
     nb, bs = raw.shape
-    if seg < 1 or bs % seg:
-        raise ValueError(f"seg {seg} must divide the block size {bs}")
     accel = max(int(accel), 1)
     if raw.device.type == "cpu":
         return parse_segments_plain(raw, cand, raw_len, seg, window, accel)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
     raw, cand, raw_len = raw.contiguous(), cand.contiguous(), \
         raw_len.contiguous()
-    ns = nb * (bs // seg)
-    scap = F.compress_bound(seg)
-    dev = raw.device
-    streams = torch.empty((ns, scap), dtype=torch.uint8, device=dev)
-    outs = [torch.empty(ns, dtype=torch.int32, device=dev) for _ in range(6)]
+    outs = segment_outputs(nb * (bs // seg), seg, raw.device)
     lib = load_kernel()
     _build.check(lib.lz4t_parse_seg(
         raw.data_ptr(), cand.data_ptr(), raw_len.data_ptr(),
-        streams.data_ptr(), *(t.data_ptr() for t in outs), nb, bs, seg,
-        scap, window_limit(window), accel, _build.stream(dev)), "parse_seg")
+        *(t.data_ptr() for t in outs), nb, bs, seg, F.compress_bound(seg),
+        window_limit(window), accel, _build.stream(raw.device)), "parse_seg")
     launches += 1
-    return (streams, *outs)
+    return outs
+
+
+def segment_outputs(ns: int, seg: int, dev):
+    """The outputs of a segment parse kernel (K3, K8-seg) for ``ns``
+    segments, allocated on ``dev``: streams, then slen, err, last_end,
+    nseq, p1 and m1h."""
+    streams = torch.empty((ns, F.compress_bound(seg)), dtype=torch.uint8,
+                          device=dev)
+    return (streams, *(torch.empty(ns, dtype=torch.int32, device=dev)
+                       for _ in range(6)))
 
 
 def _lsic_len(x: torch.Tensor) -> torch.Tensor:
@@ -82,10 +103,13 @@ def _lsic_len(x: torch.Tensor) -> torch.Tensor:
 
 
 def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
-                         window: int = 65536, accel: int = 1):
+                         window: int = 65536, accel: int = 1, gaps=None,
+                         gaps2=None):
     """Plain PyTorch parse: all segments step in lockstep, one search
     probe per round; the lanes that find a match emit their whole
-    sequence in the same round."""
+    sequence in the same round. With ``gaps`` (and ``gaps2``) it is the
+    deep parse of K8 at three (five) candidates a probe: the best
+    preview, nearest on a tie, and one-step lazy deferral."""
     nb, bs = raw.shape
     dev = raw.device
     nseg = bs // seg
@@ -115,6 +139,44 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
         return srcf[g] | (srcf[g + 1] << 8) | (srcf[g + 2] << 16) \
             | (srcf[g + 3] << 24)
 
+    if gaps is not None:
+        gapsf = gaps.reshape(-1).to(i64)
+        gaps2f = gaps2.reshape(-1).to(i64) if gaps2 is not None else None
+    jj64 = torch.arange(64, dtype=i64, device=dev)
+
+    def best_of(idx, p):
+        """(best preview, match position) of the chain candidates at p,
+        -1 for none (greedy_parse.cuh, best_of)."""
+        at = base[idx] + p
+        d1 = candf[at]
+        g = gapsf[at]
+        ds = [d1, d1 + (g & 255)]
+        live = [(d1 > 0) & (d1 <= wlim)]
+        live.append(live[0] & ((g & 255) != 0))
+        ds.append(ds[1] + (g >> 8))
+        live.append(live[1] & ((g >> 8) != 0))
+        if gaps2f is not None:
+            g2 = gaps2f[at]
+            ds.append(ds[2] + (g2 & 255))
+            live.append(live[2] & ((g2 & 255) != 0))
+            ds.append(ds[3] + (g2 >> 8))
+            live.append(live[3] & ((g2 >> 8) != 0))
+        ds, live = torch.stack(ds, 1), torch.stack(live, 1)
+        m = p[:, None] - ds
+        mc0 = m.clamp(min=0)
+        ok = live & (m >= 0) & (ds <= wlim)
+        ok &= rd32(idx[:, None], mc0) == rd32(idx, p)[:, None]
+        cl = (mlim[idx] - p - F.MINMATCH).clamp(max=64)
+        ia = (p[:, None, None] + F.MINMATCH + jj64).clamp(max=bs - 1)
+        ib = (mc0[:, :, None] + F.MINMATCH + jj64).clamp(max=bs - 1)
+        eq = byte(idx[:, None, None], ia) == byte(idx[:, None, None], ib)
+        eq &= jj64 < cl[:, None, None]
+        mc = torch.where(ok, torch.cumprod(eq.to(i64), dim=2).sum(dim=2), -1)
+        # the longest preview, the nearest (first) candidate on a tie
+        k = (mc * 8 - torch.arange(mc.shape[1], device=dev)).argmax(dim=1)
+        return (torch.gather(mc, 1, k[:, None]).squeeze(1),
+                torch.gather(m, 1, k[:, None]).squeeze(1))
+
     anchor = s0.clone()
     pos = s0.clamp(min=1)
     frag = k > 0
@@ -141,10 +203,18 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
         step[idx] = smn[idx] >> F.SKIPTRIGGER
         smn[idx] += 1
         pp = pos[idx]
-        d = candf[base[idx] + pp]
-        ok = (d > 0) & (d <= wlim) & (d <= pp)
-        mp = (pp - d).clamp(min=0)
-        ok &= rd32(idx, mp) == rd32(idx, pp)
+        if gaps is None:
+            d = candf[base[idx] + pp]
+            ok = (d > 0) & (d <= wlim) & (d <= pp)
+            mp = (pp - d).clamp(min=0)
+            ok &= rd32(idx, mp) == rd32(idx, pp)
+        else:
+            mca, mp = best_of(idx, pp)
+            ok = mca >= 0
+            mcb, mpb = best_of(idx, pp + 1)
+            lazy = ok & (pp + 1 <= mfl[idx]) & (mcb > mca)
+            pos[idx] = pp + lazy.to(i64)
+            mp = torch.where(lazy, mpb, mp)
         idx = idx[ok]
         if idx.numel() == 0:
             continue

@@ -2,33 +2,37 @@
 K2 or K9, K3, K4 plus PyTorch glue).
 
 Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
-compress_blocks_lockstep_seg`` at depth 1. Byte contract per block:
+compress_blocks_lockstep_seg``. Byte contract per block:
 ``golden.compress_dense_seg(block, seg, window, hashlog=16,
-acceleration)`` for blocks of at most 64 KiB (engine seg), and
-``golden.compress_dense_seg_big(block, seg, acceleration=...)`` for
-blocks above 64 KiB, which must be 64 KiB multiples (engine seg_big).
+acceleration, depth)`` for blocks of at most 64 KiB (engine seg), and
+``golden.compress_dense_seg_big(block, seg, acceleration=..., depth)``
+for blocks above 64 KiB, which must be 64 KiB multiples (engine
+seg_big). Every depth above 1 is the deep parse at three candidates a
+probe, as in golden.
 
 Pipeline: mask bytes past ``raw_len`` -> pass-1 candidates (K2 over the
-whole block up to 64 KiB, K9's piecewise windows above) -> K3
-per-segment parse -> owner run headers and the assembly plan (glue) ->
-K4 assembly -> error fold. What only the TPU needed is left out: the
-128-lane group packing and tape layouts, the density regrouping of
-segments (a permutation that is inverted again, so the bytes never
-change), the VMEM-fit checks and barrier chains, the padded piece and
-straddle copies of pass 1, and the dynamic_update_slice assembly
-fallback.
+whole block up to 64 KiB, K9's piecewise windows above) -> at depth > 1
+the chain gaps of those candidates (the gaps kernel) -> the per-segment
+parse (K3, or K8-seg at depth > 1) -> owner run headers and the assembly
+plan (glue) -> K4 assembly -> error fold. What only the TPU needed is
+left out: the 128-lane group packing and tape layouts, the density
+regrouping of segments (a permutation that is inverted again, so the
+bytes never change), the VMEM-fit checks and barrier chains, the padded
+piece and straddle copies of pass 1, the bitonic sort behind the gaps
+tapes, and the dynamic_update_slice assembly fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lz4_sgori_tpu import format as F
-
+from .. import format as F
 from .kernels.asm_seg import assemble_segments
 from .kernels.cand import dense_candidates
-from .kernels.cand_piecewise import dense_candidates_piecewise
+from .kernels.cand_piecewise import PIECE, dense_candidates_piecewise
+from .kernels.gaps import chain_gaps
 from .kernels.parse_seg import parse_segments
+from .kernels.parse_seg_deep import parse_segments_deep
 
 
 def header_max(block_size: int) -> int:
@@ -98,7 +102,8 @@ def assembly_plan(slen, hlen, last_end, raw_len, seg: int):
 
 def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
                         block_size: int, seg: int = 4096,
-                        window: int = 65536, accel: int = 1):
+                        window: int = 65536, accel: int = 1,
+                        depth: int = 1):
     """Compress ``[nb, >= block_size]`` uint8 blocks on their device.
 
     Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past the
@@ -125,8 +130,14 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
 
     cand = (dense_candidates_piecewise(rawm, raw_len) if big
             else dense_candidates(rawm, raw_len))
-    streams, slen, serr, last_end, nseq, p1, m1h = parse_segments(
-        rawm, cand, raw_len, seg=seg, window=window, accel=accel)
+    if depth > 1:
+        gaps, _ = chain_gaps(cand, 2, PIECE // 2 if big else 0)
+        parts = parse_segments_deep(rawm, cand, gaps, raw_len, seg=seg,
+                                    window=window, accel=accel)
+    else:
+        parts = parse_segments(rawm, cand, raw_len, seg=seg, window=window,
+                               accel=accel)
+    streams, slen, serr, last_end, nseq, p1, m1h = parts
 
     shp = (nb, nseg)
     le = last_end.reshape(shp).to(torch.int64)

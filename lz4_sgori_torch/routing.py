@@ -7,8 +7,11 @@ the ``kernel`` column here: the hand-written kernels serve every device
 (a CUDA tensor launches them, a CPU tensor runs their plain PyTorch
 versions), so callers pass ``kernel=True`` for every device.
 
-Engines this port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports them. Nothing reroutes silently.
+Every kernel engine runs at every depth its cap allows (the deep modes
+are K8: ``seg``/``seg_big`` at depth 3, ``enc3`` at 3 and 5). The one
+engine this port does not have yet, ``xla``, raises
+``NotImplementedError`` naming the ROADMAP item that ports it. Nothing
+reroutes silently.
 """
 
 from __future__ import annotations
@@ -92,13 +95,9 @@ def encode_depth_cap(engine: str, depth: int) -> int:
     return depth
 
 
-def require_ported(engine: str, depth: int = 1) -> None:
-    """Raise NotImplementedError for an engine or depth the port lacks."""
+def require_ported(engine: str) -> None:
+    """Raise NotImplementedError for an engine the port lacks."""
     if engine in UNPORTED:
         raise NotImplementedError(
             f"engine {engine!r} is not ported yet: ROADMAP "
             f"{UNPORTED[engine]}")
-    if depth > 1:
-        raise NotImplementedError(
-            f"match_depth {depth} on engine {engine!r} is not ported yet: "
-            "ROADMAP Queue 2 K8 (deep modes)")

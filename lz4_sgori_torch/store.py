@@ -4,44 +4,58 @@ Port of ``lz4_sgori_tpu/store.py``: the verifying ``ProxyStore`` (the
 reference's lz4e_bdev proxy block device: every write is compressed,
 decode-verified and written through as the original bytes; reads pass
 through) and the ``CompressedStore`` (chunks persist compressed, reads
-decompress). Both subclass the JAX package's stores and bind this
-package's ``blocks``; they take an explicit ``device``, default
-``"cuda"``, which raises without CUDA instead of falling back to the
-CPU. ``StoreError`` and ``Stats`` are the JAX package's own (neither
-imports jax).
+decompress). Both take an explicit ``device``, default ``"cuda"``, which
+raises without CUDA instead of falling back to the CPU, and a
+``match_depth`` for their writes (None: greedy; 3 and 5: the deep modes,
+as ``blocks.compress``).
 
 ``ProxyStore.write`` also counts the request's host re-encodes in the
 store's ``Stats.encode_fallbacks``, so a run can show that no block left
 the device path.
 
 The admin surface (``map_store``/``unmap_store``/``get_store``/
-``stats_text``/``stats_reset``) keeps this package's own singleton (the
-JAX package's ``_Registry``), under a lock.
+``stats_text``/``stats_reset``) keeps one store in a singleton registry,
+under a lock.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-
-from lz4_sgori_tpu import store as _jax_store
-from lz4_sgori_tpu.store import StoreError
-from lz4_sgori_tpu.utils.stats import Stats
+from dataclasses import dataclass
 
 from . import blocks as B
+from .utils.stats import Stats
 
 __all__ = ["ProxyStore", "CompressedStore", "StoreError", "map_store",
            "unmap_store", "get_store", "stats_text", "stats_reset"]
 
 
-class ProxyStore(_jax_store.ProxyStore):
+class StoreError(RuntimeError):
+    """I/O failure (the analog of BLK_STS_* error propagation)."""
+
+
+class ProxyStore:
     """Verifying pass-through store over a backing file; writes run the
-    compress + decode-verify pipeline on ``device``."""
+    compress + decode-verify pipeline on ``device``, reads pass through."""
 
     def __init__(self, backing_path: str, chunk_size: int = 4096,
-                 capacity: int | None = None, *, device="cuda"):
+                 capacity: int | None = None, *, device="cuda",
+                 match_depth: int | None = None):
         self.device = B.resolve_device(device)
-        super().__init__(backing_path, chunk_size, capacity)
+        self.match_depth = match_depth
+        if chunk_size < 1:
+            raise StoreError("chunk_size must be positive")
+        self.backing_path = backing_path
+        self.chunk_size = chunk_size
+        self.stats = Stats()
+        mode = "r+b" if os.path.exists(backing_path) else "w+b"
+        self._f = open(backing_path, mode)
+        if capacity is not None:
+            self._f.truncate(capacity)
+        self._f.seek(0, os.SEEK_END)
+        self.capacity = self._f.tell()
+        self._lock = threading.Lock()
 
     def write(self, offset: int, data: bytes) -> None:
         """Compress + verify + write-through. Raises StoreError if the
@@ -50,12 +64,14 @@ class ProxyStore(_jax_store.ProxyStore):
         req = Stats()
         try:
             cb = B.compress_to_blocks(data, self.chunk_size, verify=True,
-                                      stats=req, device=self.device)
+                                      stats=req, device=self.device,
+                                      match_depth=self.match_depth)
         except Exception as e:
             self.stats.update(is_write=True, ok=False, blocks=0, nbytes=0)
             raise StoreError(f"compress pipeline failed: {e}") from e
         for _ in range(req.encode_fallbacks):
             self.stats.record_fallback()
+        # the round trip held (verify=True): write the original bytes
         with self._lock:
             self._f.seek(offset)
             self._f.write(data)
@@ -63,15 +79,46 @@ class ProxyStore(_jax_store.ProxyStore):
         self.stats.update(is_write=True, ok=True, blocks=cb.num_blocks,
                           nbytes=len(data))
 
+    def read(self, offset: int, size: int) -> bytes:
+        self._check_range(offset, size)
+        with self._lock:
+            self._f.seek(offset)
+            data = self._f.read(size)
+        nblocks = max(1, -(-size // self.chunk_size))
+        self.stats.update(is_write=False, ok=True, blocks=nblocks,
+                          nbytes=len(data))
+        return data
 
-class CompressedStore(_jax_store.CompressedStore):
-    """Chunk store that persists compressed containers; reads decompress
-    on ``device``. Absent chunks read as zeros."""
+    def close(self) -> None:
+        self._f.close()
+
+    def info(self) -> str:
+        return f"proxy over {self.backing_path}"
+
+    def _check_range(self, offset: int, size: int) -> None:
+        if offset < 0 or size < 0 or offset + size > self.capacity:
+            raise StoreError(
+                f"range [{offset}, {offset + size}) outside capacity "
+                f"{self.capacity}")
+
+
+class CompressedStore:
+    """Chunk store that persists compressed containers, one file per
+    chunk index; reads decompress on ``device``. Absent chunks read as
+    zeros."""
 
     def __init__(self, root: str, chunk_size: int = 65536, *,
-                 device="cuda"):
+                 device="cuda", match_depth: int | None = None):
         self.device = B.resolve_device(device)
-        super().__init__(root, chunk_size)
+        self.match_depth = match_depth
+        self.root = root
+        self.chunk_size = chunk_size
+        self.stats = Stats()
+        os.makedirs(root, exist_ok=True)
+        self._lock = threading.Lock()
+
+    def _path(self, idx: int) -> str:
+        return os.path.join(self.root, f"chunk_{idx:08d}.lz4j")
 
     def write_chunk(self, idx: int, data: bytes) -> int:
         """Store one chunk compressed; returns the compressed size."""
@@ -79,7 +126,8 @@ class CompressedStore(_jax_store.CompressedStore):
             raise StoreError(
                 f"chunk {idx}: {len(data)} > chunk_size {self.chunk_size}")
         container = B.compress(data, self.chunk_size, verify=True,
-                               stats=self.stats, device=self.device)
+                               stats=self.stats, device=self.device,
+                               match_depth=self.match_depth)
         with self._lock:
             tmp = self._path(idx) + ".tmp"
             with open(tmp, "wb") as f:
@@ -97,10 +145,21 @@ class CompressedStore(_jax_store.CompressedStore):
         data = B.decompress(container, stats=self.stats, device=self.device)
         return data + bytes(self.chunk_size - len(data))
 
+    def close(self) -> None:
+        pass
+
+    def info(self) -> str:
+        return f"compressed store at {self.root} (chunk {self.chunk_size})"
+
 
 # -- module-level admin surface (sysfs analog) ----------------------------
 
-_registry = _jax_store._Registry()
+@dataclass
+class _Registry:
+    store: ProxyStore | CompressedStore | None = None
+
+
+_registry = _Registry()
 _registry_lock = threading.Lock()
 
 

@@ -12,6 +12,7 @@ import torch
 
 import lz4_sgori_torch
 from lz4_sgori_torch import blocks as TB
+from lz4_sgori_torch.golden import DecodeError
 from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
 from lz4_sgori_tpu import blocks as JB
 from lz4_sgori_tpu import golden, native
@@ -93,11 +94,11 @@ def test_corrupt_container_errors(fixtures):
     cb = JB.CompressedBlocks.from_container(container)
     cb.raw_crc = cb.raw_crc.copy()
     cb.raw_crc[0] ^= 1
-    with pytest.raises(golden.DecodeError, match="checksum"):
+    with pytest.raises(DecodeError, match="checksum"):
         lz4_sgori_torch.decompress(cb.to_container(), device="cpu")
     cb = JB.CompressedBlocks.from_container(container)
     cb.comp[1, :4] = 0xF0                      # literal run past the input
-    with pytest.raises(golden.DecodeError, match="malformed block 1"):
+    with pytest.raises(DecodeError, match="malformed block 1"):
         lz4_sgori_torch.decompress(cb.to_container(), device="cpu")
 
 
@@ -108,10 +109,9 @@ def test_encoder_failure_and_verify_failure_fall_back_counted(
     from lz4_sgori_torch.ops import encode as E
     real = E.compress_blocks_seg_dispatch
 
-    def broken(raw, raw_len, block_size, acceleration=1, seg=4096,
-               return_nseq=False):
+    def broken(raw, raw_len, block_size, acceleration=1, **kw):
         comp, comp_len, nseq = real(raw, raw_len, block_size, acceleration,
-                                    seg, return_nseq=True)
+                                    **kw)
         comp_len = comp_len.clone()
         comp_len[0] = 0                        # engine failure signal
         comp = comp.clone()

@@ -1,8 +1,10 @@
 """The port's CLI on CPU tensors (``--device cpu``): the three cases of
 tests/test_cli.py, the verify sweep across the ported engines (enc3 and
 v6 at 1 and 4 KiB, seg at 8 and 64 KiB, seg_splice at 96 KiB, seg_big at
-128 KiB with v7 and at 512 KiB with v8), and the clean error of a
-request the port does not serve yet."""
+128 KiB with v7 and at 512 KiB with v8), compress at match depth 3 and
+5, and the clean error of a request the port does not serve yet."""
+
+import pytest
 
 from lz4_sgori_torch import cli
 
@@ -31,19 +33,45 @@ def test_verify_sweep(tmp_path, fixtures, capsys):
         assert f"bs={kib}k: ok" in out
 
 
-def test_verify_unported_size_is_a_clean_error(tmp_path, fixtures, capsys):
-    """Every fio size is ported; a request that is not (match depth 3:
-    the deep modes) ends with the ROADMAP message and exit 1, without a
-    traceback, and writes nothing."""
+def test_verify_unported_size_is_a_clean_error(tmp_path, fixtures, capsys,
+                                               monkeypatch):
+    """Every fio size and depth is ported; a request that is not (mlen,
+    LZ4J_ENC_MLEN=1 at depth 1 and 64 KiB) ends with the ROADMAP message
+    and exit 1, without a traceback, and writes nothing."""
     src = tmp_path / "in.bin"
     src.write_bytes(fixtures["text_small"])
     dst = tmp_path / "out.lz4j"
+    monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
     assert cli.main(["--device", "cpu", "compress", str(src), str(dst),
-                     "--block-size", "65536", "--match-depth", "3"]) == 1
+                     "--block-size", "65536"]) == 1
     cap = capsys.readouterr()
     assert cap.out == "" and not dst.exists()
     assert cap.err.startswith("lz4j: error:") and "ROADMAP" in cap.err
-    assert "K8" in cap.err
+    assert "K10" in cap.err
+
+
+@pytest.mark.parametrize("block_size,depth", [(65536, 3), (4096, 5)])
+def test_compress_at_match_depth(tmp_path, fixtures, block_size, depth):
+    """``compress --match-depth`` runs the deep modes (seg at depth 3,
+    enc3 at depth 5): golden's bytes, and the container round-trips."""
+    from lz4_sgori_torch import blocks, golden
+    data = fixtures["text_large"][:12000]
+    src = tmp_path / "in.bin"
+    src.write_bytes(data)
+    dst = tmp_path / "out.lz4j"
+    back = tmp_path / "back.bin"
+    assert cli.main(["--device", "cpu", "compress", str(src), str(dst),
+                     "--block-size", str(block_size), "--match-depth",
+                     str(depth)]) == 0
+    cb = blocks.CompressedBlocks.from_container(dst.read_bytes())
+    for j in range(cb.num_blocks):
+        b = data[j * block_size:(j + 1) * block_size]
+        want = (golden.compress_dense_seg(b, 4096, 65536, 16, depth=3)
+                if depth == 3 else golden.compress_deep(b, depth=5))
+        assert cb.comp[j, :cb.comp_len[j]].tobytes() == want, j
+    assert cli.main(["--device", "cpu", "decompress", str(dst),
+                     str(back)]) == 0
+    assert back.read_bytes() == data
 
 
 def test_admin_commands(tmp_path, capsys):

@@ -1,5 +1,6 @@
-"""The eight CUDA kernels (K1-K7, K9) against their plain PyTorch
-versions and their golden oracles, on the card. Marked ``cuda``; each
+"""The eleven CUDA kernels (K1-K7, K9, and K8's gaps, K8-seg and
+K8-enc3) against their plain PyTorch versions and their golden oracles,
+on the card. Marked ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -14,11 +15,14 @@ from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
+from lz4_sgori_torch.ops.kernels import gaps as G
 from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
 from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
 from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
 from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
+from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
+from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden, native
 from test_torch_seg_big import big_blocks
@@ -153,7 +157,7 @@ def test_k1_decode_and_mutants(dev):
 
 def test_slice_runs_every_kernel(dev):
     import lz4_sgori_torch
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.utils.stats import Stats
     data = b"".join(_blocks(65536)[:4]) * 2
     for m in (K1, K2, K3, K4):
         m.launches = 0
@@ -215,7 +219,7 @@ def test_k5_decode_and_mutants(dev, bs):
 
 def test_block_device_path_runs_k2_k7_k5(dev):
     import lz4_sgori_torch
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.utils.stats import Stats
     data = b"".join(b[:4096] for b in _blocks(4096)) * 3
     for m in (K1, K2, K3, K4, K5, K7):
         m.launches = 0
@@ -277,7 +281,7 @@ def test_k6_decode_and_mutants(dev, bs, nmut):
 
 def test_big_block_path_runs_k9_k3_k4_k6(dev):
     import lz4_sgori_torch
-    from lz4_sgori_tpu.utils.stats import Stats
+    from lz4_sgori_torch.utils.stats import Stats
     bs = 1 << 20
     data = b"".join(big_blocks(bs)[:4])
     mods = (K1, K2, K3, K4, K5, K6, K7, K9)
@@ -289,3 +293,95 @@ def test_big_block_path_runs_k9_k3_k4_k6(dev):
     assert stats.encode_fallbacks == 0
     assert min(m.launches for m in (K3, K4, K6, K9)) > 0
     assert K1.launches == K2.launches == K5.launches == K7.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["gaps", "gaps2", "piecewise"])
+def test_gaps_kernel(dev, mode):
+    """gaps.cu in its three modes against its plain version, and against
+    golden.dense_gaps / dense_gaps2 / dense_candidates_piecewise gaps."""
+    bs = (1 << 20) if mode == "piecewise" else 65536
+    blocks = big_blocks(bs) if mode == "piecewise" else _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    if mode == "piecewise":
+        cand = K9.dense_candidates_piecewise(raw, rlen)
+        args = (2, K9.PIECE // 2)
+    else:
+        cand = K2.dense_candidates(raw, rlen)
+        args = (4 if mode == "gaps2" else 2, 0)
+    got = G.chain_gaps(cand, *args)
+    want = G.chain_gaps_plain(cand, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    tape = (got[1] if mode == "gaps2" else got[0]).cpu().numpy()
+    for j in (0, 1, 4):
+        b = blocks[j]
+        w = (golden.dense_candidates_piecewise(b, with_gaps=True)[1]
+             if mode == "piecewise" else
+             golden.dense_gaps2(b, 16) if mode == "gaps2" else
+             golden.dense_gaps(b, 16))
+        assert np.array_equal(tape[j, :len(b)], w) and \
+            not tape[j, len(b):].any(), j
+
+
+def test_k8_seg_parse(dev):
+    bs, seg = 16384, 4096
+    blocks = _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    gaps, _ = G.chain_gaps(cand)
+    got = K8S.parse_segments_deep(raw, cand, gaps, rlen, seg=seg)
+    want = K8S.parse_segments_deep_plain(raw, cand, gaps, rlen, seg=seg)
+    torch.cuda.synchronize()
+    assert not got[2].any() and not want[2].any()
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    nseg = bs // seg
+    for j, b in enumerate(blocks):
+        for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg,
+                                                               depth=3)):
+            r = j * nseg + k
+            assert streams[r, :slen[r]].tobytes() == pt["stream"], (j, k)
+
+
+@pytest.mark.parametrize("bs,depth", [(4096, 3), (4096, 5), (16384, 5)])
+def test_k8_enc3_parse(dev, bs, depth):
+    blocks = [b[:bs] for b in _blocks(max(bs, 8192))] + [b"", b"x" * 13]
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    gaps, gaps2 = G.chain_gaps(cand, 4 if depth == 5 else 2)
+    got = K8E.parse_blocks_enc3_deep(raw, cand, gaps, gaps2, rlen,
+                                     depth=depth)
+    want = K8E.parse_blocks_enc3_deep_plain(raw, cand, gaps, gaps2, rlen,
+                                            depth=depth)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, out_len, err, tails, _ = (t.cpu().numpy() for t in got)
+    assert not err.any()
+    for j, b in enumerate(blocks):
+        w = golden.compress_deep(b, depth=depth)
+        assert out[j, :out_len[j]].tobytes() == w, j
+        assert int(tails[j]) == golden.tail_offset(w), j
+
+
+def test_deep_paths_run_gaps_and_k8(dev):
+    """Depth 3 at 64 KiB runs K2, gaps, K8-seg and K4 (not K3); depth 5 at
+    4 KiB runs K2, gaps and K8-enc3 (not K7)."""
+    import lz4_sgori_torch
+    from lz4_sgori_torch.utils.stats import Stats
+    mods = (K1, K2, K3, K4, K5, K7, K9, G, K8S, K8E)
+    for bs, depth, used, idle in [
+            (65536, 3, (K2, G, K8S, K4, K1), (K3, K7, K8E, K9)),
+            (4096, 5, (K2, G, K8E, K5), (K3, K4, K7, K8S, K9))]:
+        data = b"".join(b[:bs] for b in _blocks(bs)) * 2
+        for m in mods:
+            m.launches = 0
+        stats = Stats()
+        container = lz4_sgori_torch.compress(data, bs, stats=stats,
+                                             match_depth=depth)
+        assert lz4_sgori_torch.decompress(container) == data
+        assert stats.encode_fallbacks == 0
+        assert min(m.launches for m in used) > 0, bs
+        assert max(m.launches for m in idle) == 0, bs

@@ -1,7 +1,7 @@
 """The port's routing table against the JAX package's, on the kernel
 column (the JAX table's TPU column), across the fio block-size envelope;
-engines and depths the port lacks raise NotImplementedError instead of
-rerouting."""
+the engine the port lacks (xla) and mlen raise NotImplementedError
+instead of rerouting, and every depth of the kernel engines runs."""
 
 import numpy as np
 import pytest
@@ -49,28 +49,45 @@ def test_unknown_impls_raise():
 def test_unported_engines_raise(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.require_ported(engine)
+    for ported in ("enc3", "seg", "seg_big", "seg_splice"):
+        R.require_ported(ported)
 
 
 def test_unported_requests_raise_end_to_end(monkeypatch):
-    """What the port lacks raises; the seg_big encode (K9) and the v8
-    decode (K6) are ported and run."""
+    """What the port lacks raises: the xla engine (Queue 1 item 7) and
+    mlen at depth 1 (K10). The deep modes (K8) route, run and equal
+    golden: seg_big, seg and enc3 at depth 3, enc3 at depth 5, and a
+    depth past seg_big's cap warns and runs depth 3."""
     from lz4_sgori_tpu import golden
+    block = (b"the deep modes weigh three candidates a probe. " * 200)[:5000]
     raw = torch.zeros((1, 131072), dtype=torch.uint8)
-    rl = torch.tensor([100], dtype=torch.int32)
+    raw[0, :len(block)] = torch.frombuffer(bytearray(block), dtype=torch.uint8)
+    rl = torch.tensor([len(block)], dtype=torch.int32)
     comp, clen = compress_blocks_device(raw, rl, 131072)  # seg_big band
     assert comp[0, :clen[0]].numpy().tobytes() == \
-        golden.compress_dense_seg_big(bytes(100), 4096)
-    with pytest.raises(NotImplementedError, match="K8"):
-        compress_blocks_device(raw, rl, 131072, match_depth=3)  # seg_big deep
-    raw = torch.zeros((1, 4096), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="K8"):
-        compress_blocks_device(raw, rl, 4096, match_depth=3)   # enc3 deep
+        golden.compress_dense_seg_big(block, 4096)
+    comp, clen = compress_blocks_device(raw, rl, 131072, match_depth=3)
+    assert comp[0, :clen[0]].numpy().tobytes() == \
+        golden.compress_dense_seg_big(block, 4096, depth=3)
+    with pytest.warns(UserWarning, match="depth cap"):
+        c5, l5 = compress_blocks_device(raw, rl, 131072, match_depth=5)
+    assert torch.equal(c5, comp) and torch.equal(l5, clen)
+    for bs, md, engine, want in [
+            (8192, 3, "seg", golden.compress_dense_seg(block, 4096, 65536,
+                                                       16, depth=3)),
+            (4096, 3, "enc3", golden.compress_deep(block[:4096], depth=3)),
+            (65536, 5, "enc3", golden.compress_deep(block, depth=5))]:
+        assert R.select_encode_engine(bs, md) == engine
+        r = raw[:, :bs].contiguous()
+        comp, clen = compress_blocks_device(r, rl.clamp(max=bs), bs,
+                                            match_depth=md)
+        assert comp[0, :clen[0]].numpy().tobytes() == want, (bs, md)
     raw = torch.zeros((1, 65536), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="K8"):
-        compress_blocks_device(raw, rl, 65536, match_depth=5)  # enc3 depth 5
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
     with pytest.raises(NotImplementedError, match="K10"):
         compress_blocks_device(raw, rl, 65536)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        compress_blocks_device(raw, rl, 65536, impl="xla")
     comp = torch.from_numpy(np.zeros((1, 64), np.uint8))
     clen = torch.tensor([1], dtype=torch.int32)
     out, out_len, err = decompress_blocks_device(comp, clen, 1 << 20)  # v8
