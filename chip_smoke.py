@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels of the port from ``lz4_sgori_torch/csrc``
-(one nvcc each, all started together) and drives four paths: two on a
-32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42, held
-on the card), the big-block path on bench.py's config 6 (128 MiB,
-seed 55, 1 MiB blocks) and the deep modes on its config 5 (128 MiB, seed
-1234, 64 KiB blocks).
+Builds the fourteen CUDA kernels of the port from
+``lz4_sgori_torch/csrc`` (one nvcc each, all started together) and drives
+five paths: two on a 32 MiB synthetic corpus
+(``__graft_entry__._synth_corpus``, seed 42, held on the card), the
+big-block path on bench.py's config 6 (128 MiB, seed 55, 1 MiB blocks),
+the deep modes on its config 5 (128 MiB, seed 1234, 64 KiB blocks) and
+the mlen mode on the 32 MiB corpus again.
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -70,7 +71,8 @@ blocks run in a pool of worker processes:
     ``test_1m.fio`` and ``test_4m.fio`` (32 sequential 1 MiB writes, 8 of
     4 MiB), read back under sha256;
 17. the CLI's default ``verify`` sweep (4 KiB-4 MiB, eleven sizes) over
-    8 MiB, which launches all eight depth-1 kernels and none of K8's;
+    8 MiB, which launches all eight depth-1 kernels and none of K8's or
+    K10's;
 18. 512 corrupted 1 MiB streams through the v8 route against
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
@@ -99,6 +101,29 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     K8-seg over the corpus beside K3, K8-enc3 over the depth-5 slice, and
     each deep kernel beside its plain version.
 
+The mlen mode (K10: ``LZ4J_ENC_MLEN=1`` at depth 1 and 64 KiB and below;
+kernels K2, mcode, K10b and K4 on ``seg``, K2, mcode and K10c through the
+enc3 function's ``mlen`` argument) on config 1's corpus, in
+``_smoke_mlen``:
+
+25. mcode and K10b on the 32-block 64 KiB subset, K10c on the 64-block
+    4 KiB subset, against their plain versions exactly and against K3 and
+    K7 on the unverified tape; mcode against golden.dense_mcode on 4
+    blocks;
+26. all 512 blocks of 64 KiB through the seg engine with and without the
+    mode: the same bytes, and 16 blocks equal golden.compress_dense_seg;
+27. ``lz4_sgori_torch.compress`` / ``decompress`` with the variable set
+    (and restored after), the counters reset just before: round trip,
+    zero host fallbacks, K2, mcode, K10b, K4 and K1 launched and K3 and
+    K7 not, the container of phase 3 byte for byte, and the TPU record's
+    ratio; then the enc3 function with ``mlen`` over the 8192 blocks of
+    4 KiB, the counters reset just before: K2, mcode and K10c launched,
+    K7 not, the default bytes;
+28. times, each pair in turns: the compress walls with and without the
+    mode (host clock), and with CUDA events the mlen encode kernel path
+    against the default one on the same blocks, K10b against K3 and K10c
+    against K7 over the corpus, mcode, and each beside its plain version.
+
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
 package, whose backend-neutral modules the port copies. The last two
@@ -108,6 +133,7 @@ and the device JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -185,6 +211,11 @@ KERNELS = [
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
     ("K8 parse_enc3_deep", "parse_enc3_deep",
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
+    ("K10a mcode", "mcode", "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:398"),
+    ("K10b parse_seg_mlen", "parse_seg_mlen",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
+    ("K10c parse_enc3_mlen", "parse_enc3_mlen",
+     "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
 ]
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
 # bytes per millisecond: the bound of every kernel here. An operation
@@ -197,6 +228,9 @@ PATHBIG = ("cand_piecewise", "parse_seg", "asm_seg", "decode_v8")
 PATHDEEP3 = ("cand", "gaps", "parse_seg_deep", "asm_seg", "decode_v7")
 PATHDEEP5 = ("cand", "gaps", "parse_enc3_deep", "decode_v7")
 DEEP_ONLY = ("gaps", "parse_seg_deep", "parse_enc3_deep")
+PATHMLEN = ("cand", "mcode", "parse_seg_mlen", "asm_seg", "decode_v7")
+PATHMLEN_ENC3 = ("cand", "mcode", "parse_enc3_mlen")
+MLEN_ONLY = ("mcode", "parse_seg_mlen", "parse_enc3_mlen")
 # the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
 SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
           "parse_enc3")
@@ -283,15 +317,56 @@ def _golden_verdict(args):
     return len(out), hashlib.sha256(out).digest()
 
 
+@contextlib.contextmanager
 def golden_pool():
     """Worker processes for the pure-Python golden oracles of the big
     blocks (about 2.5 s per 1 MiB block each), started fresh: they never
-    touch the card."""
+    touch the card. On leaving, the workers are joined and the resource
+    tracker that the spawn context starts beside them is stopped too: left
+    alone, it would outlive this script."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    return ProcessPoolExecutor(min(8, os.cpu_count() or 1),
-                               mp_context=multiprocessing.get_context(
-                                   "spawn"))
+    from multiprocessing import resource_tracker
+    try:
+        with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                 mp_context=multiprocessing.get_context(
+                                     "spawn")) as pool:
+            yield pool
+    finally:
+        resource_tracker._resource_tracker._stop()
+
+
+def child_processes() -> list[int]:
+    """The pids of this process's live children (Linux ``/proc``)."""
+    me = str(os.getpid())
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the parent pid is the second field after the command's ")"
+        if stat[stat.rfind(")") + 2:].split()[1] == me:
+            pids.append(int(d))
+    return pids
+
+
+def stop_children() -> list[int]:
+    """Terminate and reap any child process still alive; returns their
+    pids. Every phase waits for what it starts, so this should find
+    none."""
+    import signal
+    left = child_processes()
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+    for pid in left:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+    return left
 
 
 class Failed(Exception):
@@ -364,6 +439,11 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: stopped child processes {left} left "
+                  "running", file=sys.stderr)
 
 
 def _smoke(torch) -> int:
@@ -383,17 +463,21 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
     from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
+    from lz4_sgori_torch.ops.kernels import mcode as M
     from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
     from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
+    from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
     from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
+    from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
     from lz4_sgori_torch.utils import oracle
     from lz4_sgori_torch.utils.stats import Stats
 
     mods = {"decode_v7": K1, "cand": K2, "parse_seg": K3, "asm_seg": K4,
             "decode_v6": K5, "decode_v8": K6, "parse_enc3": K7,
             "cand_piecewise": K9, "gaps": G, "parse_seg_deep": K8S,
-            "parse_enc3_deep": K8E}
+            "parse_enc3_deep": K8E, "mcode": M, "parse_seg_mlen": K10B,
+            "parse_enc3_mlen": K10C}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -618,7 +702,9 @@ def _smoke(torch) -> int:
     r4 = _smoke_4k(torch, data, card, time_ms, maxdiff, mods)
     rb = _smoke_big(torch, card, time_ms, maxdiff, mods)
     rd = _smoke_deep(torch, card, time_ms, maxdiff, mods)
-    parts = (r4, rb, rd)
+    rm = _smoke_mlen(torch, data, raw, rlen, container, card, time_ms,
+                     maxdiff, mods)
+    parts = (r4, rb, rd, rm)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
     for r in parts:
@@ -1186,8 +1272,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
             need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
             cli_counts = {k: m.launches for k, m in mods.items()}
             check_launches(cli_counts, "CLI default verify",
-                           [k for k in mods if k not in DEEP_ONLY],
-                           DEEP_ONLY)
+                           [k for k in mods
+                            if k not in DEEP_ONLY + MLEN_ONLY],
+                           DEEP_ONLY + MLEN_ONLY)
         print(f"phase big stores and sweep: lz4j verify's default sweep "
               f"(4 KiB-4 MiB) over {SWEEP_BYTES} bytes ok, launches "
               f"{cli_counts} ({time.perf_counter() - t0:.1f} s)")
@@ -1632,6 +1719,259 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     return {"errs": {"gaps": errg, "parse_seg_deep": err8s,
                      "parse_enc3_deep": err8e},
             "counts": counts, "sub_times": sub_times}
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str | None):
+    """Set (or, with None, unset) an environment variable for the block,
+    and restore it after, whatever the block raises."""
+    prev = os.environ.get(name)
+    try:
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def in_turns(time_ms, fa, fb, reps: int):
+    """Mean times of ``fa`` and ``fb`` taken in turns (a, b, b, a), so
+    that a drift of the card's clock falls on both."""
+    ta, tb = [time_ms(fa, reps)], [time_ms(fb, reps)]
+    tb.append(time_ms(fb, reps))
+    ta.append(time_ms(fa, reps))
+    return sum(ta) / 2, sum(tb) / 2
+
+
+def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
+                time_ms, maxdiff, mods) -> dict:
+    """Phases 25-28: the mlen mode (K10) on config 1's corpus: its 64 KiB
+    blocks (``raw``, ``rlen``, on the card) through ``seg`` (K2, mcode,
+    K10b, K4), and its 4 KiB blocks through the enc3 function's ``mlen``
+    argument (K2, mcode, K10c). ``container`` is phase 3's default
+    container of the corpus. Returns the per-kernel errors, launch counts
+    (both runs) and subset times of mcode, K10b and K10c for the
+    record."""
+    import lz4_sgori_torch
+    from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import native
+    from lz4_sgori_torch.ops.enc3 import compress_blocks_enc3
+    from lz4_sgori_torch.ops.kernels import cand as K2
+    from lz4_sgori_torch.ops.kernels import mcode as M
+    from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
+    from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
+    from lz4_sgori_torch.ops.kernels import parse_seg as K3
+    from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
+    from lz4_sgori_torch.ops.seg import compress_blocks_seg
+    from lz4_sgori_torch.utils.stats import Stats
+
+    dev = torch.device(DEVICE)
+    nb = raw.shape[0]
+    raw_np, rlen_np = raw.cpu().numpy(), rlen.cpu().numpy()
+    r4_np, l4_np = B.split_blocks(data, BLOCK4)
+    raw4, rlen4 = (torch.from_numpy(a).to(dev) for a in (r4_np, l4_np))
+    nb4 = raw4.shape[0]
+
+    with golden_pool() as pool:
+        # ---- phase 25: mcode, K10b and K10c against their plain
+        # versions ----
+        t0 = time.perf_counter()
+        sub = torch.arange(0, nb, nb // SUBSET, device=dev)[:SUBSET]
+        rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+        msel = sub.tolist()[:4]
+        mfut = [pool.submit(_golden_call, (
+            "dense_mcode", raw_np[j, :rlen_np[j]].tobytes(), {}))
+            for j in msel]
+        cs = K2.dense_candidates(rs, ls)
+        cv, mc = M.dense_mcode(cs, rs, ls)
+        errm = max(maxdiff(a, b) for a, b in
+                   zip((cv, mc), M.dense_mcode_plain(cs, rs, ls)))
+        need(errm == 0, f"mcode differs from its plain version by {errm}")
+        pk = K10B.parse_segments_mlen(rs, cv, mc, ls)
+        err10b = segment_diff(torch, maxdiff, pk,
+                              K10B.parse_segments_mlen_plain(rs, cv, mc, ls),
+                              "K10b")
+        segment_diff(torch, maxdiff, pk, K3.parse_segments(rs, cs, ls),
+                     "K10b against K3")
+        sub4 = torch.arange(0, nb4, max(1, nb4 // SUBSET4),
+                            device=dev)[:SUBSET4]
+        r4s, l4s = raw4[sub4].contiguous(), rlen4[sub4].contiguous()
+        c4 = K2.dense_candidates(r4s, l4s)
+        cv4, mc4 = M.dense_mcode(c4, r4s, l4s)
+        k10c = K10C.parse_blocks_enc3_mlen(r4s, cv4, mc4, l4s)
+        err10c = max(maxdiff(a, b) for a, b in zip(
+            k10c, K10C.parse_blocks_enc3_mlen_plain(r4s, cv4, mc4, l4s)))
+        need(err10c == 0, f"K10c differs from its plain version by "
+                          f"{err10c}")
+        need(not bool(k10c[2].any()), "K10c flagged a subset block")
+        need(all(torch.equal(a, b) for a, b in
+                 zip(k10c, K7.parse_blocks_enc3(r4s, c4, l4s))),
+             "K10c differs from K7 on the unverified tape")
+        cvn, mcn = cv.cpu().numpy(), mc.cpu().numpy()
+        for i, f in enumerate(mfut):
+            wd, wm = f.result()
+            n = len(wd)
+            need(np.array_equal(cvn[i, :n], wd)
+                 and np.array_equal(mcn[i, :n], wm)
+                 and not cvn[i, n:].any() and not mcn[i, n:].any(),
+                 f"mcode: block {msel[i]} differs from golden.dense_mcode")
+        print(f"phase mcode/K10b/K10c == plain: ok; mcode and K10b on "
+              f"{SUBSET} blocks of {BLOCK} (K10b == K3 on the unverified "
+              f"tape), K10c on {SUBSET4} blocks of {BLOCK4} (== K7); mcode "
+              f"== golden.dense_mcode on {len(msel)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+        # ---- phase 26: every block with and without the mode ----
+        t0 = time.perf_counter()
+        gsel = np.linspace(0, nb - 1, GOLDEN_BLOCKS).astype(np.int64)
+        gfut = [pool.submit(_golden_call, (
+            "compress_dense_seg", raw_np[j, :rlen_np[j]].tobytes(),
+            {"seg": 4096, "window": 65536, "hashlog": 16})) for j in gsel]
+        base = compress_blocks_seg(raw, rlen, BLOCK)
+        fast = compress_blocks_seg(raw, rlen, BLOCK, mlen=True)
+        need(not bool(fast[2].any()), "the mlen mode flagged a block")
+        need(all(torch.equal(a, b) for a, b in zip(base, fast)),
+             "the mlen bytes differ from the default bytes")
+        fcn, fln = fast[0].cpu().numpy(), fast[1].cpu().numpy()
+        for j, f in zip(gsel, gfut):
+            need(fcn[j, :fln[j]].tobytes() == f.result(),
+                 f"mlen block {j} differs from golden.compress_dense_seg")
+        print(f"phase mlen == default: all {nb} blocks of {BLOCK} give the "
+              f"default bytes, {GOLDEN_BLOCKS} == golden.compress_dense_seg "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 27: the mlen paths, counters reset just before each ----
+    with env_var("LZ4J_ENC_MLEN", "1"):
+        for m in mods.values():
+            m.launches = 0
+        stats = Stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcont = lz4_sgori_torch.compress(data, BLOCK, stats=stats,
+                                         device=DEVICE)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = lz4_sgori_torch.decompress(mcont, stats=stats, device=DEVICE)
+        t_dec = time.perf_counter() - t0
+        counts = {k: m.launches for k, m in mods.items()}
+    need(back == data, "mlen path round trip differs")
+    need(stats.encode_fallbacks == 0,
+         f"{stats.encode_fallbacks} host fallbacks on the mlen path")
+    check_launches(counts, "mlen", PATHMLEN,
+                   [k for k in mods if k not in PATHMLEN])
+    need(mcont == container, "the mlen container differs from the default "
+                             "container")
+    cb = B.CompressedBlocks.from_container(mcont)
+    lz_native = sum(len(native.compress(raw_np[j, :rlen_np[j]].tobytes()))
+                    for j in range(nb))
+    ratio = len(data) / cb.compressed_size
+    vs_lz4 = cb.compressed_size / lz_native
+    need(round(ratio, 4) == TPU_RECORD["ratio"]
+         and round(vs_lz4, 4) == TPU_RECORD["size_vs_lz4"],
+         f"mlen ratio {ratio:.4f} / size {vs_lz4:.4f} differ from the TPU "
+         "record of the same bytes")
+    print(f"mlen path: round trip ok, host fallbacks 0, launches {counts}; "
+          f"the container of phase 3 byte for byte; ratio {ratio:.4f}, size "
+          f"{vs_lz4:.4f}x native LZ4_compress_default (TPU record of the "
+          f"same bytes: {TPU_RECORD['ratio']}, {TPU_RECORD['size_vs_lz4']}x)")
+    print(f"[{card}] mlen path wall: compress {t_enc:.3f} s "
+          f"({len(data) / t_enc / 1e9:.4f} GB/s), decompress {t_dec:.3f} s "
+          f"({len(data) / t_dec / 1e9:.4f} GB/s), host framing included")
+
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    e_fast = compress_blocks_enc3(raw4, rlen4, BLOCK4, return_tails=True,
+                                  return_nseq=True, mlen=True)
+    counts_e = {k: m.launches for k, m in mods.items()}
+    check_launches(counts_e, "enc3 mlen", PATHMLEN_ENC3,
+                   [k for k in mods if k not in PATHMLEN_ENC3])
+    e_base = compress_blocks_enc3(raw4, rlen4, BLOCK4, return_tails=True,
+                                  return_nseq=True)
+    need(not bool(e_fast[2].any())
+         and all(torch.equal(a, b) for a, b in zip(e_base, e_fast)),
+         "the enc3 mlen bytes, tails or nseq differ from the default ones")
+    print(f"enc3 mlen path: {nb4} blocks of {BLOCK4}, the default bytes, "
+          f"tails and nseq; launches {counts_e}")
+
+    # ---- phase 28: times ----
+    def seg_path(flag):
+        return lambda: compress_blocks_seg(raw, rlen, BLOCK, mlen=flag)
+
+    def enc3_path(flag):
+        return lambda: compress_blocks_enc3(raw4, rlen4, BLOCK4, mlen=flag)
+
+    def compress_wall(flag):
+        with env_var("LZ4J_ENC_MLEN", "1" if flag else None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lz4_sgori_torch.compress(data, BLOCK, device=DEVICE)
+            return time.perf_counter() - t0
+
+    walls = [compress_wall(f) for f in (False, True, True, False)]
+    w_d, w_m = (walls[0] + walls[3]) / 2, (walls[1] + walls[2]) / 2
+    print(f"[{card}] lz4_sgori_torch.compress wall of the corpus, in turns "
+          f"(default, mlen, mlen, default): default {w_d:.4f} s "
+          f"({len(data) / w_d / 1e9:.4f} GB/s), mlen {w_m:.4f} s "
+          f"({len(data) / w_m / 1e9:.4f} GB/s), host framing included")
+    ms_d, ms_m = in_turns(time_ms, seg_path(False), seg_path(True), 5)
+    ms4_d, ms4_m = in_turns(time_ms, enc3_path(False), enc3_path(True), 5)
+    print(f"[{card}] encode kernel path over the corpus, in turns (default, "
+          f"mlen, mlen, default): 64 KiB seg default {ms_d:.3f} ms "
+          f"({len(data) / ms_d / 1e6:.4f} GB/s), mlen {ms_m:.3f} ms "
+          f"({len(data) / ms_m / 1e6:.4f} GB/s), mlen/default "
+          f"{ms_m / ms_d:.4f}; 4 KiB enc3 default {ms4_d:.3f} ms, mlen "
+          f"{ms4_m:.3f} ms, mlen/default {ms4_m / ms4_d:.4f}")
+    fc = K2.dense_candidates(raw, rlen)
+    fcv, fmc = M.dense_mcode(fc, raw, rlen)
+    f4 = K2.dense_candidates(raw4, rlen4)
+    f4v, f4m = M.dense_mcode(f4, raw4, rlen4)
+    k3_ms, k10b_ms = in_turns(
+        time_ms, lambda: K3.parse_segments(raw, fc, rlen),
+        lambda: K10B.parse_segments_mlen(raw, fcv, fmc, rlen), 5)
+    k7_ms, k10c_ms = in_turns(
+        time_ms, lambda: K7.parse_blocks_enc3(raw4, f4, rlen4),
+        lambda: K10C.parse_blocks_enc3_mlen(raw4, f4v, f4m, rlen4), 5)
+    full = {"mcode (64 KiB)": time_ms(lambda: M.dense_mcode(fc, raw, rlen),
+                                      5),
+            "mcode (4 KiB)": time_ms(lambda: M.dense_mcode(f4, raw4, rlen4),
+                                     5),
+            "parse_seg_mlen": k10b_ms, "parse_seg (in turns)": k3_ms,
+            "parse_enc3_mlen (4 KiB)": k10c_ms,
+            "parse_enc3 (4 KiB, in turns)": k7_ms}
+    print(f"[{card}] kernels over the corpus (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in full.items()))
+    k3s, k10bs = in_turns(time_ms, lambda: K3.parse_segments(rs, cs, ls),
+                          lambda: K10B.parse_segments_mlen(rs, cv, mc, ls),
+                          10)
+    sub_times = {
+        "mcode": (time_ms(lambda: M.dense_mcode(cs, rs, ls), 10),
+                  time_ms(lambda: M.dense_mcode_plain(cs, rs, ls), 3),
+                  tensor_bytes(cs, rs, ls, cv, mc)),
+        "parse_seg_mlen": (
+            k10bs, time_ms(lambda: K10B.parse_segments_mlen_plain(
+                rs, cv, mc, ls), 1), parse_bytes((rs, cv, mc, ls), pk)),
+        "parse_enc3_mlen": (
+            time_ms(lambda: K10C.parse_blocks_enc3_mlen(r4s, cv4, mc4, l4s),
+                    10),
+            time_ms(lambda: K10C.parse_blocks_enc3_mlen_plain(
+                r4s, cv4, mc4, l4s), 1),
+            parse_bytes((r4s, cv4, mc4, l4s), k10c)),
+    }
+    for k, (a, b, _) in sub_times.items():
+        print(f"[{card}] {k} on its subset: kernel {a:.4f} ms, plain "
+              f"{b:.4f} ms")
+    print(f"[{card}] K3 on the 32-block subset in turns with K10b: "
+          f"{k3s:.4f} ms")
+    return {"errs": {"mcode": errm, "parse_seg_mlen": err10b,
+                     "parse_enc3_mlen": err10c},
+            "counts": {k: counts[k] + counts_e[k] for k in mods},
+            "sub_times": sub_times}
 
 
 if __name__ == "__main__":

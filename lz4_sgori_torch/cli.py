@@ -12,9 +12,9 @@ JAX CLI's ``--platform``.
 
 The default ``verify`` sweep is the fio envelope, 4 KiB-4 MiB; every
 size of it runs on the port's kernels, and ``compress --match-depth 3``
-or ``5`` runs the deep modes. A request the port does not serve yet (the
-``xla`` engine, or ``LZ4J_ENC_MLEN=1`` where it would apply) ends with a
-``lz4j: error: ... ROADMAP ...`` line and exit code 1.
+or ``5`` runs the deep modes, and ``LZ4J_ENC_MLEN=1`` the mlen mode where
+it applies. A request the port does not serve yet (the ``xla`` engine)
+ends with a ``lz4j: error: ... ROADMAP ...`` line and exit code 1.
 """
 
 from __future__ import annotations

@@ -28,6 +28,19 @@
 //   candidate previewing past mlim beats a nearer one tied at the cap;
 //   one-step lazy: when p + 1 <= mfl and p + 1's best preview is
 //   strictly longer, the match starts at p + 1 instead.
+// MLEN (N = 1 only) is the mlen mode (K10b, K10c): the loop reads the
+// verified candidates and match codes of mcode.cu (golden.dense_mcode)
+// instead of the bytes where it can, and gives the same stream:
+//   a probe hits when 0 < d <= wlim and d <= pos, with no read32: pass 1
+//   verified it, and zeroed a candidate that failed, so the search goes
+//   on past it as past a failed verify;
+//   catch-up takes delta = min(cu, pos - anchor, mpos) from the code and
+//   goes on byte by byte only when delta == 4 (the code's cap);
+//   the bytes from the caught-up pos through p0 + 4 + lcp (p0 the probe
+//   position) are known equal, so the extension starts with that run,
+//   cut at the match limit; it reads on byte by byte from p0 + 12 only
+//   when lcp == 8 (the code's cap). With lcp < 8 the byte at
+//   p0 + 4 + lcp differs, or is a zero pad that the limit excludes.
 // Every byte goes to dst, bounded by cap: a stream that would pass cap
 // sets bad and stops, it is never truncated silently.
 
@@ -98,13 +111,14 @@ __device__ __forceinline__ int best_of(const uint8_t* __restrict__ src,
   return best;
 }
 
-template <int N>
+template <int N, bool MLEN = false>
 __device__ __forceinline__ ParseState greedy_parse(
     const uint8_t* __restrict__ src, const int* __restrict__ cd,
     const int* __restrict__ gp, const int* __restrict__ gp2,
-    uint8_t* __restrict__ dst, int cap, int s0, int mfl, int mlim,
-    bool frag, int wlim, int accel) {
+    const int* __restrict__ mcd, uint8_t* __restrict__ dst, int cap,
+    int s0, int mfl, int mlim, bool frag, int wlim, int accel) {
   static_assert(N == 1 || N == 3 || N == 5, "1, 3 or 5 candidates");
+  static_assert(N == 1 || !MLEN, "the mlen mode is greedy only");
   ParseState st = {0, s0, 0, 0, 0, false, false};
   int pos = max(s0, 1);
 
@@ -126,7 +140,7 @@ __device__ __forceinline__ ParseState greedy_parse(
       if constexpr (N == 1) {
         const int d = cd[pos];
         if (d > 0 && d <= wlim && d <= pos &&
-            rd32(src, pos - d) == rd32(src, pos)) {
+            (MLEN || rd32(src, pos - d) == rd32(src, pos))) {
           mpos = pos - d;
           found = true;
           break;
@@ -145,10 +159,20 @@ __device__ __forceinline__ ParseState greedy_parse(
       }
     }
     if (!found) break;
-    // catch-up, capped at the anchor
-    while (pos > st.anchor && mpos > 0 && src[pos - 1] == src[mpos - 1]) {
-      pos--;
-      mpos--;
+    // catch-up, capped at the anchor (MLEN: from the probe's code first)
+    const int p0 = pos, code = MLEN ? mcd[pos] : 0;
+    bool bytewise = true;
+    if constexpr (MLEN) {
+      const int delta = min(min((code >> 6) & 7, pos - st.anchor), mpos);
+      pos -= delta;
+      mpos -= delta;
+      bytewise = delta == 4;
+    }
+    if (bytewise) {
+      while (pos > st.anchor && mpos > 0 && src[pos - 1] == src[mpos - 1]) {
+        pos--;
+        mpos--;
+      }
     }
     const int lit = pos - st.anchor;
     int token_at = -1, token = 0;
@@ -172,7 +196,13 @@ __device__ __forceinline__ ParseState greedy_parse(
     const int p = pos + 4, m = mpos + 4;
     const int lim = mlim - p;
     int mc = 0;
-    while (mc < lim && src[p + mc] == src[m + mc]) mc++;
+    if constexpr (MLEN) {  // the known run: the catch-up, then lcp bytes
+      const int lcp = (code >> 1) & 15;
+      mc = min(p0 - (p - 4) + lcp, lim);
+      bytewise = lcp == 8;
+    }
+    if (bytewise)
+      while (mc < lim && src[p + mc] == src[m + mc]) mc++;
     pos = p + mc;
     if (mc >= 15) {
       if (!frag) token += 15;

@@ -29,12 +29,12 @@ extern "C" int lz4t_parse_enc3_deep(const void* raw, const void* cand,
                                     int cap, int accel, int depth,
                                     void* stream) {
   if (depth == 5)
-    return launch_parse_enc3<5>(raw, cand, gaps, gaps2, raw_len, out, out_len,
-                                err, tails, nseq, nb, bs, slot, cap, accel,
-                                stream);
+    return launch_parse_enc3<5>(raw, cand, gaps, gaps2, nullptr, raw_len,
+                                out, out_len, err, tails, nseq, nb, bs, slot,
+                                cap, accel, stream);
   if (depth == 3)
-    return launch_parse_enc3<3>(raw, cand, gaps, nullptr, raw_len, out,
-                                out_len, err, tails, nseq, nb, bs, slot, cap,
-                                accel, stream);
+    return launch_parse_enc3<3>(raw, cand, gaps, nullptr, nullptr, raw_len,
+                                out, out_len, err, tails, nseq, nb, bs, slot,
+                                cap, accel, stream);
   return (int)cudaErrorInvalidValue;
 }

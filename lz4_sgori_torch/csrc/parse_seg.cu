@@ -35,7 +35,7 @@ extern "C" int lz4t_parse_seg(const void* raw, const void* cand,
                               void* serr, void* last_end, void* nseq,
                               void* p1, void* m1h, int nb, int bs, int seg,
                               int scap, int wlim, int accel, void* stream) {
-  return launch_parse_seg<1>(raw, cand, nullptr, raw_len, streams, slen,
-                             serr, last_end, nseq, p1, m1h, nb, bs, seg,
+  return launch_parse_seg<1>(raw, cand, nullptr, nullptr, raw_len, streams,
+                             slen, serr, last_end, nseq, p1, m1h, nb, bs, seg,
                              scap, wlim, accel, stream);
 }

@@ -27,7 +27,7 @@ extern "C" int lz4t_parse_seg_deep(const void* raw, const void* cand,
                                    void* m1h, int nb, int bs, int seg,
                                    int scap, int wlim, int accel,
                                    void* stream) {
-  return launch_parse_seg<3>(raw, cand, gaps, raw_len, streams, slen, serr,
-                             last_end, nseq, p1, m1h, nb, bs, seg, scap, wlim,
-                             accel, stream);
+  return launch_parse_seg<3>(raw, cand, gaps, nullptr, raw_len, streams,
+                             slen, serr, last_end, nseq, p1, m1h, nb, bs, seg,
+                             scap, wlim, accel, stream);
 }

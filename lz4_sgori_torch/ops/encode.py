@@ -3,8 +3,10 @@
 Port of ``lz4_sgori_tpu/ops/encode.py:compress_blocks_device`` and its
 kernel dispatches, restricted to the kernel engines:
 
-- ``seg`` (8-64 KiB, 4 KiB multiples, depth <= 3): kernels K2-K4, and at
-  depth 2-3 K2, gaps, K8-seg and K4, ``ops/seg.py``;
+- ``seg`` (8-64 KiB, 4 KiB multiples, depth <= 3): kernels K2-K4, at
+  depth 2-3 K2, gaps, K8-seg and K4, and with ``LZ4J_ENC_MLEN=1`` at
+  depth 1 (the mlen mode, the JAX package's switch) K2, K10a, K10b and
+  K4, ``ops/seg.py``;
 - ``seg_big`` (64 KiB multiples above 64 KiB, 128 KiB-4 MiB on the fio
   envelope; depth capped at 3): kernels K9, K3 and K4 with
   ``seg = routing.seg_for(bs)``, and at depth 2-3 K9, gaps, K8-seg and
@@ -15,8 +17,8 @@ kernel dispatches, restricted to the kernel engines:
 - ``seg_splice`` (above 64 KiB, not 64 KiB multiples; depth capped at
   1): 64 KiB segments through ``enc3`` with tails, spliced on the host.
 
-The ``xla`` engine and the mlen mode (where the JAX package would run
-it) raise ``NotImplementedError`` naming their ROADMAP item.
+The ``xla`` engine raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -131,14 +133,12 @@ def compress_blocks_seg_dispatch(raw, raw_len, block_size: int,
     (compress_dense_seg_big above 64 KiB) at ``depth``. A parse error or
     an assembled block past COMPRESSBOUND (the reference's limited-output
     condition) folds into comp_len 0 for the framing layer's verify and
-    host fallback. ``LZ4J_ENC_MLEN=1`` raises where the JAX package would
-    run its mlen pass 1 (depth 1, blocks of at most 64 KiB); elsewhere
-    the JAX package ignores it, and so does the port."""
-    if (os.environ.get("LZ4J_ENC_MLEN") == "1" and depth == 1
-            and block_size <= 65536):
-        raise NotImplementedError(
-            "LZ4J_ENC_MLEN=1 (mlen pass 1) is not ported yet: ROADMAP "
-            "Queue 2 K10")
+    host fallback. ``LZ4J_ENC_MLEN=1`` runs the mlen mode (the same
+    bytes) where the JAX package does: depth 1, blocks of at most
+    64 KiB; elsewhere the JAX package ignores it, and so does the port."""
+    mlen = (os.environ.get("LZ4J_ENC_MLEN") == "1" and depth == 1
+            and block_size <= 65536)
     comp, comp_len, _err, nseq = compress_blocks_seg(
-        raw, raw_len, block_size, seg=seg, accel=acceleration, depth=depth)
+        raw, raw_len, block_size, seg=seg, accel=acceleration, depth=depth,
+        mlen=mlen)
     return (comp, comp_len, nseq) if return_nseq else (comp, comp_len)

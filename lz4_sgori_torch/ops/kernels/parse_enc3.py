@@ -81,17 +81,18 @@ def parse_blocks_enc3(raw: torch.Tensor, cand: torch.Tensor,
 
 
 def parse_blocks_enc3_plain(raw, cand, raw_len, accel: int = 1, gaps=None,
-                            gaps2=None):
+                            gaps2=None, mcode=None):
     """Plain PyTorch K7: K3's plain parse at ``seg = block_size``, then the
     terminal sequence placed by a per-byte select. With ``gaps`` (and
-    ``gaps2``) the parse is K8's deep parse (depth 3, or 5)."""
+    ``gaps2``) the parse is K8's deep parse (depth 3, or 5); with
+    ``mcode`` it is K10's mlen parse."""
     nb, bs = raw.shape
     dev = raw.device
     i64 = torch.int64
     cap = F.compress_bound(bs)
     streams, slen, serr, last_end, nseq, _, _ = parse_segments_plain(
         raw, cand, raw_len, seg=bs, window=65536, accel=accel, gaps=gaps,
-        gaps2=gaps2)
+        gaps2=gaps2, mcode=mcode)
     n = raw_len.to(i64).clamp(0, bs)
     tpos = slen.to(i64)[:, None]
     anchor = last_end.to(i64)[:, None]

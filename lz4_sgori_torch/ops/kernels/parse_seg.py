@@ -34,21 +34,24 @@ def load_kernel():
 
 
 def check_parse_args(raw: torch.Tensor, cand: torch.Tensor,
-                     raw_len: torch.Tensor, *tapes: torch.Tensor) -> None:
-    """The input checks of the parse wrappers (K3, K7 and both K8s):
-    ``tapes`` are the deep modes' gaps tapes, shaped as ``cand``."""
+                     raw_len: torch.Tensor, *tapes: torch.Tensor,
+                     tape: str = "gaps") -> None:
+    """The input checks of the parse wrappers (K3, K7, both K8s and both
+    K10 parses): ``tapes`` are the deep modes' gaps tapes or the mlen
+    mode's mcode tape (named by ``tape``), shaped as ``cand``."""
     if raw.dtype != torch.uint8 or raw.dim() != 2:
         raise TypeError("raw must be uint8 [B, block_size]")
-    for name, t in (("cand", cand),) + tuple(("gaps", t) for t in tapes):
+    for name, t in (("cand", cand),) + tuple((tape, t) for t in tapes):
         if t.dtype != torch.int32 or t.shape != raw.shape:
             raise TypeError(f"{name} must be int32 [B, block_size]")
         if t.device != raw.device:
-            raise ValueError("raw, cand, gaps and raw_len must be on one "
-                             "device")
+            raise ValueError(f"raw, cand, {tape} and raw_len must be on "
+                             "one device")
     if raw_len.dtype != torch.int32 or raw_len.shape != raw.shape[:1]:
         raise TypeError("raw_len must be int32 [B]")
     if raw_len.device != raw.device:
-        raise ValueError("raw, cand, gaps and raw_len must be on one device")
+        raise ValueError(f"raw, cand, {tape} and raw_len must be on one "
+                         "device")
     if raw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {raw.device}")
 
@@ -104,12 +107,16 @@ def _lsic_len(x: torch.Tensor) -> torch.Tensor:
 
 def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
                          window: int = 65536, accel: int = 1, gaps=None,
-                         gaps2=None):
+                         gaps2=None, mcode=None):
     """Plain PyTorch parse: all segments step in lockstep, one search
     probe per round; the lanes that find a match emit their whole
     sequence in the same round. With ``gaps`` (and ``gaps2``) it is the
     deep parse of K8 at three (five) candidates a probe: the best
-    preview, nearest on a tie, and one-step lazy deferral."""
+    preview, nearest on a tie, and one-step lazy deferral. With
+    ``mcode`` (and ``cand`` the verified candidates of
+    ``mcode.dense_mcode``) it is the mlen parse of K10: no read32 at the
+    probe, the catch-up and the first extension bytes from the code
+    (greedy_parse.cuh, MLEN)."""
     nb, bs = raw.shape
     dev = raw.device
     nseg = bs // seg
@@ -142,6 +149,8 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
     if gaps is not None:
         gapsf = gaps.reshape(-1).to(i64)
         gaps2f = gaps2.reshape(-1).to(i64) if gaps2 is not None else None
+    if mcode is not None:
+        mcodef = mcode.reshape(-1).to(i64)
     jj64 = torch.arange(64, dtype=i64, device=dev)
 
     def best_of(idx, p):
@@ -207,7 +216,8 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
             d = candf[base[idx] + pp]
             ok = (d > 0) & (d <= wlim) & (d <= pp)
             mp = (pp - d).clamp(min=0)
-            ok &= rd32(idx, mp) == rd32(idx, pp)
+            if mcode is None:
+                ok &= rd32(idx, mp) == rd32(idx, pp)
         else:
             mca, mp = best_of(idx, pp)
             ok = mca >= 0
@@ -221,21 +231,36 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
         pp, mp = pos[idx], mp[ok]
         anc = anchor[idx]
 
-        # catch-up, capped at the anchor
+        # catch-up, capped at the anchor; with mcode the code's (capped at
+        # 4) first, then byte by byte only where it reached its cap
+        p0 = pp
+        bytewise = torch.ones_like(pp, dtype=torch.bool)
+        if mcode is not None:
+            code = mcodef[base[idx] + pp]
+            delta = torch.minimum(torch.minimum((code >> 6) & 7, pp - anc),
+                                  mp)
+            pp, mp = pp - delta, mp - delta
+            bytewise = delta == 4
         while True:
-            c = (pp > anc) & (mp > 0)
-            c &= byte(idx, (pp - 1).clamp(min=0)) == byte(idx,
-                                                          (mp - 1).clamp(min=0))
+            c = bytewise & (pp > anc) & (mp > 0)
+            c &= byte(idx, (pp - 1).clamp(min=0)) == byte(
+                idx, (mp - 1).clamp(min=0))
             if not bool(c.any()):
                 break
             pp, mp = pp - c.to(i64), mp - c.to(i64)
 
-        # forward extension to the segment's match limit
+        # forward extension to the segment's match limit; with mcode from
+        # the known run (the catch-up, then lcp bytes), byte by byte only
+        # where lcp reached its cap
         p4, m4 = pp + F.MINMATCH, mp + F.MINMATCH
         lim = mlim[idx] - p4
         mc = torch.zeros_like(pp)
         j = torch.arange(64, dtype=i64, device=dev)
         more = torch.ones_like(pp, dtype=torch.bool)
+        if mcode is not None:
+            lcp = (code >> 1) & 15
+            mc = torch.minimum(p0 - pp + lcp, lim)
+            more = lcp == 8
         while bool(more.any()):
             at = (mc[:, None] + j).clamp(max=bs - 1)
             eq = (byte(idx[:, None], (p4[:, None] + at).clamp(max=bs - 1))

@@ -1,5 +1,5 @@
 """The seg and seg_big engines: segment-parallel block compress (kernels
-K2 or K9, K3, K4 plus PyTorch glue).
+K2 or K9, K3, K4 plus PyTorch glue; K10a and K10b in the mlen mode).
 
 Port of ``lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:
 compress_blocks_lockstep_seg``. Byte contract per block:
@@ -8,14 +8,16 @@ acceleration, depth)`` for blocks of at most 64 KiB (engine seg), and
 ``golden.compress_dense_seg_big(block, seg, acceleration=..., depth)``
 for blocks above 64 KiB, which must be 64 KiB multiples (engine
 seg_big). Every depth above 1 is the deep parse at three candidates a
-probe, as in golden.
+probe, as in golden. The mlen mode (depth 1, blocks of at most 64 KiB)
+gives the same bytes by another route.
 
 Pipeline: mask bytes past ``raw_len`` -> pass-1 candidates (K2 over the
 whole block up to 64 KiB, K9's piecewise windows above) -> at depth > 1
-the chain gaps of those candidates (the gaps kernel) -> the per-segment
-parse (K3, or K8-seg at depth > 1) -> owner run headers and the assembly
-plan (glue) -> K4 assembly -> error fold. What only the TPU needed is
-left out: the 128-lane group packing and tape layouts, the density
+the chain gaps of those candidates (the gaps kernel), in the mlen mode
+the verified candidates and match codes (K10a) -> the per-segment parse
+(K3, K8-seg at depth > 1, K10b in the mlen mode) -> owner run headers
+and the assembly plan (glue) -> K4 assembly -> error fold. What only
+the TPU needed is left out: the 128-lane group packing and tape layouts, the density
 regrouping of segments (a permutation that is inverted again, so the
 bytes never change), the VMEM-fit checks and barrier chains, the padded
 piece and straddle copies of pass 1, the bitonic sort behind the gaps
@@ -31,8 +33,10 @@ from .kernels.asm_seg import assemble_segments
 from .kernels.cand import dense_candidates
 from .kernels.cand_piecewise import PIECE, dense_candidates_piecewise
 from .kernels.gaps import chain_gaps
+from .kernels.mcode import dense_mcode
 from .kernels.parse_seg import parse_segments
 from .kernels.parse_seg_deep import parse_segments_deep
+from .kernels.parse_seg_mlen import parse_segments_mlen
 
 
 def header_max(block_size: int) -> int:
@@ -103,8 +107,9 @@ def assembly_plan(slen, hlen, last_end, raw_len, seg: int):
 def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
                         block_size: int, seg: int = 4096,
                         window: int = 65536, accel: int = 1,
-                        depth: int = 1):
-    """Compress ``[nb, >= block_size]`` uint8 blocks on their device.
+                        depth: int = 1, mlen: bool = False):
+    """Compress ``[nb, >= block_size]`` uint8 blocks on their device;
+    ``mlen`` runs the mlen mode (depth 1, blocks of at most 64 KiB).
 
     Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past the
     length, comp_len int32 [nb], err bool [nb], nseq int32 [nb]). A block
@@ -119,6 +124,9 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
     if big and block_size % 65536:
         raise ValueError("blocks above 64 KiB must be multiples of 64 KiB "
                          "(piecewise pass-1 stretches)")
+    if mlen and (depth > 1 or big):
+        raise ValueError("the mlen mode runs depth 1 on blocks of at most "
+                         "64 KiB")
     nb = raw.shape[0]
     nseg = block_size // seg
     dev = raw.device
@@ -133,6 +141,10 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
     if depth > 1:
         gaps, _ = chain_gaps(cand, 2, PIECE // 2 if big else 0)
         parts = parse_segments_deep(rawm, cand, gaps, raw_len, seg=seg,
+                                    window=window, accel=accel)
+    elif mlen:
+        cand_v, mcode = dense_mcode(cand, rawm, raw_len)
+        parts = parse_segments_mlen(rawm, cand_v, mcode, raw_len, seg=seg,
                                     window=window, accel=accel)
     else:
         parts = parse_segments(rawm, cand, raw_len, seg=seg, window=window,

@@ -8,10 +8,10 @@ the ``kernel`` column here: the hand-written kernels serve every device
 versions), so callers pass ``kernel=True`` for every device.
 
 Every kernel engine runs at every depth its cap allows (the deep modes
-are K8: ``seg``/``seg_big`` at depth 3, ``enc3`` at 3 and 5). The one
-engine this port does not have yet, ``xla``, raises
-``NotImplementedError`` naming the ROADMAP item that ports it. Nothing
-reroutes silently.
+are K8: ``seg``/``seg_big`` at depth 3, ``enc3`` at 3 and 5), and ``seg``
+runs the mlen mode (K10) where the JAX package does. The one engine this
+port does not have yet, ``xla``, raises ``NotImplementedError`` naming
+the ROADMAP item that ports it. Nothing reroutes silently.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 tests/test_cli.py, the verify sweep across the ported engines (enc3 and
 v6 at 1 and 4 KiB, seg at 8 and 64 KiB, seg_splice at 96 KiB, seg_big at
 128 KiB with v7 and at 512 KiB with v8), compress at match depth 3 and
-5, and the clean error of a request the port does not serve yet."""
+5, LZ4J_ENC_MLEN=1 (the mlen mode), and the clean error of a request the
+port does not serve."""
 
 import pytest
 
@@ -35,19 +36,35 @@ def test_verify_sweep(tmp_path, fixtures, capsys):
 
 def test_verify_unported_size_is_a_clean_error(tmp_path, fixtures, capsys,
                                                monkeypatch):
-    """Every fio size and depth is ported; a request that is not (mlen,
-    LZ4J_ENC_MLEN=1 at depth 1 and 64 KiB) ends with the ROADMAP message
-    and exit 1, without a traceback, and writes nothing."""
+    """Every fio size, depth and mode is ported: LZ4J_ENC_MLEN=1 at
+    depth 1 and 64 KiB runs the mlen mode (K10) and writes golden's
+    bytes. A request for an engine the port lacks (here seg, marked
+    unported for the test) ends with the ROADMAP message and exit 1,
+    without a traceback, and writes nothing."""
+    from lz4_sgori_torch import blocks, golden, routing
+    from lz4_sgori_torch.ops import seg as S
+    data = fixtures["text_small"]
     src = tmp_path / "in.bin"
-    src.write_bytes(fixtures["text_small"])
+    src.write_bytes(data)
     dst = tmp_path / "out.lz4j"
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
+    calls = []
+    real = S.dense_mcode
+    monkeypatch.setattr(S, "dense_mcode",
+                        lambda *a: calls.append(1) or real(*a))
+    assert cli.main(["--device", "cpu", "compress", str(src), str(dst),
+                     "--block-size", "65536"]) == 0
+    cb = blocks.CompressedBlocks.from_container(dst.read_bytes())
+    assert calls and cb.comp[0, :cb.comp_len[0]].tobytes() == \
+        golden.compress_dense_seg(data, 4096, 65536, 16)
+    dst.unlink()
+    capsys.readouterr()
+    monkeypatch.setitem(routing.UNPORTED, "seg", "Queue 1 item 7")
     assert cli.main(["--device", "cpu", "compress", str(src), str(dst),
                      "--block-size", "65536"]) == 1
     cap = capsys.readouterr()
     assert cap.out == "" and not dst.exists()
     assert cap.err.startswith("lz4j: error:") and "ROADMAP" in cap.err
-    assert "K10" in cap.err
 
 
 @pytest.mark.parametrize("block_size,depth", [(65536, 3), (4096, 5)])

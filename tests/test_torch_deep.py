@@ -2,7 +2,7 @@
 golden.dense_gaps / dense_gaps2 and the piecewise gaps of
 golden.dense_candidates_piecewise(with_gaps=True); K8-enc3 against
 compress_deep (depth 3 and 5, acceleration 1 and 8); the mlen gate at
-depth; and the plain enc3 at depth 3 against the JAX engine in interpret
+depth (the mode at depth 1 only); and the plain enc3 at depth 3 against the JAX engine in interpret
 mode. The seg engines at depth and the slice as a whole are in
 test_torch_deep_seg.py. Outputs are bytes, so every comparison is
 exact."""
@@ -143,15 +143,23 @@ def test_enc3_deep_plain_matches_compress_deep(bs, depth, accel):
 def test_mlen_gate_at_depth(monkeypatch):
     """LZ4J_ENC_MLEN=1 runs mlen in the JAX package only at depth 1
     (lz4_sgori_tpu/ops/encode.py:345-346): at depth 3 the port serves the
-    default deep bytes, at depth 1 it raises the K10 error."""
+    default deep bytes without the mode, at depth 1 it runs the mode
+    (K10) with golden's bytes."""
+    from lz4_sgori_torch.ops import seg as S
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
+    calls = []
+    real = S.dense_mcode
+    monkeypatch.setattr(S, "dense_mcode",
+                        lambda *a: calls.append(1) or real(*a))
     block = (LOREM * 300)[:16384 - 1000]
     raw, rlen = _batch([block], 16384)
     comp, clen = compress_blocks_device(raw, rlen, 16384, match_depth=3)
     assert comp[0, :clen[0]].numpy().tobytes() == \
         golden.compress_dense_seg(block, 4096, 65536, 16, depth=3)
-    with pytest.raises(NotImplementedError, match="K10"):
-        compress_blocks_device(raw, rlen, 16384)
+    assert not calls
+    comp, clen = compress_blocks_device(raw, rlen, 16384)
+    assert calls and comp[0, :clen[0]].numpy().tobytes() == \
+        golden.compress_dense_seg(block, 4096, 65536, 16)
 
 
 def test_deep_wrappers_reject_bad_inputs():

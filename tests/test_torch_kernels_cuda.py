@@ -1,6 +1,6 @@
-"""The eleven CUDA kernels (K1-K7, K9, and K8's gaps, K8-seg and
-K8-enc3) against their plain PyTorch versions and their golden oracles,
-on the card. Marked ``cuda``; each
+"""The fourteen CUDA kernels (K1-K7, K9, K8's gaps, K8-seg and K8-enc3,
+and K10's mcode, K10b and K10c) against their plain PyTorch versions and
+their golden oracles, on the card. Marked ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -19,10 +19,13 @@ from lz4_sgori_torch.ops.kernels import gaps as G
 from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
 from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
 from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
+from lz4_sgori_torch.ops.kernels import mcode as M
 from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
 from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
+from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
+from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden, native
 from test_torch_seg_big import big_blocks
@@ -385,3 +388,96 @@ def test_deep_paths_run_gaps_and_k8(dev):
         assert stats.encode_fallbacks == 0
         assert min(m.launches for m in used) > 0, bs
         assert max(m.launches for m in idle) == 0, bs
+
+
+def test_k10a_mcode(dev):
+    """mcode.cu against its plain version on every case of _blocks at
+    64 KiB (a short block and the empty one included), and against
+    golden.dense_mcode on five of them."""
+    bs = 65536
+    blocks = _blocks(bs)
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    got = M.dense_mcode(cand, raw, rlen)
+    want = M.dense_mcode_plain(cand, raw, rlen)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cand_v, mcode = (t.cpu().numpy() for t in got)
+    for j in (0, 1, 2, 5, 9):
+        wd, wm = golden.dense_mcode(blocks[j])
+        n = len(blocks[j])
+        assert np.array_equal(cand_v[j, :n], wd), j
+        assert np.array_equal(mcode[j, :n], wm), j
+        assert not cand_v[j, n:].any() and not mcode[j, n:].any(), j
+
+
+@pytest.mark.parametrize("bs,seg,window", [(16384, 4096, 65536),
+                                           (4096, 512, 4096)])
+def test_k10b_parse(dev, bs, seg, window):
+    """K10b against its plain version, against K3 on the unverified tape
+    (the same outputs) and against golden's segment parts."""
+    blocks = [b[:bs] for b in _blocks(max(bs, 16384))]
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    cand_v, mcode = M.dense_mcode(cand, raw, rlen)
+    got = K10B.parse_segments_mlen(raw, cand_v, mcode, rlen, seg=seg,
+                                   window=window)
+    want = K10B.parse_segments_mlen_plain(raw, cand_v, mcode, rlen, seg=seg,
+                                          window=window)
+    k3 = K3.parse_segments(raw, cand, rlen, seg=seg, window=window)
+    torch.cuda.synchronize()
+    assert not got[2].any()
+    for a, b, c in zip(got[1:], want[1:], k3[1:]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    nseg = bs // seg
+    for j, b in enumerate(blocks):
+        for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg,
+                                                               window)):
+            r = j * nseg + k
+            assert streams[r, :slen[r]].tobytes() == pt["stream"], (j, k)
+
+
+@pytest.mark.parametrize("bs", [4096, 60000])
+def test_k10c_parse(dev, bs):
+    """K10c against its plain version, K7 and golden.compress_dense."""
+    blocks = [b[:bs] for b in _blocks(max(bs, 8192))] + [
+        b"", b"a", b"x" * 13]
+    raw, rlen = _batch(blocks, bs, dev)
+    cand = K2.dense_candidates(raw, rlen)
+    cand_v, mcode = M.dense_mcode(cand, raw, rlen)
+    got = K10C.parse_blocks_enc3_mlen(raw, cand_v, mcode, rlen)
+    want = K10C.parse_blocks_enc3_mlen_plain(raw, cand_v, mcode, rlen)
+    k7 = K7.parse_blocks_enc3(raw, cand, rlen)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, k7):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    out, out_len, err, tails, _ = (t.cpu().numpy() for t in got)
+    assert not err.any()
+    for j, b in enumerate(blocks):
+        w = golden.compress_dense(b, hashlog=16)
+        assert out[j, :out_len[j]].tobytes() == w, j
+        assert int(tails[j]) == golden.tail_offset(w), j
+
+
+def test_mlen_path_runs_k2_mcode_k10b_k4(dev, monkeypatch):
+    """LZ4J_ENC_MLEN=1 at 64 KiB runs K2, mcode, K10b and K4 (and K1 for
+    the verify and the decode), not K3 or K7, and writes the default
+    path's container."""
+    import lz4_sgori_torch
+    from lz4_sgori_torch.utils.stats import Stats
+    data = b"".join(_blocks(65536)[:4]) * 2
+    monkeypatch.delenv("LZ4J_ENC_MLEN", raising=False)
+    want = lz4_sgori_torch.compress(data, 65536)
+    mods = (K1, K2, K3, K4, K7, M, K10B, K10C, G, K8S, K8E)
+    for m in mods:
+        m.launches = 0
+    monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
+    stats = Stats()
+    container = lz4_sgori_torch.compress(data, 65536, stats=stats)
+    assert container == want
+    assert lz4_sgori_torch.decompress(container) == data
+    assert stats.encode_fallbacks == 0
+    assert min(m.launches for m in (K1, K2, M, K10B, K4)) > 0
+    assert max(m.launches for m in (K3, K7, K10C, G, K8S, K8E)) == 0

@@ -1,7 +1,7 @@
 """The port's routing table against the JAX package's, on the kernel
 column (the JAX table's TPU column), across the fio block-size envelope;
-the engine the port lacks (xla) and mlen raise NotImplementedError
-instead of rerouting, and every depth of the kernel engines runs."""
+the engine the port lacks (xla) raises NotImplementedError instead of
+rerouting, and every depth of the kernel engines and the mlen mode run."""
 
 import numpy as np
 import pytest
@@ -54,10 +54,11 @@ def test_unported_engines_raise(engine):
 
 
 def test_unported_requests_raise_end_to_end(monkeypatch):
-    """What the port lacks raises: the xla engine (Queue 1 item 7) and
-    mlen at depth 1 (K10). The deep modes (K8) route, run and equal
-    golden: seg_big, seg and enc3 at depth 3, enc3 at depth 5, and a
-    depth past seg_big's cap warns and runs depth 3."""
+    """What the port lacks raises: the xla engine (Queue 1 item 7). The
+    deep modes (K8) route, run and equal golden: seg_big, seg and enc3 at
+    depth 3, enc3 at depth 5, and a depth past seg_big's cap warns and
+    runs depth 3. LZ4J_ENC_MLEN=1 at depth 1 and 64 KiB runs the mlen
+    mode (K10) and equals golden."""
     from lz4_sgori_tpu import golden
     block = (b"the deep modes weigh three candidates a probe. " * 200)[:5000]
     raw = torch.zeros((1, 131072), dtype=torch.uint8)
@@ -82,10 +83,16 @@ def test_unported_requests_raise_end_to_end(monkeypatch):
         comp, clen = compress_blocks_device(r, rl.clamp(max=bs), bs,
                                             match_depth=md)
         assert comp[0, :clen[0]].numpy().tobytes() == want, (bs, md)
-    raw = torch.zeros((1, 65536), dtype=torch.uint8)
+    from lz4_sgori_torch.ops import seg as S
+    mlen_calls = []
+    real = S.parse_segments_mlen
+    monkeypatch.setattr(S, "parse_segments_mlen",
+                        lambda *a, **k: mlen_calls.append(1) or real(*a, **k))
+    raw = raw[:, :65536].contiguous()
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
-    with pytest.raises(NotImplementedError, match="K10"):
-        compress_blocks_device(raw, rl, 65536)
+    comp, clen = compress_blocks_device(raw, rl, 65536)
+    assert mlen_calls and comp[0, :clen[0]].numpy().tobytes() == \
+        golden.compress_dense_seg(block, 4096, 65536, 16)
     with pytest.raises(NotImplementedError, match="item 7"):
         compress_blocks_device(raw, rl, 65536, impl="xla")
     comp = torch.from_numpy(np.zeros((1, 64), np.uint8))

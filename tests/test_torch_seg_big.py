@@ -1,6 +1,7 @@
 """The big-block path on CPU tensors: K9's plain version against
 golden.dense_candidates_piecewise, the seg_big engine against
-golden.compress_dense_seg_big, the mlen gate, and container round trips
+golden.compress_dense_seg_big, the mlen gate (the mode at 64 KiB, the
+default bytes above), and container round trips
 at 128 KiB (seg_big + v7) and 512 KiB (seg_big + v8). Outputs are bytes,
 so every comparison is exact. The JAX seg engine is too slow in
 interpret mode at these sizes, so golden is the reference here, as it is
@@ -130,15 +131,21 @@ def test_seg_big_matches_golden(bs, accel):
 
 def test_mlen_gate_follows_the_jax_package(monkeypatch):
     """LZ4J_ENC_MLEN=1 runs mlen in the JAX package only at depth 1 and
-    blocks of at most 64 KiB: the port raises there (K10 is not ported)
-    and serves 128 KiB with the default bytes."""
+    blocks of at most 64 KiB: the port runs the mode there (K10, golden's
+    bytes) and serves 128 KiB with the default bytes, without the mode."""
     monkeypatch.setenv("LZ4J_ENC_MLEN", "1")
+    calls = []
+    real = S.dense_mcode
+    monkeypatch.setattr(S, "dense_mcode",
+                        lambda *a: calls.append(1) or real(*a))
     block = (LOREM * 2100)[:131072 - 5000]
     raw, rl = _batch([block], 131072)
-    with pytest.raises(NotImplementedError, match="K10"):
-        compress_blocks_device(raw[:, :65536].contiguous(),
-                               rl.clamp(max=65536), 65536)
+    comp, clen = compress_blocks_device(raw[:, :65536].contiguous(),
+                                        rl.clamp(max=65536), 65536)
+    assert len(calls) == 1 and comp[0, :clen[0]].numpy().tobytes() == \
+        golden.compress_dense_seg(block[:65536], 4096, 65536, 16)
     comp, clen = compress_blocks_device(raw, rl, 131072)
+    assert len(calls) == 1
     assert comp[0, :clen[0]].numpy().tobytes() == \
         golden.compress_dense_seg_big(block, 4096)
 

@@ -118,6 +118,24 @@ def _inputs(seed: int, n: int):
             (b"motif-%d " % seed) * (n // 8), bytes(n // 2), b"abc"]
 
 
+def test_every_kernel_source_has_a_wrapper_in_the_walk():
+    """Each ``csrc/*.cu`` is built by a wrapper module that the import
+    walk above covers, the mlen mode's three (mcode, parse_seg_mlen and
+    parse_enc3_mlen) among them."""
+    import re
+    kernels = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
+               if f.endswith(".cu")}
+    loaded = set()
+    for rel in _port_sources():
+        with open(os.path.join(ROOT, rel)) as f:
+            loaded |= set(re.findall(r'_build\.load\(\s*"(\w+)"', f.read()))
+    assert loaded == kernels
+    assert {"mcode", "parse_seg_mlen", "parse_enc3_mlen"} <= kernels
+    mods = _port_modules()
+    for name in ("mcode", "parse_seg_mlen", "parse_enc3_mlen"):
+        assert f"lz4_sgori_torch.ops.kernels.{name}" in mods
+
+
 @pytest.mark.parametrize("fn,args", [
     ("dense_candidates", dict(hashlog=16, val16_filter=False)),
     ("dense_candidates", dict(hashlog=13)),
