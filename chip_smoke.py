@@ -2,13 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the fourteen CUDA kernels of the port from
+Builds the seventeen CUDA kernels of the port from
 ``lz4_sgori_torch/csrc`` (one nvcc each, all started together) and drives
-five paths: two on a 32 MiB synthetic corpus
+six paths: two on a 32 MiB synthetic corpus
 (``__graft_entry__._synth_corpus``, seed 42, held on the card), the
 big-block path on bench.py's config 6 (128 MiB, seed 55, 1 MiB blocks),
-the deep modes on its config 5 (128 MiB, seed 1234, 64 KiB blocks) and
-the mlen mode on the 32 MiB corpus again.
+the deep modes on its config 5 (128 MiB, seed 1234, 64 KiB blocks), and
+the mlen mode and the retired engines on the 32 MiB corpus again.
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -71,8 +71,8 @@ blocks run in a pool of worker processes:
     ``test_1m.fio`` and ``test_4m.fio`` (32 sequential 1 MiB writes, 8 of
     4 MiB), read back under sha256;
 17. the CLI's default ``verify`` sweep (4 KiB-4 MiB, eleven sizes) over
-    8 MiB, which launches all eight depth-1 kernels and none of K8's or
-    K10's;
+    8 MiB, which launches all eight depth-1 kernels and none of K8's,
+    K10's or the retired engines';
 18. 512 corrupted 1 MiB streams through the v8 route against
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
@@ -123,6 +123,25 @@ enc3 function's ``mlen`` argument) on config 1's corpus, in
     mode (host clock), and with CUDA events the mlen encode kernel path
     against the default one on the same blocks, K10b against K3 and K10c
     against K7 over the corpus, mcode, and each beside its plain version.
+
+The retired round-1 engines (``lz4_sgori_torch.retired``: T1 the greedy
+encoder, T2 the scalar decoder, T3 the chained decoder; kernels
+retired_encode, retired_decode and decode_v9) on config 1's corpus cut to
+512 blocks of 64 KiB and 8192 of 4 KiB, in ``_smoke_retired``:
+
+29. T1 on 8 blocks of 64 KiB and 64 of 4 KiB at acceleration 1 and 8, T2
+    and T3 (chain 2 and 4) on their streams and on mutants (random bytes
+    past comp_len in a third of them) against their plain versions
+    exactly, whole rows included; T2's out_len and err and all of T3's
+    output equal K1's;
+30. the retired path with the counters reset just before: T1 over both
+    cuts, then T2 and T3 at chain 2 and 4 back to the corpus, the three
+    kernels launched and no other;
+31. every block of T1 equals native LZ4_compress_default (and liblz4's
+    where present), 16 of each cut equal golden.compress at acceleration
+    1 and 8 (and LZ4_compress_fast), and the size is 1.0000x;
+32. times with CUDA events: T1 over each cut, T2 and T3 in turns with K1
+    (64 KiB) and K5 (4 KiB), and each on K1's 32-block subset.
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -191,6 +210,10 @@ DEEP_STORE_CHUNKS = 256
 TPU_DEEP_RECORD = {"ratio": 2.8231, "size_vs_lz4": 0.9304,
                    "deep5_size_vs_lz4": 0.9171}
 
+RETIRED_SUBSET = 8          # 64 KiB blocks of check 29 (and SUBSET4 at 4 KiB)
+RETIRED_ACC = 8
+RETIRED_MUTANTS = (248, 1024)   # at 64 KiB and at 4 KiB
+
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
      "lz4_sgori_tpu/ops/pallas/lockstep_v7.py:209"),
@@ -216,6 +239,11 @@ KERNELS = [
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
     ("K10c parse_enc3_mlen", "parse_enc3_mlen",
      "lz4_sgori_tpu/ops/pallas/lockstep_enc3.py:1279"),
+    ("T1 retired_encode", "retired_encode",
+     "tools/retired/encode_kernel.py:179"),
+    ("T2 retired_decode", "retired_decode",
+     "tools/retired/decode_kernel.py:97"),
+    ("T3 decode_v9", "decode_v9", "tools/retired/lockstep_v9.py:184"),
 ]
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
 # bytes per millisecond: the bound of every kernel here. An operation
@@ -231,6 +259,7 @@ DEEP_ONLY = ("gaps", "parse_seg_deep", "parse_enc3_deep")
 PATHMLEN = ("cand", "mcode", "parse_seg_mlen", "asm_seg", "decode_v7")
 PATHMLEN_ENC3 = ("cand", "mcode", "parse_enc3_mlen")
 MLEN_ONLY = ("mcode", "parse_seg_mlen", "parse_enc3_mlen")
+PATHRETIRED = ("retired_encode", "retired_decode", "decode_v9")
 # the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
 SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
           "parse_enc3")
@@ -470,6 +499,9 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
     from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
     from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
+    from lz4_sgori_torch.retired import decode_kernel as T2
+    from lz4_sgori_torch.retired import encode_kernel as T1
+    from lz4_sgori_torch.retired import lockstep_v9 as T3
     from lz4_sgori_torch.utils import oracle
     from lz4_sgori_torch.utils.stats import Stats
 
@@ -477,7 +509,8 @@ def _smoke(torch) -> int:
             "decode_v6": K5, "decode_v8": K6, "parse_enc3": K7,
             "cand_piecewise": K9, "gaps": G, "parse_seg_deep": K8S,
             "parse_enc3_deep": K8E, "mcode": M, "parse_seg_mlen": K10B,
-            "parse_enc3_mlen": K10C}
+            "parse_enc3_mlen": K10C, "retired_encode": T1,
+            "retired_decode": T2, "decode_v9": T3}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -704,7 +737,8 @@ def _smoke(torch) -> int:
     rd = _smoke_deep(torch, card, time_ms, maxdiff, mods)
     rm = _smoke_mlen(torch, data, raw, rlen, container, card, time_ms,
                      maxdiff, mods)
-    parts = (r4, rb, rd, rm)
+    rr = _smoke_retired(torch, data, card, time_ms, maxdiff, mods)
+    parts = (r4, rb, rd, rm, rr)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
     for r in parts:
@@ -1271,10 +1305,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
             rc = cli.main(["--device", DEVICE, "verify", path])
             need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
             cli_counts = {k: m.launches for k, m in mods.items()}
+            unrouted = DEEP_ONLY + MLEN_ONLY + PATHRETIRED
             check_launches(cli_counts, "CLI default verify",
-                           [k for k in mods
-                            if k not in DEEP_ONLY + MLEN_ONLY],
-                           DEEP_ONLY + MLEN_ONLY)
+                           [k for k in mods if k not in unrouted], unrouted)
         print(f"phase big stores and sweep: lz4j verify's default sweep "
               f"(4 KiB-4 MiB) over {SWEEP_BYTES} bytes ok, launches "
               f"{cli_counts} ({time.perf_counter() - t0:.1f} s)")
@@ -1972,6 +2005,198 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
                      "parse_enc3_mlen": err10c},
             "counts": {k: counts[k] + counts_e[k] for k in mods},
             "sub_times": sub_times}
+
+
+def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
+                   mods) -> dict:
+    """Phases 29-32: the retired round-1 engines (T1 the greedy encoder,
+    T2 the scalar decoder, T3 the chained decoder) on config 1's corpus,
+    cut to 512 blocks of 64 KiB and to 8192 of 4 KiB. Returns their
+    errors, launch counts and subset times for the record."""
+    from lz4_sgori_torch import blocks as B
+    from lz4_sgori_torch import format as F
+    from lz4_sgori_torch import native
+    from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
+    from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
+    from lz4_sgori_torch.retired import decode_kernel as T2
+    from lz4_sgori_torch.retired import encode_kernel as T1
+    from lz4_sgori_torch.retired import lockstep_v9 as T3
+    from lz4_sgori_torch.utils import oracle
+
+    dev = torch.device(DEVICE)
+    cuts = {}
+    for bs in (BLOCK, BLOCK4):
+        r_np, l_np = B.split_blocks(data, bs)
+        cuts[bs] = (r_np, l_np, torch.from_numpy(r_np).to(dev),
+                    torch.from_numpy(l_np).to(dev))
+    errs = dict.fromkeys(PATHRETIRED, 0)
+
+    def worst(key, got, want, what):
+        e = max(maxdiff(a, b) for a, b in zip(got, want))
+        need(e == 0, f"{what} differs from its plain version by {e}")
+        errs[key] = max(errs[key], e)
+
+    # ---- phase 29: T1, T2 and T3 against their plain versions ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2929)
+    for (bs, nsub), nmut in zip(((BLOCK, RETIRED_SUBSET), (BLOCK4, SUBSET4)),
+                                RETIRED_MUTANTS):
+        _, _, raw, rlen = cuts[bs]
+        nb = raw.shape[0]
+        sub = torch.arange(0, nb, max(1, nb // nsub), device=dev)[:nsub]
+        rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+        for acc in (RETIRED_ACC, 1):
+            got = T1.compress_blocks_retired(rs, ls, bs, acc)
+            worst("retired_encode", got,
+                  T1.compress_blocks_retired_plain(rs, ls, bs, acc),
+                  f"T1 at {bs} acceleration {acc}")
+        cn, ln = (t.cpu().numpy() for t in got)
+        bases = [cn[j, :ln[j]].tobytes() for j in range(nsub)]
+        slot = F.compress_bound(bs) + 8
+        mc, ml = _pack_streams(bases + make_mutants(bases, rng, nmut,
+                                                    slot - 8), slot)
+        for j in range(nsub, mc.shape[0], 3):      # bytes past comp_len
+            mc[j, ml[j]:] = rng.integers(0, 256, slot - ml[j], dtype=np.uint8)
+        ct, lt = torch.from_numpy(mc).to(dev), torch.from_numpy(ml).to(dev)
+        k1 = K1.decompress_blocks_v7(ct, lt, bs)
+        d2 = T2.decompress_blocks_retired(ct, lt, bs)
+        worst("retired_decode", d2,
+              T2.decompress_blocks_retired_plain(ct, lt, bs), f"T2 at {bs}")
+        need(torch.equal(d2[1], k1[1]) and torch.equal(d2[2], k1[2]),
+             f"T2's out_len or err differs from K1's at {bs}")
+        kept = int(d2[0][d2[2]].any(dim=1).sum())
+        for chain in (2, 4):
+            d3 = T3.decompress_blocks_lockstep_v9(ct, lt, bs, chain=chain)
+            worst("decode_v9", d3, T3.decompress_blocks_lockstep_v9_plain(
+                ct, lt, bs, chain=chain), f"T3 at {bs} chain {chain}")
+            need(all(torch.equal(a, b) for a, b in zip(d3, k1)),
+                 f"T3 differs from K1 at {bs} chain {chain}")
+        print(f"phase T1/T2/T3 == plain at {bs}: T1 on {nsub} blocks at "
+              f"acceleration 1 and {RETIRED_ACC}; T2 and T3 (chain 2, 4) on "
+              f"their streams and {nmut} mutants, {int(d2[2].sum())} "
+              f"rejected ({kept} keep bytes in T2's rows), out_len and err "
+              "== K1's, T3 == K1 whole rows")
+    print(f"phase T1/T2/T3 == plain: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 30: the retired path, counters reset just before ----
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc, dec = {}, {}
+    for bs, (_, _, raw, rlen) in cuts.items():
+        enc[bs] = T1.compress_blocks_retired(raw, rlen, bs)
+        dec[bs, "T2"] = T2.decompress_blocks_retired(*enc[bs], bs)
+        for chain in (2, 4):
+            dec[bs, f"T3 chain {chain}"] = T3.decompress_blocks_lockstep_v9(
+                *enc[bs], bs, chain=chain)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in mods.items()}
+    check_launches(counts, "retired", PATHRETIRED,
+                   [k for k in mods if k not in PATHRETIRED])
+    for (bs, what), (out, out_len, err) in dec.items():
+        _, _, raw, rlen = cuts[bs]
+        need(not bool(err.any()) and torch.equal(out_len, rlen)
+             and torch.equal(out, raw),
+             f"{what} does not decode T1's {bs}-byte blocks to the corpus")
+    print(f"retired path: T1 over {len(data)} bytes cut to {BLOCK} and "
+          f"{BLOCK4}, then T2 and T3 (chain 2, 4) back to the corpus "
+          f"({t_path:.3f} s), launches {counts}")
+
+    # ---- phase 31: T1 is LZ4_compress_default (and _fast) ----
+    t0 = time.perf_counter()
+    with golden_pool() as pool:
+        for bs, (r_np, l_np, raw, rlen) in cuts.items():
+            nb = raw.shape[0]
+            cn, ln = (t.cpu().numpy() for t in enc[bs])
+            gsel = np.linspace(0, nb - 1, GOLDEN_BLOCKS).astype(np.int64)
+            blk = [r_np[j, :l_np[j]].tobytes() for j in gsel]
+            gfut = [pool.submit(_golden_call, ("compress", b, {}))
+                    for b in blk]
+            f8 = [pool.submit(_golden_call, (
+                "compress", b, {"acceleration": RETIRED_ACC})) for b in blk]
+            c8, l8 = (t.cpu().numpy() for t in T1.compress_blocks_retired(
+                raw[torch.from_numpy(gsel).to(dev)],
+                rlen[torch.from_numpy(gsel).to(dev)], bs, RETIRED_ACC))
+            n_ref = 0
+            for j in range(nb):
+                b = r_np[j, :l_np[j]].tobytes()
+                got = cn[j, :ln[j]].tobytes()
+                want = native.compress(b)
+                need(got == want, f"T1 block {j} of {bs} differs from "
+                                  "native LZ4_compress_default")
+                n_ref += len(want)
+                if oracle.available():
+                    need(got == oracle.compress(b),
+                         f"T1 block {j} of {bs} differs from liblz4")
+            for i, j in enumerate(gsel):
+                need(cn[j, :ln[j]].tobytes() == gfut[i].result(),
+                     f"T1 block {j} of {bs} differs from golden.compress")
+                got8 = c8[i, :l8[i]].tobytes()
+                need(got8 == f8[i].result(),
+                     f"T1 block {j} of {bs} at acceleration {RETIRED_ACC} "
+                     "differs from golden.compress")
+                if oracle.available():
+                    need(got8 == oracle.compress_fast(blk[i], RETIRED_ACC),
+                         f"T1 block {j} of {bs} at acceleration "
+                         f"{RETIRED_ACC} differs from LZ4_compress_fast")
+            total = int(ln.sum())
+            print(f"T1 at {bs}: all {nb} blocks == native "
+                  f"LZ4_compress_default, liblz4 "
+                  f"{'too' if oracle.available() else 'not run (absent)'}; "
+                  f"{GOLDEN_BLOCKS} == golden.compress at acceleration 1 and "
+                  f"{RETIRED_ACC} (and LZ4_compress_fast); size {total} "
+                  f"bytes, ratio {len(data) / total:.4f}, "
+                  f"{total / n_ref:.4f}x LZ4_compress_default")
+    print(f"phase T1 contract: ok ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 32: times ----
+    for bs, (_, _, raw, rlen) in cuts.items():
+        ref = ("K1", K1.decompress_blocks_v7) if bs == BLOCK else \
+            ("K5", K5.decompress_blocks_v6)
+        ms1 = time_ms(lambda: T1.compress_blocks_retired(raw, rlen, bs), 5)
+        comp, clen = enc[bs]
+        pairs = {"T2": lambda: T2.decompress_blocks_retired(comp, clen, bs)}
+        for chain in (2, 4):
+            pairs[f"T3 chain {chain}"] = (
+                lambda c=chain: T3.decompress_blocks_lockstep_v9(
+                    comp, clen, bs, chain=c))
+        line = []
+        for what, fn in pairs.items():
+            mr, mt = in_turns(time_ms, lambda: ref[1](comp, clen, bs), fn, 5)
+            line.append(f"{what} {mt:.4f} ms ({len(data) / mt / 1e6:.4f} "
+                        f"GB/s) against {ref[0]} {mr:.4f} ms, "
+                        f"{mt / mr:.4f}x")
+        print(f"[{card}] retired engines over the {bs}-byte cut: T1 encode "
+              f"{ms1:.3f} ms ({len(data) / ms1 / 1e6:.4f} GB/s); in turns "
+              "(ref, new, new, ref): " + "; ".join(line))
+    _, _, raw, rlen = cuts[BLOCK]
+    nb = raw.shape[0]
+    sub = torch.arange(0, nb, nb // SUBSET, device=dev)[:SUBSET]
+    rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
+    cs, lc = T1.compress_blocks_retired(rs, ls, BLOCK)
+    d2 = T2.decompress_blocks_retired(cs, lc, BLOCK)
+    sub_times = {
+        "retired_encode": (
+            time_ms(lambda: T1.compress_blocks_retired(rs, ls, BLOCK), 10),
+            time_ms(lambda: T1.compress_blocks_retired_plain(rs, ls, BLOCK),
+                    1),
+            int(ls.sum()) + int(lc.sum()) + tensor_bytes(ls, lc)),
+        "retired_decode": (
+            time_ms(lambda: T2.decompress_blocks_retired(cs, lc, BLOCK), 10),
+            time_ms(lambda: T2.decompress_blocks_retired_plain(cs, lc, BLOCK),
+                    1), decode_bytes(lc, d2)),
+        "decode_v9": (
+            time_ms(lambda: T3.decompress_blocks_lockstep_v9(
+                cs, lc, BLOCK, chain=2), 10),
+            time_ms(lambda: T3.decompress_blocks_lockstep_v9_plain(
+                cs, lc, BLOCK, chain=2), 1), decode_bytes(lc, d2)),
+    }
+    for k, (a, b, _) in sub_times.items():
+        print(f"[{card}] {k} on {SUBSET} blocks of {BLOCK} (T3 at chain 2): "
+              f"kernel {a:.4f} ms, plain {b:.4f} ms")
+    return {"errs": errs, "counts": counts, "sub_times": sub_times}
 
 
 if __name__ == "__main__":

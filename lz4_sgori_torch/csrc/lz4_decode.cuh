@@ -1,5 +1,6 @@
-// The safe LZ4 block decode shared by K1 (decode_v7.cu) and K5
-// (decode_v6.cu): one warp per block.
+// The safe LZ4 block decode shared by K1 (decode_v7.cu), K5
+// (decode_v6.cu), K6 (decode_v8.cu) and the chained T3 (decode_v9.cu): one
+// warp per block (decode_block_warp; T3's warp walks several in turn).
 //
 // Contract (golden.decompress, lz4_sgori_tpu/golden.py:194-261):
 //   err = 1 exactly when golden.decompress(comp[:clen], out_size) raises;
@@ -19,17 +20,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void decode_warp_kernel(const uint8_t* __restrict__ comp,
-                                   const int* __restrict__ clen,
-                                   uint8_t* out, int* __restrict__ out_len,
-                                   uint8_t* __restrict__ err, int nb,
-                                   int slot, int out_size) {
-  const int blk = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (blk >= nb) return;
-  const uint8_t* src = comp + (size_t)blk * slot;
-  uint8_t* dst = out + (size_t)blk * out_size;
-  const int ilen = clen[blk];
+// Decodes one block (src, ilen bytes of a slot-byte row) into dst with
+// the calling warp, all 32 lanes together; lane is the caller's lane.
+// Returns the decoded length, or -1 on error.
+__device__ __forceinline__ int decode_block_warp(
+    const uint8_t* __restrict__ src, int ilen, int slot, uint8_t* dst,
+    int out_size, int lane) {
   bool bad = ilen <= 0 || ilen > slot;   // ilen == 0: golden "empty input"
   int ip = 0, op = 0;
   while (!bad) {
@@ -73,10 +69,30 @@ __global__ void decode_warp_kernel(const uint8_t* __restrict__ comp,
   }
   __syncwarp();
   for (int o = bad ? lane : op + lane; o < out_size; o += 32) dst[o] = 0;
+  return bad ? -1 : op;
+}
+
+__device__ __forceinline__ void store_result(int n, int blk, int lane,
+                                             int* __restrict__ out_len,
+                                             uint8_t* __restrict__ err) {
   if (lane == 0) {
-    out_len[blk] = bad ? 0 : op;
-    err[blk] = bad ? 1 : 0;
+    out_len[blk] = n < 0 ? 0 : n;
+    err[blk] = n < 0 ? 1 : 0;
   }
+}
+
+__global__ void decode_warp_kernel(const uint8_t* __restrict__ comp,
+                                   const int* __restrict__ clen,
+                                   uint8_t* out, int* __restrict__ out_len,
+                                   uint8_t* __restrict__ err, int nb,
+                                   int slot, int out_size) {
+  const int blk = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (blk >= nb) return;
+  const int n = decode_block_warp(comp + (size_t)blk * slot, clen[blk], slot,
+                                  out + (size_t)blk * out_size, out_size,
+                                  lane);
+  store_result(n, blk, lane, out_len, err);
 }
 
 // One warp per block, four blocks per CTA.

@@ -1,7 +1,8 @@
 """LZ4 block-format constants and bounds.
 
 The port's own copy of ``lz4_sgori_tpu/format.py`` (same names and
-values; the port imports nothing of the JAX package).
+values; the port imports nothing of the JAX package), plus the constants
+of the retired engines under ``tools/retired/`` at the end.
 
 This is the TPU-native analog of the reference codec's public constants
 (reference: lz4e/include/lz4e.h:9-28,53-55 and lz4e/include/lz4e_defs.h:83-110).
@@ -47,6 +48,15 @@ SMALL_INPUT_LIMIT = 65536 + (MFLIMIT - 1)  # 65547
 
 HASH4_PRIME = 2654435761  # Knuth multiplicative (lz4e_compress.c:59-66)
 HASH5_PRIME = 889523592379  # 40-bit prime (lz4e_compress.c:68-83)
+
+# --- The retired round-1 engines (tools/retired/; not in the JAX package's
+# format.py) ---
+# PALLAS_MAX_BLOCK of encode_kernel.py and decode_kernel.py. Below it the
+# encoder's 13-bit hash4 table (_HASHLOG) is golden's small-input table,
+# hashlog_for_input(n), hence byte parity with LZ4_compress_default.
+RETIRED_MAX_BLOCK = 65536
+# lockstep_v9.py: out_size must be a multiple of max(HSPAN, 4 * FBAND)
+V9_OUT_ALIGN = 1024
 
 _U32 = (1 << 32) - 1
 _U64 = (1 << 64) - 1

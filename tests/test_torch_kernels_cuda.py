@@ -1,6 +1,6 @@
-"""The fourteen CUDA kernels (K1-K7, K9, K8's gaps, K8-seg and K8-enc3,
-and K10's mcode, K10b and K10c) against their plain PyTorch versions and
-their golden oracles, on the card. Marked ``cuda``; each
+"""The seventeen CUDA kernels (K1-K7, K9, K8's gaps, K8-seg and K8-enc3,
+K10's mcode, K10b and K10c, and the retired engines T1-T3) against their
+plain PyTorch versions and their golden oracles, on the card. Marked ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -26,8 +26,12 @@ from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
+from lz4_sgori_torch.retired import decode_kernel as T2
+from lz4_sgori_torch.retired import encode_kernel as T1
+from lz4_sgori_torch.retired import lockstep_v9 as T3
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden, native
+from lz4_sgori_tpu.utils import oracle
 from test_torch_seg_big import big_blocks
 
 pytestmark = pytest.mark.cuda
@@ -481,3 +485,80 @@ def test_mlen_path_runs_k2_mcode_k10b_k4(dev, monkeypatch):
     assert stats.encode_fallbacks == 0
     assert min(m.launches for m in (K1, K2, M, K10B, K4)) > 0
     assert max(m.launches for m in (K3, K7, K10C, G, K8S, K8E)) == 0
+
+
+@pytest.mark.parametrize("bs,acc", [(4096, 1), (65536, 1), (65536, 8)])
+def test_t1_retired_encode(dev, bs, acc):
+    """T1 against its plain version (golden.compress a row) on every case
+    of _blocks, with random bytes past each short row's raw_len, and
+    against liblz4's LZ4_compress_fast where it is present."""
+    blocks = [b[:bs] for b in _blocks(bs)]
+    raw, rlen = _batch(blocks, bs, dev)
+    noise = torch.randint(0, 256, raw.shape, dtype=torch.uint8, device=dev)
+    pos = torch.arange(bs, device=dev)[None, :]
+    raw = torch.where(pos < rlen[:, None], raw, noise)
+    T1.launches = 0
+    got = T1.compress_blocks_retired(raw, rlen, bs, acc)
+    want = T1.compress_blocks_retired_plain(raw, rlen, bs, acc)
+    torch.cuda.synchronize()
+    assert T1.launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if oracle.available():
+        comp, clen = got[0].cpu().numpy(), got[1].cpu().numpy()
+        for j, b in enumerate(blocks):
+            assert comp[j, :clen[j]].tobytes() == oracle.compress_fast(
+                b, acc), j
+
+
+def _retired_payloads(bs, seed, dev):
+    bases = [golden.compress(b[:bs]) for b in _blocks(bs)]
+    rng = np.random.default_rng(seed)
+    slot = F.compress_bound(bs) + 8
+    payloads = bases + make_mutants(bases, rng, 256, slot - 8) + [
+        b"\xf0", b"\xf0\xff"]
+    comp = rng.integers(0, 256, (len(payloads), slot), dtype=np.uint8)
+    clen = np.zeros(len(payloads), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    clen[3] = 0
+    return (payloads, torch.from_numpy(comp).to(dev),
+            torch.from_numpy(clen).to(dev))
+
+
+@pytest.mark.parametrize("bs", [4096, 65536])
+def test_t2_retired_decode_and_mutants(dev, bs):
+    """T2 against its plain version, whole rows included (an error row
+    keeps the bytes before its fault), on valid streams and mutants with
+    random bytes past comp_len; err and out_len are K1's."""
+    _, ct, lt = _retired_payloads(bs, 91, dev)
+    T2.launches = 0
+    got = T2.decompress_blocks_retired(ct, lt, bs)
+    want = T2.decompress_blocks_retired_plain(ct, lt, bs)
+    k1 = K1.decompress_blocks_v7(ct, lt, bs)
+    torch.cuda.synchronize()
+    assert T2.launches == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], k1[1]) and torch.equal(got[2], k1[2])
+    assert bool(got[0][got[2]].any())
+
+
+@pytest.mark.parametrize("chain", [1, 2, 4])
+def test_t3_chained_decode(dev, chain):
+    """T3 against its plain version and K1 on the card, with and without
+    the sort and under a sort key."""
+    _, ct, lt = _retired_payloads(65536, 92, dev)
+    want = K1.decompress_blocks_v7(ct, lt, 65536)
+    keys = torch.randint(0, 100, lt.shape, dtype=torch.int32, device=dev)
+    for sort, key in ((True, None), (False, None), (True, keys)):
+        T3.launches = 0
+        got = T3.decompress_blocks_lockstep_v9(ct, lt, 65536, chain=chain,
+                                               sort=sort, sort_key=key)
+        plain = T3.decompress_blocks_lockstep_v9(
+            ct.cpu(), lt.cpu(), 65536, chain=chain, sort=sort,
+            sort_key=None if key is None else key.cpu())
+        torch.cuda.synchronize()
+        assert T3.launches == 1
+        for a, b, c in zip(got, want, plain):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c), sort

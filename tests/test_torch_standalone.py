@@ -97,11 +97,26 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-def test_format_copy_equals_the_jax_package():
+# the constants of the retired engines (tools/retired/), which the JAX
+# package's format.py does not hold
+PORT_ONLY = ("RETIRED_MAX_BLOCK", "V9_OUT_ALIGN")
+
+
+def test_format_copy_equals_the_jax_package(monkeypatch):
     names = [n for n in dir(JF) if n.isupper()]
-    assert names and names == [n for n in dir(TF) if n.isupper()]
+    assert names and names == [n for n in dir(TF)
+                               if n.isupper() and n not in PORT_ONLY]
     for n in names:
         assert getattr(TF, n) == getattr(JF, n), n
+    monkeypatch.syspath_prepend(os.path.join(ROOT, "tools", "retired"))
+    import decode_kernel
+    import encode_kernel
+    from lz4_sgori_tpu.ops.pallas.lockstep_v6 import FBAND
+    from lz4_sgori_tpu.ops.pallas.lockstep_v7 import HSPAN
+    assert TF.RETIRED_MAX_BLOCK == encode_kernel.PALLAS_MAX_BLOCK \
+        == decode_kernel.PALLAS_MAX_BLOCK
+    assert TF.hashlog_for_input(TF.RETIRED_MAX_BLOCK) == encode_kernel._HASHLOG
+    assert TF.V9_OUT_ALIGN == max(HSPAN, 4 * FBAND)
     rng = np.random.default_rng(1)
     for v in rng.integers(0, 1 << 32, 200, dtype=np.uint64).tolist():
         for hl in (12, 13, 16):
@@ -121,7 +136,8 @@ def _inputs(seed: int, n: int):
 def test_every_kernel_source_has_a_wrapper_in_the_walk():
     """Each ``csrc/*.cu`` is built by a wrapper module that the import
     walk above covers, the mlen mode's three (mcode, parse_seg_mlen and
-    parse_enc3_mlen) among them."""
+    parse_enc3_mlen) and the retired engines' three (retired_encode,
+    retired_decode and decode_v9) among them."""
     import re
     kernels = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
                if f.endswith(".cu")}
@@ -134,6 +150,9 @@ def test_every_kernel_source_has_a_wrapper_in_the_walk():
     mods = _port_modules()
     for name in ("mcode", "parse_seg_mlen", "parse_enc3_mlen"):
         assert f"lz4_sgori_torch.ops.kernels.{name}" in mods
+    assert {"retired_encode", "retired_decode", "decode_v9"} <= kernels
+    for name in ("encode_kernel", "decode_kernel", "lockstep_v9"):
+        assert f"lz4_sgori_torch.retired.{name}" in mods
 
 
 @pytest.mark.parametrize("fn,args", [
