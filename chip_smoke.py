@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the seventeen CUDA kernels of the port from
-``lz4_sgori_torch/csrc`` (one nvcc each, all started together) and drives
-six paths: two on a 32 MiB synthetic corpus
-(``__graft_entry__._synth_corpus``, seed 42, held on the card), the
-big-block path on bench.py's config 6 (128 MiB, seed 55, 1 MiB blocks),
-the deep modes on its config 5 (128 MiB, seed 1234, 64 KiB blocks), and
-the mlen mode and the retired engines on the 32 MiB corpus again.
+Builds the twenty-one CUDA sources of the port from
+``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 22
+kernels, T6 and T7 sharing one source) and drives seven paths: two on a
+32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
+held on the card), the big-block path on bench.py's config 6 (128 MiB,
+seed 55, 1 MiB blocks), the deep modes on its config 5 (128 MiB, seed
+1234, 64 KiB blocks), the mlen mode and the retired engines on the 32
+MiB corpus again, and the design probes of ``tools/`` at their own
+shapes and seeds.
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -143,6 +145,26 @@ retired_encode, retired_decode and decode_v9) on config 1's corpus cut to
 32. times with CUDA events: T1 over each cut, T2 and T3 in turns with K1
     (64 KiB) and K5 (4 KiB), and each on K1's 32-block subset.
 
+The design probes (``lz4_sgori_torch.probes``: T4 the bitonic column
+sort, T5 per-lane async row copies, T6 pass-1 get / put rounds, T7
+K-batched gets and puts, T8 the 26-word byte extract; kernels
+probe_sort, probe_dma, probe_table and probe_banded) at the tools'
+shapes and seeds, in ``_smoke_probes``:
+
+33. each probe against its plain version exactly: T4 at logN 10 and 16
+    (and against ``torch.sort``), T5 at 1, 32 and 128 lanes of 128 and
+    512 words for 16 and 48 rounds (and its refusal of 64 rounds, which
+    read past the tape), T6's three bodies at R 8192 and K 8, T7's seven
+    cases, T8's five spans at the tool's mask and at unaligned positions;
+34. the probe path with the counters reset just before: each probe's
+    ``main()`` at the tool's defaults (T5 at 16 and 48 rounds), which
+    prints ns per iteration by differencing two repeat counts; the five
+    wrappers launched and no codec kernel;
+35. times with CUDA events at each row's shape: the kernel and its plain
+    version per call, and the bytes bound;
+36. T4 in turns with ``torch.sort``, the record's one library time (no
+    single PyTorch call computes T5-T8's loops).
+
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
 package, whose backend-neutral modules the port copies. The last two
@@ -214,6 +236,12 @@ RETIRED_SUBSET = 8          # 64 KiB blocks of check 29 (and SUBSET4 at 4 KiB)
 RETIRED_ACC = 8
 RETIRED_MUTANTS = (248, 1024)   # at 64 KiB and at 4 KiB
 
+PROBE_SORT_LOGN = (10, 16)
+PROBE_DMA_LANES = (1, 32, 128)
+PROBE_DMA_WORDS = (128, 512)
+# rounds of T5's checks: its tape reads past the end after 63 at w = 512
+PROBE_DMA_REPS = (16, 48)
+
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
      "lz4_sgori_tpu/ops/pallas/lockstep_v7.py:209"),
@@ -244,7 +272,14 @@ KERNELS = [
     ("T2 retired_decode", "retired_decode",
      "tools/retired/decode_kernel.py:97"),
     ("T3 decode_v9", "decode_v9", "tools/retired/lockstep_v9.py:184"),
+    ("T4 probe_sort", "probe_sort", "tools/sort_probe.py:61"),
+    ("T5 probe_dma", "probe_dma", "tools/dma_probe.py:35"),
+    ("T6 probe_table rounds", "probe_rounds", "tools/microbench6.py:33"),
+    ("T7 probe_table kget", "probe_kget", "tools/microbench4.py:80"),
+    ("T8 probe_banded", "probe_banded", "tools/microbench4.py:127"),
 ]
+# the kernels whose source is not csrc/<key>.cu
+SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table"}
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
 # bytes per millisecond: the bound of every kernel here. An operation
 # bound would need an integer ALU peak, which the data sheet does not
@@ -260,6 +295,8 @@ PATHMLEN = ("cand", "mcode", "parse_seg_mlen", "asm_seg", "decode_v7")
 PATHMLEN_ENC3 = ("cand", "mcode", "parse_enc3_mlen")
 MLEN_ONLY = ("mcode", "parse_seg_mlen", "parse_enc3_mlen")
 PATHRETIRED = ("retired_encode", "retired_decode", "decode_v9")
+PATHPROBES = ("probe_sort", "probe_dma", "probe_rounds", "probe_kget",
+              "probe_banded")
 # the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
 SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
           "parse_enc3")
@@ -402,6 +439,23 @@ class Failed(Exception):
     pass
 
 
+class Counter:
+    """A wrapper's launch count kept in a module attribute other than
+    ``launches`` (``probes.microbench4`` holds two wrappers), read and
+    reset as ``.launches`` like the other modules' counts."""
+
+    def __init__(self, mod, attr: str, load):
+        self.mod, self.attr, self.load_kernel = mod, attr, load
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.mod, self.attr, n)
+
+
 def need(cond: bool, what: str) -> None:
     if not cond:
         raise Failed(what)
@@ -499,6 +553,10 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import parse_seg as K3
     from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
     from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
+    from lz4_sgori_torch.probes import dma_probe as P5
+    from lz4_sgori_torch.probes import microbench4 as P78
+    from lz4_sgori_torch.probes import microbench6 as P6
+    from lz4_sgori_torch.probes import sort_probe as P4
     from lz4_sgori_torch.retired import decode_kernel as T2
     from lz4_sgori_torch.retired import encode_kernel as T1
     from lz4_sgori_torch.retired import lockstep_v9 as T3
@@ -510,7 +568,10 @@ def _smoke(torch) -> int:
             "cand_piecewise": K9, "gaps": G, "parse_seg_deep": K8S,
             "parse_enc3_deep": K8E, "mcode": M, "parse_seg_mlen": K10B,
             "parse_enc3_mlen": K10C, "retired_encode": T1,
-            "retired_decode": T2, "decode_v9": T3}
+            "retired_decode": T2, "decode_v9": T3, "probe_sort": P4,
+            "probe_dma": P5, "probe_rounds": P6,
+            "probe_kget": Counter(P78, "kget_launches", P78.load_table_kernel),
+            "probe_banded": Counter(P78, "banded_launches", P78.load_kernel)}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -738,7 +799,8 @@ def _smoke(torch) -> int:
     rm = _smoke_mlen(torch, data, raw, rlen, container, card, time_ms,
                      maxdiff, mods)
     rr = _smoke_retired(torch, data, card, time_ms, maxdiff, mods)
-    parts = (r4, rb, rd, rm, rr)
+    rp = _smoke_probes(torch, card, time_ms, maxdiff, mods)
+    parts = (r4, rb, rd, rm, rr, rp)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
     for r in parts:
@@ -746,12 +808,13 @@ def _smoke(torch) -> int:
         sub_times.update(r["sub_times"])
     record = {"kernels": [
         {"name": label, "route": "cuda",
-         "source": f"lz4_sgori_torch/csrc/{key}.cu", "replaces": where,
+         "source": f"lz4_sgori_torch/csrc/{SOURCES.get(key, key)}.cu",
+         "replaces": where,
          "launches": counts[key] + sum(r["counts"][key] for r in parts),
          "max_abs_err": errs[key],
          "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
          "bound_ms": sub_times[key][2] / HBM_BYTES_PER_MS,
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": "bytes", "library_ms": rp["library"].get(key)}
         for label, key, where in KERNELS]}
     for k in record["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, bound "
@@ -1305,7 +1368,7 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
             rc = cli.main(["--device", DEVICE, "verify", path])
             need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
             cli_counts = {k: m.launches for k, m in mods.items()}
-            unrouted = DEEP_ONLY + MLEN_ONLY + PATHRETIRED
+            unrouted = DEEP_ONLY + MLEN_ONLY + PATHRETIRED + PATHPROBES
             check_launches(cli_counts, "CLI default verify",
                            [k for k in mods if k not in unrouted], unrouted)
         print(f"phase big stores and sweep: lz4j verify's default sweep "
@@ -2197,6 +2260,179 @@ def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
         print(f"[{card}] {k} on {SUBSET} blocks of {BLOCK} (T3 at chain 2): "
               f"kernel {a:.4f} ms, plain {b:.4f} ms")
     return {"errs": errs, "counts": counts, "sub_times": sub_times}
+
+
+def dma_bytes(nl: int, w: int, reps: int) -> int:
+    """Bytes T5 must move: each lane's words that its rounds copy, read
+    once (the windows of consecutive rounds overlap where w > 128), its
+    index, and the result."""
+    words = (reps - 1) * 128 + w if w >= 128 else reps * w
+    return 4 * (nl * words + nl + 1) if reps else 4 * (nl + 1)
+
+
+def banded_cells(torch, tape, pos0, reps: int) -> int:
+    """How many cells of the tape T8's rounds read at the tool's mask: its
+    plain loop replayed, marking the 26 rows at each round's position
+    (27 where the position is not word-aligned)."""
+    from lz4_sgori_torch.probes import microbench4 as P78
+    from lz4_sgori_torch.probes import wrap32
+    rows = tape.shape[0]
+    mask = P78.default_mask(rows)
+    hit = torch.zeros(tape.shape, dtype=torch.bool, device=tape.device)
+    lanes = torch.arange(P78.L, device=tape.device).expand(P78.WORDS + 1, -1)
+    p0 = pos0[0].to(torch.int64)
+    acc = torch.zeros_like(p0)
+    for _ in range(reps):
+        pos = wrap32(p0 + (acc & 63)).to(torch.int64) & mask
+        i = torch.arange(P78.WORDS + 1, device=tape.device)[:, None]
+        r = (pos >> 2)[None, :] + i
+        ok = (r >= 0) & (r < rows) & ((i < P78.WORDS) | (pos & 3 != 0))
+        hit[r[ok], lanes[ok]] = True
+        w = P78.extract_bytes(tape, pos, P78.WORDS).to(torch.int64)
+        acc = (acc + w.sum(0)) & 0xFFFF
+    need(torch.equal(acc.to(torch.int32)[None],
+                     P78.banded_plain(tape, pos0, reps)),
+         "the replay of T8's rounds differs from its plain version")
+    return int(hit.sum())
+
+
+def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
+    """Phases 33-36: the design probes of ``tools/`` (T4-T8) at the tools'
+    shapes and seeds. Returns their errors, launch counts, per-call times
+    and T4's library time for the record."""
+    from lz4_sgori_torch.probes import dma_probe as P5
+    from lz4_sgori_torch.probes import microbench4 as P78
+    from lz4_sgori_torch.probes import microbench6 as P6
+    from lz4_sgori_torch.probes import sort_probe as P4
+
+    dev = torch.device(DEVICE)
+    errs = dict.fromkeys(PATHPROBES, 0)
+
+    def same(key, got, want, what):
+        e = maxdiff(got, want)
+        need(e == 0 and torch.equal(got, want),
+             f"{what} differs from its plain version by {e}")
+        errs[key] = max(errs[key], e)
+
+    # ---- phase 33: each probe against its plain version ----
+    t0 = time.perf_counter()
+    sorts = {}
+    for logn in PROBE_SORT_LOGN:
+        x = torch.from_numpy(P4.keys(logn)).to(dev)
+        sorts[logn] = x
+        got = P4.device_sort(x)
+        same("probe_sort", got, P4.device_sort_plain(x), f"T4 at logN {logn}")
+        need(torch.equal(got, torch.sort(x, dim=0).values),
+             f"T4 at logN {logn} differs from torch.sort")
+    idx, hbm = (torch.from_numpy(a).to(dev) for a in P5.inputs())
+    for nl in PROBE_DMA_LANES:
+        for w in PROBE_DMA_WORDS:
+            for reps in PROBE_DMA_REPS:
+                same("probe_dma", P5.run(idx, hbm, w, nl, reps),
+                     P5.run_plain(idx, hbm, w, nl, reps),
+                     f"T5 at {nl} lanes, {w} words, {reps} rounds")
+    before, refused = P5.launches, False
+    try:
+        P5.run(idx, hbm, 512, 128, 64)
+    except ValueError:
+        refused = True
+    need(refused and P5.launches == before,
+         "T5 did not refuse 64 rounds of 512 words, which read past the tape")
+    carry = torch.from_numpy(P6.carry(8192)).to(dev)
+    for body in P6.BODIES:
+        same("probe_rounds", P6.rounds(body, carry, P6.ITERS[0]),
+             P6.rounds_plain(body, carry, P6.ITERS[0]),
+             f"T6 {body} at R 8192, K 8, {P6.ITERS[0]} rounds")
+    seed = torch.arange(P78.L, dtype=torch.int32, device=dev).reshape(1, -1)
+    for K, puts in P78.KGET_CASES:
+        reps = P78.KGET_REPS[0]
+        same("probe_kget", P78.kget(seed, reps, K, puts),
+             P78.kget_plain(seed, reps, K, puts),
+             f"T7 at K {K}, puts {puts}, {reps} rounds")
+    tapes = {}
+    for span in P78.BANDED_SPANS:
+        tape, pos = (torch.from_numpy(a).to(dev) for a in P78.banded_inputs(
+            P78.BANDED_ROWS, span * 64))
+        tapes[span] = tape, pos
+        reps = P78.BANDED_REPS[0]
+        edge = pos - 40
+        edge[0, :4] = torch.tensor([4 * P78.BANDED_ROWS - 3, -1, -6, 1])
+        for p, mask in ((pos, None), (pos + 1, -1), (edge, -1)):
+            same("probe_banded", P78.banded(tape, p, reps, mask),
+                 P78.banded_plain(tape, p, reps, mask),
+                 f"T8 at span {span}, mask {mask}")
+    print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} (and "
+          f"torch.sort), T5 at {PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
+          f"words x {PROBE_DMA_REPS} rounds (64 rounds of 512 words refused), "
+          f"T6 {P6.BODIES}, T7 {len(P78.KGET_CASES)} cases, T8 "
+          f"{len(P78.BANDED_SPANS)} spans aligned and not: ok "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 34: the probe path, counters reset just before ----
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rcs = {m.__name__: m.main([]) for m in (P4, P5, P6, P78)}
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in mods.items()}
+    need(not any(rcs.values()), f"a probe's main() failed: {rcs}")
+    check_launches(counts, "probe", PATHPROBES,
+                   [k for k in mods if k not in PATHPROBES])
+    print(f"probe path: the four main()s at the tools' defaults "
+          f"({t_path:.1f} s), launches "
+          + str({k: counts[k] for k in PATHPROBES}))
+
+    # ---- phase 35: times per call at each row's shape ----
+    logn, span = PROBE_SORT_LOGN[-1], P78.BANDED_SPANS[-1]
+    x = sorts[logn]
+    nl, w, reps5 = 128, 512, PROBE_DMA_REPS[1]
+    n6 = P6.ITERS[1]
+    K7, reps7 = 8, P78.KGET_REPS[1]
+    tape, pos = tapes[span]
+    reps8 = P78.BANDED_REPS[1]
+    calls = {
+        "probe_sort": (lambda: P4.device_sort(x),
+                       lambda: P4.device_sort_plain(x),
+                       2 * tensor_bytes(x), f"logN {logn}"),
+        "probe_dma": (lambda: P5.launch(idx, hbm, w, nl, reps5),
+                      lambda: P5.run_plain(idx, hbm, w, nl, reps5),
+                      dma_bytes(nl, w, reps5),
+                      f"{nl} lanes, {w} words, {reps5} rounds (the launch; "
+                      f"run adds its range check's read of idx: "
+                      f"{time_ms(lambda: P5.run(idx, hbm, w, nl, reps5), 10):.4f}"
+                      " ms a call)"),
+        "probe_rounds": (lambda: P6.rounds("getk", carry, n6),
+                         lambda: P6.rounds_plain("getk", carry, n6),
+                         tensor_bytes(carry) + 8 * P6.L * 4,
+                         f"getk, R 8192, K 8, {n6} rounds"),
+        "probe_kget": (lambda: P78.kget(seed, reps7, K7, True),
+                       lambda: P78.kget_plain(seed, reps7, K7, True),
+                       2 * tensor_bytes(seed),
+                       f"K {K7} with puts, {reps7} rounds"),
+        "probe_banded": (lambda: P78.banded(tape, pos, reps8),
+                         lambda: P78.banded_plain(tape, pos, reps8),
+                         4 * banded_cells(torch, tape, pos, reps8)
+                         + 2 * tensor_bytes(pos),
+                         f"span {span}, {reps8} rounds"),
+    }
+    sub_times = {}
+    for key, (fk, fp, nbytes, shape) in calls.items():
+        sub_times[key] = (time_ms(fk, 10), time_ms(fp, 1), nbytes)
+        print(f"[{card}] {key} at {shape}: kernel {sub_times[key][0]:.4f} ms,"
+              f" plain {sub_times[key][1]:.4f} ms, bound "
+              f"{nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes)")
+
+    # ---- phase 36: T4 in turns with torch.sort ----
+    lib, ker = in_turns(time_ms, lambda: torch.sort(x, dim=0),
+                        lambda: P4.device_sort(x), 10)
+    print(f"[{card}] T4 at logN {logn} in turns (torch.sort, T4, T4, "
+          f"torch.sort): torch.sort {lib:.4f} ms, T4 {ker:.4f} ms, "
+          f"{ker / lib:.4f}x; T5-T8: no single PyTorch call computes the "
+          "looped function, so no library time")
+    return {"errs": errs, "counts": counts, "sub_times": sub_times,
+            "library": {"probe_sort": lib}}
 
 
 if __name__ == "__main__":

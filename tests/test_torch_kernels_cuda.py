@@ -1,6 +1,8 @@
-"""The seventeen CUDA kernels (K1-K7, K9, K8's gaps, K8-seg and K8-enc3,
-K10's mcode, K10b and K10c, and the retired engines T1-T3) against their
-plain PyTorch versions and their golden oracles, on the card. Marked ``cuda``; each
+"""The kernels of the twenty-one CUDA sources (K1-K7, K9, K8's gaps,
+K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
+T1-T3, and the probes T4-T8, T6 and T7 sharing a source) against their
+plain PyTorch versions and their golden oracles, on the card. Marked
+``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -26,6 +28,10 @@ from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
+from lz4_sgori_torch.probes import dma_probe as P5
+from lz4_sgori_torch.probes import microbench4 as P78
+from lz4_sgori_torch.probes import microbench6 as P6
+from lz4_sgori_torch.probes import sort_probe as P4
 from lz4_sgori_torch.retired import decode_kernel as T2
 from lz4_sgori_torch.retired import encode_kernel as T1
 from lz4_sgori_torch.retired import lockstep_v9 as T3
@@ -562,3 +568,78 @@ def test_t3_chained_decode(dev, chain):
         assert T3.launches == 1
         for a, b, c in zip(got, want, plain):
             assert torch.equal(a, b) and torch.equal(a.cpu(), c), sort
+
+
+@pytest.mark.parametrize("logn", [1, 4, 10, 16])
+def test_t4_probe_sort(dev, logn):
+    """The tool's keys and random int32 with negatives, each column
+    sorted: equal to torch.sort and to the plain network."""
+    rng = np.random.default_rng(logn)
+    for x_np in (P4.keys(logn), rng.integers(-(1 << 31), 1 << 31, (
+            1 << logn, 128)).astype(np.int32)):
+        x = torch.from_numpy(x_np).to(dev)
+        P4.launches = 0
+        got = P4.device_sort(x)
+        want = P4.device_sort_plain(x)
+        torch.cuda.synchronize()
+        assert P4.launches == 1
+        assert torch.equal(got, want)
+        assert torch.equal(got, torch.sort(x, dim=0).values)
+
+
+@pytest.mark.parametrize("nl", [1, 32, 33, 128])
+@pytest.mark.parametrize("w", [4, 128, 512, 1024])
+def test_t5_probe_dma(dev, nl, w):
+    idx, hbm = (torch.from_numpy(a).to(dev) for a in P5.inputs())
+    for reps in (0, 1, 16, 48):
+        P5.launches = 0
+        got = P5.run(idx, hbm, w, nl, reps)
+        want = P5.run_plain(idx, hbm, w, nl, reps)
+        torch.cuda.synchronize()
+        assert P5.launches == 1
+        assert torch.equal(got, want), reps
+    with pytest.raises(ValueError, match="reads words up to"):
+        P5.run(idx, hbm, w, 128, 70)
+
+
+@pytest.mark.parametrize("body", P6.BODIES)
+@pytest.mark.parametrize("R,K", [(8192, 8), (8, 3)])
+def test_t6_probe_rounds(dev, body, R, K):
+    x = torch.from_numpy(P6.carry(R)).to(dev)
+    P6.launches = 0
+    got = P6.rounds(body, x, 300, K)
+    want = P6.rounds_plain(body, x, 300, K)
+    torch.cuda.synchronize()
+    assert P6.launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K,puts", P78.KGET_CASES)
+def test_t7_probe_kget(dev, K, puts):
+    seed = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
+    wide = torch.from_numpy(np.random.default_rng(K).integers(
+        -(1 << 31), 1 << 31, (1, 128)).astype(np.int32)).to(dev)
+    for s in (seed, wide):
+        P78.kget_launches = 0
+        got = P78.kget(s, 40, K, puts)
+        want = P78.kget_plain(s, 40, K, puts)
+        torch.cuda.synchronize()
+        assert P78.kget_launches == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("span", P78.BANDED_SPANS)
+def test_t8_probe_banded(dev, span):
+    """The tool's inputs at R = 16384, then unaligned positions (mask all
+    ones), some below the tape and some across its end."""
+    tape, pos = (torch.from_numpy(a).to(dev)
+                 for a in P78.banded_inputs(16384, span * 64))
+    edge = pos - 40
+    edge[0, :8] = torch.tensor([65530, 65535, 65536 - 103, -1, -4, 1, 2, 3])
+    for p, mask in ((pos, None), (pos + 1, -1), (edge, -1)):
+        P78.banded_launches = 0
+        got = P78.banded(tape, p, 64, mask)
+        want = P78.banded_plain(tape, p, 64, mask)
+        torch.cuda.synchronize()
+        assert P78.banded_launches == 1
+        assert torch.equal(got, want)

@@ -136,8 +136,8 @@ def _inputs(seed: int, n: int):
 def test_every_kernel_source_has_a_wrapper_in_the_walk():
     """Each ``csrc/*.cu`` is built by a wrapper module that the import
     walk above covers, the mlen mode's three (mcode, parse_seg_mlen and
-    parse_enc3_mlen) and the retired engines' three (retired_encode,
-    retired_decode and decode_v9) among them."""
+    parse_enc3_mlen), the retired engines' three (retired_encode,
+    retired_decode and decode_v9) and the probes' four among them."""
     import re
     kernels = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
                if f.endswith(".cu")}
@@ -153,6 +153,10 @@ def test_every_kernel_source_has_a_wrapper_in_the_walk():
     assert {"retired_encode", "retired_decode", "decode_v9"} <= kernels
     for name in ("encode_kernel", "decode_kernel", "lockstep_v9"):
         assert f"lz4_sgori_torch.retired.{name}" in mods
+    assert {"probe_sort", "probe_dma", "probe_table", "probe_banded"} <= \
+        kernels
+    for name in ("sort_probe", "dma_probe", "microbench6", "microbench4"):
+        assert f"lz4_sgori_torch.probes.{name}" in mods
 
 
 @pytest.mark.parametrize("fn,args", [
