@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-one CUDA sources of the port from
-``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 22
-kernels, T6 and T7 sharing one source) and drives seven paths: two on a
+Builds the twenty-five CUDA sources of the port from
+``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 28
+kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each) and
+drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
 seed 55, 1 MiB blocks), the deep modes on its config 5 (128 MiB, seed
@@ -86,8 +87,10 @@ The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
 kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
 
 20. the gaps kernel (K2's tape at links 2 and 4, K9's tape with its
-    floor), K8-seg and K8-enc3 (4 KiB and 64 KiB, depth 3 and 5) against
-    their plain versions exactly, and the tapes against golden;
+    floor), K8-seg and K8-enc3 (64 blocks of 4 KiB, and 2 of the 8 blocks
+    of 64 KiB the kernel parses, at depth 3 and 5) against their plain
+    versions exactly, and the tapes against golden; the plain K8 parses
+    are timed here, once;
 21. the golden contract of each deep row of the routing table: seg at
     depth 2-3, seg_big at depth 3, enc3 at depth 3 (acceleration 1 and 8)
     and 5, and seg_splice capped at depth 1 with its warning;
@@ -101,7 +104,8 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     ``lz4j compress --match-depth 3`` and ``5`` round trips;
 24. times with CUDA events: the deep encode paths, the gaps kernel and
     K8-seg over the corpus beside K3, K8-enc3 over the depth-5 slice, and
-    each deep kernel beside its plain version.
+    each deep kernel beside its plain version (the K8 parses' from phase
+    20).
 
 The mlen mode (K10: ``LZ4J_ENC_MLEN=1`` at depth 1 and 64 KiB and below;
 kernels K2, mcode, K10b and K4 on ``seg``, K2, mcode and K10c through the
@@ -147,29 +151,37 @@ retired_encode, retired_decode and decode_v9) on config 1's corpus cut to
 
 The design probes (``lz4_sgori_torch.probes``: T4 the bitonic column
 sort, T5 per-lane async row copies, T6 pass-1 get / put rounds, T7
-K-batched gets and puts, T8 the 26-word byte extract; kernels
-probe_sort, probe_dma, probe_table and probe_banded) at the tools'
-shapes and seeds, in ``_smoke_probes``:
+K-batched gets and puts, T8 the 26-word byte extract, T9 and T10 the
+per-lane word gather and scatter, T11 the FIFO bitroll, T12 the 30-op
+state step, T13 the scratch capacity probe, T15 the dependent scalar
+walk; kernels probe_sort, probe_dma, probe_table, probe_banded,
+probe_lane, probe_step, probe_smem and probe_walk) at the tools' shapes
+and seeds, in ``_smoke_probes``:
 
 33. each probe against its plain version exactly: T4 at logN 10 and 16
     (and against ``torch.sort``), T5 at 1, 32 and 128 lanes of 128 and
     512 words for 16 and 48 rounds (and its refusal of 64 rounds, which
     read past the tape), T6's three bodies at R 8192 and K 8, T7's seven
-    cases, T8's five spans at the tool's mask and at unaligned positions;
+    cases, T8's five spans at the tool's mask and at unaligned positions,
+    T9 and T10 at each R of the tool (T10's whole output), T11 and T12 at
+    3000 rounds, T13's refusal of every size of the tool with no launch
+    and its fit at the card's limit (one row more refused), T15 on the
+    tool's table and on one whose walk wraps within a few steps;
 34. the probe path with the counters reset just before: each probe's
     ``main()`` at the tool's defaults (T5 at 16 and 48 rounds), which
-    prints ns per iteration by differencing two repeat counts; the five
-    wrappers launched and no codec kernel;
+    prints ns per iteration by differencing two repeat counts; the
+    eleven wrappers launched and no codec kernel;
 35. times with CUDA events at each row's shape: the kernel and its plain
-    version per call, and the bytes bound;
+    version per call (the Python-stepped plain versions of T11, T12 and
+    T15 at fewer rounds), and the bytes bound;
 36. T4 in turns with ``torch.sort``, the record's one library time (no
-    single PyTorch call computes T5-T8's loops).
+    single PyTorch call computes T5-T15's loops).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
-package, whose backend-neutral modules the port copies. The last two
-lines are the per-kernel JSON record (with each kernel's bytes bound)
-and the device JSON line.
+package, whose backend-neutral modules the port copies. It prints its
+whole time, then the card; the last two lines are the per-kernel JSON
+record (with each kernel's bytes bound) and the device JSON line.
 """
 
 from __future__ import annotations
@@ -241,6 +253,13 @@ PROBE_DMA_LANES = (1, 32, 128)
 PROBE_DMA_WORDS = (128, 512)
 # rounds of T5's checks: its tape reads past the end after 63 at w = 512
 PROBE_DMA_REPS = (16, 48)
+# rounds of T11's and T12's checks, and of their Python-stepped plain
+# versions in phase 35 (the kernels' times are at the tool's 10^6)
+PROBE_STEP_REPS = 3000
+PROBE_STEP_PLAIN = 1000
+# steps of T15's checks and of its plain version in phase 35 (the
+# kernel's time is at the tool's 2^25)
+PROBE_WALK_STEPS = 3000
 
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
@@ -277,9 +296,17 @@ KERNELS = [
     ("T6 probe_table rounds", "probe_rounds", "tools/microbench6.py:33"),
     ("T7 probe_table kget", "probe_kget", "tools/microbench4.py:80"),
     ("T8 probe_banded", "probe_banded", "tools/microbench4.py:127"),
+    ("T9 probe_lane gather", "probe_gather", "tools/microbench3.py:67"),
+    ("T10 probe_lane scatter", "probe_scatter", "tools/microbench3.py:108"),
+    ("T11 probe_step fifo", "probe_fifo", "tools/microbench3.py:143"),
+    ("T12 probe_step state", "probe_state", "tools/microbench3.py:184"),
+    ("T13 probe_smem", "probe_smem", "tools/microbench3.py:235"),
+    ("T15 probe_walk", "probe_walk", "tools/microbench2.py:230"),
 ]
 # the kernels whose source is not csrc/<key>.cu
-SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table"}
+SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table",
+           "probe_gather": "probe_lane", "probe_scatter": "probe_lane",
+           "probe_fifo": "probe_step", "probe_state": "probe_step"}
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
 # bytes per millisecond: the bound of every kernel here. An operation
 # bound would need an integer ALU peak, which the data sheet does not
@@ -296,7 +323,8 @@ PATHMLEN_ENC3 = ("cand", "mcode", "parse_enc3_mlen")
 MLEN_ONLY = ("mcode", "parse_seg_mlen", "parse_enc3_mlen")
 PATHRETIRED = ("retired_encode", "retired_decode", "decode_v9")
 PATHPROBES = ("probe_sort", "probe_dma", "probe_rounds", "probe_kget",
-              "probe_banded")
+              "probe_banded", "probe_gather", "probe_scatter", "probe_fifo",
+              "probe_state", "probe_smem", "probe_walk")
 # the kernels of the 4, 8, 64 and 96 KiB sizes of phase 10's sweep
 SWEEP4 = ("decode_v7", "cand", "parse_seg", "asm_seg", "decode_v6",
           "parse_enc3")
@@ -441,7 +469,8 @@ class Failed(Exception):
 
 class Counter:
     """A wrapper's launch count kept in a module attribute other than
-    ``launches`` (``probes.microbench4`` holds two wrappers), read and
+    ``launches`` (``probes.microbench4`` holds two wrappers,
+    ``probes.microbench3`` five), read and
     reset as ``.launches`` like the other modules' counts."""
 
     def __init__(self, mod, attr: str, load):
@@ -507,6 +536,7 @@ def check_launches(counts: dict, path: str, used, idle) -> None:
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -518,7 +548,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
     try:
-        return _smoke(torch)
+        return _smoke(torch, start)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -529,7 +559,7 @@ def main() -> int:
                   "running", file=sys.stderr)
 
 
-def _smoke(torch) -> int:
+def _smoke(torch, start: float) -> int:
     import lz4_sgori_torch
     from __graft_entry__ import _synth_corpus
     from lz4_sgori_torch import blocks as B
@@ -554,6 +584,8 @@ def _smoke(torch) -> int:
     from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
     from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
     from lz4_sgori_torch.probes import dma_probe as P5
+    from lz4_sgori_torch.probes import microbench2 as P15
+    from lz4_sgori_torch.probes import microbench3 as P3
     from lz4_sgori_torch.probes import microbench4 as P78
     from lz4_sgori_torch.probes import microbench6 as P6
     from lz4_sgori_torch.probes import sort_probe as P4
@@ -571,7 +603,16 @@ def _smoke(torch) -> int:
             "retired_decode": T2, "decode_v9": T3, "probe_sort": P4,
             "probe_dma": P5, "probe_rounds": P6,
             "probe_kget": Counter(P78, "kget_launches", P78.load_table_kernel),
-            "probe_banded": Counter(P78, "banded_launches", P78.load_kernel)}
+            "probe_banded": Counter(P78, "banded_launches", P78.load_kernel),
+            "probe_gather": Counter(P3, "gather_launches",
+                                    P3.load_lane_kernel),
+            "probe_scatter": Counter(P3, "scatter_launches",
+                                     P3.load_lane_kernel),
+            "probe_fifo": Counter(P3, "fifo_launches", P3.load_step_kernel),
+            "probe_state": Counter(P3, "state_launches",
+                                   P3.load_step_kernel),
+            "probe_smem": Counter(P3, "vmem_launches", P3.load_smem_kernel),
+            "probe_walk": P15}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -819,6 +860,8 @@ def _smoke(torch) -> int:
     for k in record["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, bound "
               f"{k['bound_ms']:.6f} ms ({k['ms'] / k['bound_ms']:.1f}x)")
+    print(f"smoke total: {time.perf_counter() - start:.1f} s, the build "
+          "included")
     print(f"card: {card}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
@@ -1531,31 +1574,47 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
              "dense_candidates_piecewise(with_gaps=True)")
 
         pk = K8S.parse_segments_deep(rs, cs, g3k, ls)
-        err8s = segment_diff(torch, maxdiff, pk, K8S.parse_segments_deep_plain(
-            rs, cs, g3k, ls), "K8-seg")
+        pp, seg_plain_ms = timed_once(
+            torch, lambda: K8S.parse_segments_deep_plain(rs, cs, g3k, ls))
+        err8s = segment_diff(torch, maxdiff, pk, pp, "K8-seg")
 
+        # K8-enc3 on 64 blocks of 4 KiB and 8 of 64 KiB; its plain version
+        # on all 64 and on 2 of the 8 (the first and the short last one):
+        # at 64 KiB it steps for tens of seconds a call, so it runs once
         err8e = 0
         enc3_in = {}
-        for ebs, nblk in ((4096, 64), (bs, 8)):
+        enc3_plain_ms = {}
+        for ebs, nblk, rows in ((4096, 64, range(64)), (bs, 8, (0, 7))):
             blocks = spread(nblk, ebs)
             r, l = to_dev(*_batch(blocks, ebs))
             c = K2.dense_candidates(r, l)
+            sel = torch.tensor(list(rows), device=dev)
             for depth in (3, 5):
                 g, g2 = G.chain_gaps(c, 4 if depth == 5 else 2)
                 k = K8E.parse_blocks_enc3_deep(r, c, g, g2, l, depth=depth)
-                p = K8E.parse_blocks_enc3_deep_plain(r, c, g, g2, l,
-                                                     depth=depth)
-                err8e = max(err8e, max(maxdiff(a, b) for a, b in zip(k, p)))
                 need(not bool(k[2].any()),
                      f"K8-enc3 flagged a block at {ebs}, depth {depth}")
-                enc3_in[ebs, depth] = (r, c, g, g2, l, k)
+                sub = [t[sel].contiguous() if t is not None else None
+                       for t in (r, c, g, g2, l)]
+                ks = K8E.parse_blocks_enc3_deep(*sub, depth=depth)
+                p, enc3_plain_ms[ebs, depth] = timed_once(
+                    torch, lambda: K8E.parse_blocks_enc3_deep_plain(
+                        *sub, depth=depth))
+                err8e = max(err8e, max(maxdiff(a, b) for a, b in zip(ks, p)),
+                            max(maxdiff(a[sel], b) for a, b in zip(k, ks)))
+                enc3_in[ebs, depth] = (*sub, ks)
         need(err8e == 0, f"K8-enc3 differs from its plain version by "
                          f"{err8e}")
         print(f"phase gaps/K8 == plain: ok; gaps (links 2 and 4) on "
               f"{DEEP_SUBSET} blocks of {bs} and == golden on 2, over K9's "
               f"tape on 4 blocks of 1 MiB and == golden on 1; K8-seg on "
-              f"{DEEP_SUBSET} blocks; K8-enc3 at 4096 and {bs}, depth 3 and 5 "
-              f"({time.perf_counter() - t0:.1f} s)")
+              f"{DEEP_SUBSET} blocks; K8-enc3 at 4096 (64 blocks) and {bs} "
+              f"(8 blocks, 2 against the plain version), depth 3 and 5; the "
+              f"plain parses once each, ms: K8-seg {seg_plain_ms:.1f}, "
+              "K8-enc3 "
+              + ", ".join(f"{b} depth {d} {v:.1f}"
+                          for (b, d), v in enc3_plain_ms.items())
+              + f" ({time.perf_counter() - t0:.1f} s)")
 
         # ---- phase 21: the golden contract of each deep row ----
         t0 = time.perf_counter()
@@ -1795,18 +1854,17 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                  tensor_bytes(cs, g3k)),
         "parse_seg_deep": (
             time_ms(lambda: K8S.parse_segments_deep(rs, cs, g3k, ls), 10),
-            time_ms(lambda: K8S.parse_segments_deep_plain(rs, cs, g3k, ls),
-                    1), parse_bytes((rs, cs, g3k, ls), pk)),
+            seg_plain_ms, parse_bytes((rs, cs, g3k, ls), pk)),
         "parse_enc3_deep": (
             time_ms(lambda: K8E.parse_blocks_enc3_deep(
                 r, c, g, g2, l, depth=5), 5),
-            time_ms(lambda: K8E.parse_blocks_enc3_deep_plain(
-                r, c, g, g2, l, depth=5), 1),
-            parse_bytes((r, c, g, g2, l), k)),
+            enc3_plain_ms[bs, 5], parse_bytes((r, c, g, g2, l), k)),
     }
     for key, (a, b, _) in sub_times.items():
         print(f"[{card}] {key} on its subset: kernel {a:.4f} ms, plain "
               f"{b:.4f} ms")
+    print(f"(K8-enc3's subset: 2 blocks of {bs} at depth 5; both K8 "
+          "parses' plain times are phase 20's calls)")
     r4, c4, g4, _, l4, _ = enc3_in[4096, 3]
     ms4 = time_ms(lambda: K8E.parse_blocks_enc3_deep(r4, c4, g4, None, l4),
                   10)
@@ -1815,6 +1873,19 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     return {"errs": {"gaps": errg, "parse_seg_deep": err8s,
                      "parse_enc3_deep": err8e},
             "counts": counts, "sub_times": sub_times}
+
+
+def timed_once(torch, fn):
+    """``(fn(), its milliseconds)``: one call between two CUDA events, for
+    a plain version too slow to run again for its time."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 @contextlib.contextmanager
@@ -2297,10 +2368,12 @@ def banded_cells(torch, tape, pos0, reps: int) -> int:
 
 
 def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
-    """Phases 33-36: the design probes of ``tools/`` (T4-T8) at the tools'
-    shapes and seeds. Returns their errors, launch counts, per-call times
-    and T4's library time for the record."""
+    """Phases 33-36: the design probes of ``tools/`` (T4-T13, T15) at the
+    tools' shapes and seeds. Returns their errors, launch counts, per-call
+    times and T4's library time for the record."""
     from lz4_sgori_torch.probes import dma_probe as P5
+    from lz4_sgori_torch.probes import microbench2 as P15
+    from lz4_sgori_torch.probes import microbench3 as P3
     from lz4_sgori_torch.probes import microbench4 as P78
     from lz4_sgori_torch.probes import microbench6 as P6
     from lz4_sgori_torch.probes import sort_probe as P4
@@ -2361,26 +2434,77 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
             same("probe_banded", P78.banded(tape, p, reps, mask),
                  P78.banded_plain(tape, p, reps, mask),
                  f"T8 at span {span}, mask {mask}")
+    lane_tapes = {}
+    for R in P3.GATHER_R:
+        t = torch.from_numpy(P3.tape(R)).to(dev)
+        lane_tapes[R] = t
+        n = P3.lane_reps(R)
+        same("probe_gather", P3.gather(t, n), P3.gather_plain(t, n),
+             f"T9 at R {R}, {n} rounds")
+    for R in P3.SCATTER_R:
+        n = P3.lane_reps(R)
+        same("probe_scatter", P3.scatter(R, n, DEVICE, whole=True),
+             P3.scatter_plain(R, n, dev, whole=True),
+             f"T10 at R {R}, {n} rounds")
+    for key, fn, plain in (("probe_fifo", P3.fifo, P3.fifo_plain),
+                           ("probe_state", P3.state, P3.state_plain)):
+        same(key, fn(PROBE_STEP_REPS, DEVICE), plain(PROBE_STEP_REPS, dev),
+             f"{key} at {PROBE_STEP_REPS} rounds")
+    # from the tool's start T12 reaches no negative value before round
+    # 55,578: random int32 states reach the signed shifts and compares
+    wide = torch.from_numpy(np.random.default_rng(12).integers(
+        -(1 << 31), 1 << 31, (4, P3.L)).astype(np.int32)).to(dev)
+    same("probe_state", P3.state(PROBE_STEP_PLAIN, start=wide),
+         P3.state_plain(PROBE_STEP_PLAIN, start=wide),
+         f"T12 from random states, {PROBE_STEP_PLAIN} rounds")
+    before = P3.vmem_launches
+    refused = [rows for rows in P3.VMEM_ROWS
+               if P3.vmem(rows, P3.RING, DEVICE) is None]
+    need(refused == list(P3.VMEM_ROWS) and P3.vmem_launches == before,
+         f"T13 launched or fitted a size of the tool: refused {refused}")
+    limit = P3.smem_limit(dev)
+    fit = P3.fit_rows(limit, P3.FIT_RING)
+    out = P3.vmem(fit, P3.FIT_RING, DEVICE)
+    need(out is not None, f"T13 refused rows {fit}, which fit {limit} bytes")
+    same("probe_smem", out, P3.vmem_plain(fit, P3.FIT_RING, dev),
+         f"T13 at rows {fit}")
+    need(P3.vmem(fit + 1, P3.FIT_RING, DEVICE) is None
+         and P3.vmem_launches == before + 1,
+         f"T13 did not refuse rows {fit + 1} above the {limit} bytes")
+    walk_tbl = torch.from_numpy(P15.walk_table()).to(dev)
+    wide = torch.from_numpy(np.random.default_rng(15).integers(
+        (1 << 30) - 4096, 1 << 30, P15.TBL).astype(np.int32)).to(dev)
+    for t, what in ((walk_tbl, "the tool's table"), (wide, "entries near "
+                                                      "2^30")):
+        same("probe_walk", P15.walk(t, PROBE_WALK_STEPS),
+             P15.walk_plain(t, PROBE_WALK_STEPS),
+             f"T15 on {what}, {PROBE_WALK_STEPS} steps")
     print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} (and "
           f"torch.sort), T5 at {PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
           f"words x {PROBE_DMA_REPS} rounds (64 rounds of 512 words refused), "
           f"T6 {P6.BODIES}, T7 {len(P78.KGET_CASES)} cases, T8 "
-          f"{len(P78.BANDED_SPANS)} spans aligned and not: ok "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"{len(P78.BANDED_SPANS)} spans aligned and not, T9 at R "
+          f"{P3.GATHER_R} and T10 at R {P3.SCATTER_R} (whole outputs), "
+          f"T11 and T12 at {PROBE_STEP_REPS} rounds "
+          f"(T12 also {PROBE_STEP_PLAIN} from random states), "
+          f"T13 refused {refused} with no launch and fit rows {fit} + "
+          f"{P3.FIT_RING} ({P3.scratch_bytes(fit, P3.FIT_RING)} of {limit} "
+          f"bytes; one row more refused), T15 on the tool's table and one "
+          f"that wraps: ok ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 34: the probe path, counters reset just before ----
     for m in mods.values():
         m.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rcs = {m.__name__: m.main([]) for m in (P4, P5, P6, P78)}
+    rcs = {m.__name__: m.main([]) for m in (P4, P5, P6, P78, P3, P15)}
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     need(not any(rcs.values()), f"a probe's main() failed: {rcs}")
     check_launches(counts, "probe", PATHPROBES,
                    [k for k in mods if k not in PATHPROBES])
-    print(f"probe path: the four main()s at the tools' defaults "
+    print(f"probe path: the six main()s at the tools' defaults "
           f"({t_path:.1f} s), launches "
           + str({k: counts[k] for k in PATHPROBES}))
 
@@ -2392,6 +2516,12 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     K7, reps7 = 8, P78.KGET_REPS[1]
     tape, pos = tapes[span]
     reps8 = P78.BANDED_REPS[1]
+    R9, R10 = P3.GATHER_R[-1], P3.SCATTER_R[-1]
+    n9, n10 = 5 * P3.lane_reps(R9), 5 * P3.lane_reps(R10)
+    t9 = lane_tapes[R9]
+    n11 = P3.STEP_REPS[1]
+    n15 = P15.STEPS[1]
+    out_bytes = 8 * P3.L * 4
     calls = {
         "probe_sort": (lambda: P4.device_sort(x),
                        lambda: P4.device_sort_plain(x),
@@ -2416,10 +2546,41 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                          4 * banded_cells(torch, tape, pos, reps8)
                          + 2 * tensor_bytes(pos),
                          f"span {span}, {reps8} rounds"),
+        "probe_gather": (lambda: P3.gather(t9, n9),
+                         lambda: P3.gather_plain(t9, n9),
+                         4 * int((P3.last_visit(R9, n9, P3.GATHER_STRIDE, dev)
+                                  >= 0).sum()) + out_bytes,
+                         f"R {R9}, {n9} rounds (the cells visited read "
+                         "once)"),
+        "probe_scatter": (lambda: P3.scatter(R10, n10, DEVICE),
+                          lambda: P3.scatter_plain(R10, n10, dev),
+                          4 * int((P3.last_visit(R10, n10, P3.SCATTER_STRIDE,
+                                                 dev) >= 0).sum()),
+                          f"R {R10}, {n10} rounds (the cells written)"),
+        "probe_fifo": (lambda: P3.fifo(n11, DEVICE),
+                       lambda: P3.fifo_plain(PROBE_STEP_PLAIN, dev),
+                       out_bytes, f"{n11} rounds, the plain version "
+                                  f"{PROBE_STEP_PLAIN}"),
+        "probe_state": (lambda: P3.state(n11, DEVICE),
+                        lambda: P3.state_plain(PROBE_STEP_PLAIN, dev),
+                        out_bytes, f"{n11} rounds, the plain version "
+                                   f"{PROBE_STEP_PLAIN}"),
+        "probe_smem": (lambda: P3.vmem(fit, P3.FIT_RING, DEVICE),
+                       lambda: P3.vmem_plain(fit, P3.FIT_RING, dev),
+                       out_bytes, f"rows {fit} + ring {P3.FIT_RING}, "
+                                  f"the card's limit {limit} bytes"),
+        "probe_walk": (lambda: P15.walk(walk_tbl, n15),
+                       lambda: P15.walk_plain(walk_tbl, PROBE_WALK_STEPS),
+                       tensor_bytes(walk_tbl) + out_bytes,
+                       f"{n15} steps, the plain version "
+                       f"{PROBE_WALK_STEPS}"),
     }
+    # a call of T15's 2^25 steps takes most of a second: fewer of them
+    kernel_calls = {"probe_walk": 2}
     sub_times = {}
     for key, (fk, fp, nbytes, shape) in calls.items():
-        sub_times[key] = (time_ms(fk, 10), time_ms(fp, 1), nbytes)
+        sub_times[key] = (time_ms(fk, kernel_calls.get(key, 10)),
+                          time_ms(fp, 1), nbytes)
         print(f"[{card}] {key} at {shape}: kernel {sub_times[key][0]:.4f} ms,"
               f" plain {sub_times[key][1]:.4f} ms, bound "
               f"{nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes)")
@@ -2429,7 +2590,7 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                         lambda: P4.device_sort(x), 10)
     print(f"[{card}] T4 at logN {logn} in turns (torch.sort, T4, T4, "
           f"torch.sort): torch.sort {lib:.4f} ms, T4 {ker:.4f} ms, "
-          f"{ker / lib:.4f}x; T5-T8: no single PyTorch call computes the "
+          f"{ker / lib:.4f}x; T5-T15: no single PyTorch call computes the "
           "looped function, so no library time")
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
             "library": {"probe_sort": lib}}

@@ -7,7 +7,10 @@ does for the TPU.
 - ``dma_probe`` (T5): rounds of per-lane async row copies;
 - ``microbench6`` (T6): pass-1 GET / PUT rounds over a carry table;
 - ``microbench4`` (T7, T8): K-batched table gets and puts, and the 26-word
-  little-endian byte extract.
+  little-endian byte extract;
+- ``microbench3`` (T9-T13): the per-lane word gather and scatter, the FIFO
+  bitroll, the 30-op state step and the scratch capacity probe;
+- ``microbench2`` (T15): the dependent scalar walk over a 512-word table.
 
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its CUDA kernel (``csrc/probe_*.cu``) on a CUDA tensor, or raises. All
@@ -27,9 +30,15 @@ TRIES = 5             # timings of each repeat count; the best is kept
 CALLS = 10            # calls in a row in each timing
 
 
+def signed32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor wrapped modulo 2^32 into int32's range, still
+    int64 (the value an int32 operation would leave)."""
+    return ((x + (1 << 31)) & M32) - (1 << 31)
+
+
 def wrap32(x: torch.Tensor) -> torch.Tensor:
     """An int64 tensor as int32, wrapping modulo 2^32."""
-    return (((x + (1 << 31)) & M32) - (1 << 31)).to(torch.int32)
+    return signed32(x).to(torch.int32)
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -57,8 +66,8 @@ def check_int32(t: torch.Tensor, name: str, shape) -> None:
                         f"{tuple(t.shape)}")
 
 
-def seconds(fn, device: torch.device) -> float:
-    """Seconds per call of ``fn`` over ``CALLS`` calls in a row: CUDA
+def seconds(fn, device: torch.device, calls: int = CALLS) -> float:
+    """Seconds per call of ``fn`` over ``calls`` calls in a row: CUDA
     events around them and one synchronise on a card, the host clock on
     the CPU."""
     if device.type == "cuda":
@@ -66,30 +75,32 @@ def seconds(fn, device: torch.device) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
         b.record()
         torch.cuda.synchronize(device)
-        return a.elapsed_time(b) / 1e3 / CALLS
+        return a.elapsed_time(b) / 1e3 / calls
     t0 = time.perf_counter()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
-    return (time.perf_counter() - t0) / CALLS
+    return (time.perf_counter() - t0) / calls
 
 
-def per_iter(run, lo: int, hi: int, device: torch.device) -> float:
+def per_iter(run, lo: int, hi: int, device: torch.device,
+             calls: int = CALLS) -> float:
     """Seconds per iteration: (best time of ``run(hi)`` - best time of
-    ``run(lo)``) / (hi - lo), each the best of ``TRIES`` timings, after a
-    warm-up of each. ``run`` should not wait for the device, so that the
-    calls queue up back to back and their launch costs cancel in the
-    difference. (The best of each count, not the best difference, which
-    would favour noise.)"""
+    ``run(lo)``) / (hi - lo), each the best of ``TRIES`` timings of
+    ``calls`` calls, after a warm-up of each. ``run`` should not wait for
+    the device, so that the calls queue up back to back and their launch
+    costs cancel in the difference. (The best of each count, not the best
+    difference, which would favour noise.) A call that runs for much
+    longer than a launch needs no company: ``calls=1``."""
     run(lo)
     run(hi)
     t_lo = t_hi = float("inf")
     for _ in range(TRIES):
-        t_lo = min(t_lo, seconds(lambda: run(lo), device))
-        t_hi = min(t_hi, seconds(lambda: run(hi), device))
+        t_lo = min(t_lo, seconds(lambda: run(lo), device, calls))
+        t_hi = min(t_hi, seconds(lambda: run(hi), device, calls))
     return (t_hi - t_lo) / (hi - lo)
 
 

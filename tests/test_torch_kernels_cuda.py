@@ -1,6 +1,7 @@
-"""The kernels of the twenty-one CUDA sources (K1-K7, K9, K8's gaps,
+"""The kernels of the twenty-five CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
-T1-T3, and the probes T4-T8, T6 and T7 sharing a source) against their
+T1-T3, and the probes T4-T13 and T15, T6 and T7, T9 and T10, T11 and T12
+sharing a source each) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -29,6 +30,8 @@ from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
 from lz4_sgori_torch.probes import dma_probe as P5
+from lz4_sgori_torch.probes import microbench2 as P15
+from lz4_sgori_torch.probes import microbench3 as P3
 from lz4_sgori_torch.probes import microbench4 as P78
 from lz4_sgori_torch.probes import microbench6 as P6
 from lz4_sgori_torch.probes import sort_probe as P4
@@ -643,3 +646,106 @@ def test_t8_probe_banded(dev, span):
         torch.cuda.synchronize()
         assert P78.banded_launches == 1
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R", [8, 64, 1024, 16384])
+def test_t9_t10_probe_lane(dev, R):
+    """The tool's tape and a random one (negatives, so the sum wraps);
+    every cell of the scatter's whole output, zeros where unwritten."""
+    rng = np.random.default_rng(R)
+    for t_np in (P3.tape(R), rng.integers(-(1 << 31), 1 << 31, (R, 128))
+                 .astype(np.int32)):
+        t = torch.from_numpy(t_np).to(dev)
+        for reps in (0, 1, 15, 16, 17, 3000):
+            P3.gather_launches = 0
+            got = P3.gather(t, reps)
+            want = P3.gather_plain(t, reps)
+            torch.cuda.synchronize()
+            assert P3.gather_launches == 1
+            assert torch.equal(got, want), reps
+    for reps in (0, 1, 700, 3000):
+        P3.scatter_launches = 0
+        got = P3.scatter(R, reps, dev, whole=True)
+        want = P3.scatter_plain(R, reps, dev, whole=True)
+        torch.cuda.synchronize()
+        assert P3.scatter_launches == 1
+        assert torch.equal(got, want), reps
+        assert torch.equal(P3.scatter(R, reps, dev), want[:8])
+
+
+@pytest.mark.parametrize("reps", [0, 1, 7, 8, 9, 1000])
+def test_t11_t12_probe_step(dev, reps):
+    """The tool's starts, then T12 from random int32 states, where the
+    signed shifts and compares come in at once."""
+    for fn, plain, counter in ((P3.fifo, P3.fifo_plain, "fifo_launches"),
+                               (P3.state, P3.state_plain, "state_launches")):
+        setattr(P3, counter, 0)
+        got = fn(reps, dev)
+        want = plain(reps, dev)
+        torch.cuda.synchronize()
+        assert getattr(P3, counter) == 1
+        assert torch.equal(got, want), fn.__name__
+    wide = torch.from_numpy(np.random.default_rng(reps).integers(
+        -(1 << 31), 1 << 31, (4, 128)).astype(np.int32)).to(dev)
+    assert torch.equal(P3.state(reps, start=wide),
+                       P3.state_plain(reps, start=wide))
+
+
+def test_t13_probe_smem_refuses_and_fits(dev):
+    """Every size of the tool is refused without a launch; the largest
+    rows at ring 128 that fits the opt-in limit launches and returns 2s;
+    one row more is refused."""
+    limit = P3.smem_limit(dev)
+    assert limit >= 48 * 1024
+    P3.vmem_launches = 0
+    for rows in P3.VMEM_ROWS:
+        assert P3.vmem(rows, P3.RING, dev) is None
+        assert not P3.probe_vmem(rows, P3.RING, dev)
+    assert P3.vmem_launches == 0
+    fit = P3.fit_rows(limit, 128)
+    assert P3.scratch_bytes(fit, 128) <= limit < P3.scratch_bytes(fit + 1,
+                                                                  128)
+    got = P3.vmem(fit, 128, dev)
+    torch.cuda.synchronize()
+    assert P3.vmem_launches == 1
+    assert torch.equal(got, P3.vmem_plain(fit, 128, dev))
+    assert P3.vmem(fit + 1, 128, dev) is None
+    assert P3.probe_vmem(8, 8, dev)
+    assert P3.vmem_launches == 2
+
+
+def test_t15_probe_walk(dev):
+    """The tool's table, and entries near 2^30 and below -2^30, so that
+    the walk wraps within a few steps."""
+    rng = np.random.default_rng(15)
+    tables = [P15.walk_table(),
+              rng.integers((1 << 30) - 4096, 1 << 30, 512).astype(np.int32),
+              rng.integers(-(1 << 31), -(1 << 30), 512).astype(np.int32)]
+    for t_np in tables:
+        t = torch.from_numpy(t_np).to(dev)
+        for r in (0, 1, 2, 3, 500, 2000):
+            P15.launches = 0
+            got = P15.walk(t, r)
+            want = P15.walk_plain(t, r)
+            torch.cuda.synchronize()
+            assert P15.launches == 1
+            assert torch.equal(got, want), r
+
+
+def test_t9_t15_mains_launch_every_kernel(dev, capsys):
+    """The two main()s at small round counts: each of the six wrappers
+    launches, and the capacity list stops at the tool's first size."""
+    for c in ("gather_launches", "scatter_launches", "fifo_launches",
+              "state_launches", "vmem_launches"):
+        setattr(P3, c, 0)
+    P15.launches = 0
+    assert P3.main(["--div", "1000"]) == 0
+    assert P15.main(["--steps", "64", "4096"]) == 0
+    out = capsys.readouterr().out
+    assert all(getattr(P3, c) > 0 for c in (
+        "gather_launches", "scatter_launches", "fifo_launches",
+        "state_launches", "vmem_launches"))
+    assert P15.launches > 0
+    assert "rows=16384 (+4096 ring): FAIL" in out
+    assert "rows=20480" not in out
+    assert "the largest scratch that fits" in out and ": OK" in out
