@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-five CUDA sources of the port from
-``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 28
-kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each) and
+Builds the twenty-six CUDA sources of the port from
+``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 43
+kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each, and
+T14a's 15 harness bodies one) and
 drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
@@ -153,10 +154,11 @@ The design probes (``lz4_sgori_torch.probes``: T4 the bitonic column
 sort, T5 per-lane async row copies, T6 pass-1 get / put rounds, T7
 K-batched gets and puts, T8 the 26-word byte extract, T9 and T10 the
 per-lane word gather and scatter, T11 the FIFO bitroll, T12 the 30-op
-state step, T13 the scratch capacity probe, T15 the dependent scalar
-walk; kernels probe_sort, probe_dma, probe_table, probe_banded,
-probe_lane, probe_step, probe_smem and probe_walk) at the tools' shapes
-and seeds, in ``_smoke_probes``:
+state step, T13 the scratch capacity probe, T14a the primitive-rate
+harness around 15 bodies, T15 the dependent scalar walk; kernels
+probe_sort, probe_dma, probe_table, probe_banded, probe_lane, probe_step,
+probe_smem, probe_harness and probe_walk) at the tools' shapes and
+seeds, in ``_smoke_probes``:
 
 33. each probe against its plain version exactly: T4 at logN 10 and 16
     (and against ``torch.sort``), T5 at 1, 32 and 128 lanes of 128 and
@@ -166,14 +168,21 @@ and seeds, in ``_smoke_probes``:
     T9 and T10 at each R of the tool (T10's whole output), T11 and T12 at
     3000 rounds, T13's refusal of every size of the tool with no launch
     and its fit at the card's limit (one row more refused), T15 on the
-    tool's table and on one whose walk wraps within a few steps;
+    tool's table and on one whose walk wraps within a few steps; each
+    of T14a's 15 bodies on the tool's inputs at R 0, 1, 3 and 300 and on
+    inputs drawn over all of int32 at R 3 (every sum wraps), ``out`` bit
+    for bit and ``sink`` exactly;
 34. the probe path with the counters reset just before: each probe's
-    ``main()`` at the tool's defaults (T5 at 16 and 48 rounds), which
-    prints ns per iteration by differencing two repeat counts; the
-    eleven wrappers launched and no codec kernel;
+    ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14a at
+    the card's counts), which prints ns per iteration by differencing
+    two repeat counts; the 26 wrappers and bodies launched and no codec
+    kernel;
 35. times with CUDA events at each row's shape: the kernel and its plain
-    version per call (the Python-stepped plain versions of T11, T12 and
-    T15 at fewer rounds), and the bytes bound;
+    version per call (the Python-stepped plain versions of T11, T12,
+    T14a and T15 at fewer rounds), and the bound: the bytes over 3.35
+    TB/s, for T14a the larger of that and its fewest lane operations
+    (``Body.ops``) over the card's SMs x 128 lanes x its maximum SM
+    clock; each T14a body no faster than that figure at one SM;
 36. T4 in turns with ``torch.sort``, the record's one library time (no
     single PyTorch call computes T5-T15's loops).
 
@@ -260,6 +269,20 @@ PROBE_STEP_PLAIN = 1000
 # steps of T15's checks and of its plain version in phase 35 (the
 # kernel's time is at the tool's 2^25)
 PROBE_WALK_STEPS = 3000
+# T14a: the kernel key of a body of probes.microbench2.BODIES is this
+# prefix and its name; the largest R of the bodies' checks, and the R of
+# their Python-stepped plain versions in phase 35 (the kernels' times are
+# at the card's higher count)
+HARNESS = "probe_harness_"
+PROBE_HARNESS_R = 300
+PROBE_HARNESS_PLAIN = 64
+# the bytes of a512 that dynrow (rows 0-262: row (37 i) & 255 and the 7
+# below it) and statrow (rows 8-15) read; every other body reads all of
+# its inputs within a call of the card's counts
+HARNESS_READS = {"dynrow": 263 * 128 * 4, "statrow": 8 * 128 * 4}
+# lane operations an SM of the H100 issues a clock (4 schedulers x 32
+# lanes), also its FP32 lanes: the data sheet's 67 TFLOP/s, an FMA two
+ISSUE_LANES = 128
 
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
@@ -308,9 +331,10 @@ SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table",
            "probe_gather": "probe_lane", "probe_scatter": "probe_lane",
            "probe_fifo": "probe_step", "probe_state": "probe_step"}
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
-# bytes per millisecond: the bound of every kernel here. An operation
-# bound would need an integer ALU peak, which the data sheet does not
-# give; each kernel does a few integer operations a byte it moves.
+# bytes per millisecond: the bound of every kernel here but T14a's. The
+# codec kernels do a few integer operations a byte they move; T14a's
+# bodies do many on a few inputs, so theirs is the larger of the bytes'
+# time and their lane operations' at ISSUE_LANES a clock an SM.
 HBM_BYTES_PER_MS = 3.35e9
 PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
 PATH4 = ("cand", "parse_enc3", "decode_v6")
@@ -470,19 +494,25 @@ class Failed(Exception):
 class Counter:
     """A wrapper's launch count kept in a module attribute other than
     ``launches`` (``probes.microbench4`` holds two wrappers,
-    ``probes.microbench3`` five), read and
-    reset as ``.launches`` like the other modules' counts."""
+    ``probes.microbench3`` five), or in an entry of one that is a dict
+    (``probes.microbench2.harness_launches``, one a body), read and reset
+    as ``.launches`` like the other modules' counts."""
 
-    def __init__(self, mod, attr: str, load):
+    def __init__(self, mod, attr: str, load, entry: str | None = None):
         self.mod, self.attr, self.load_kernel = mod, attr, load
+        self.entry = entry
 
     @property
     def launches(self) -> int:
-        return getattr(self.mod, self.attr)
+        n = getattr(self.mod, self.attr)
+        return n if self.entry is None else n[self.entry]
 
     @launches.setter
     def launches(self, n: int) -> None:
-        setattr(self.mod, self.attr, n)
+        if self.entry is None:
+            setattr(self.mod, self.attr, n)
+        else:
+            getattr(self.mod, self.attr)[self.entry] = n
 
 
 def need(cond: bool, what: str) -> None:
@@ -612,7 +642,10 @@ def _smoke(torch, start: float) -> int:
             "probe_state": Counter(P3, "state_launches",
                                    P3.load_step_kernel),
             "probe_smem": Counter(P3, "vmem_launches", P3.load_smem_kernel),
-            "probe_walk": P15}
+            "probe_walk": P15,
+            **{HARNESS + b: Counter(P15, "harness_launches",
+                                    P15.load_harness_kernel, b)
+               for b in P15.BODIES}}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -847,16 +880,23 @@ def _smoke(torch, start: float) -> int:
     for r in parts:
         errs.update({k: max(v, errs.get(k, 0)) for k, v in r["errs"].items()})
         sub_times.update(r["sub_times"])
-    record = {"kernels": [
-        {"name": label, "route": "cuda",
-         "source": f"lz4_sgori_torch/csrc/{SOURCES.get(key, key)}.cu",
-         "replaces": where,
-         "launches": counts[key] + sum(r["counts"][key] for r in parts),
-         "max_abs_err": errs[key],
-         "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
-         "bound_ms": sub_times[key][2] / HBM_BYTES_PER_MS,
-         "bound_by": "bytes", "library_ms": rp["library"].get(key)}
-        for label, key, where in KERNELS]}
+    kernels = KERNELS + [(f"T14a harness {b}", HARNESS + b,
+                          f"tools/microbench2.py:{body.line}")
+                         for b, body in P15.BODIES.items()]
+    record = {"kernels": []}
+    for label, key, where in kernels:
+        bound, by = bound_ms(sub_times[key][2], rp["op_bound"].get(key, 0.0))
+        source = "probe_harness" if key.startswith(HARNESS) else \
+            SOURCES.get(key, key)
+        record["kernels"].append({
+            "name": label, "route": "cuda",
+            "source": f"lz4_sgori_torch/csrc/{source}.cu",
+            "replaces": where,
+            "launches": counts[key] + sum(r["counts"][key] for r in parts),
+            "max_abs_err": errs[key],
+            "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": rp["library"].get(key)})
     for k in record["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, bound "
               f"{k['bound_ms']:.6f} ms ({k['ms'] / k['bound_ms']:.1f}x)")
@@ -1411,7 +1451,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
             rc = cli.main(["--device", DEVICE, "verify", path])
             need(rc == 0, f"lz4j verify (default sweep) exited {rc}")
             cli_counts = {k: m.launches for k, m in mods.items()}
-            unrouted = DEEP_ONLY + MLEN_ONLY + PATHRETIRED + PATHPROBES
+            unrouted = DEEP_ONLY + MLEN_ONLY + PATHRETIRED \
+                + path_probes(mods)
             check_launches(cli_counts, "CLI default verify",
                            [k for k in mods if k not in unrouted], unrouted)
         print(f"phase big stores and sweep: lz4j verify's default sweep "
@@ -2333,6 +2374,26 @@ def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
     return {"errs": errs, "counts": counts, "sub_times": sub_times}
 
 
+def path_probes(mods) -> tuple[str, ...]:
+    """The probe path's kernels: PATHPROBES and T14a's bodies."""
+    return PATHPROBES + tuple(k for k in mods if k.startswith(HARNESS))
+
+
+def bound_ms(nbytes: int, op_ms: float = 0.0) -> tuple[float, str]:
+    """The least time of a call that moves ``nbytes`` and whose operations
+    take ``op_ms`` at the card's peak, and which of the two bounds it."""
+    by_bytes = nbytes / HBM_BYTES_PER_MS
+    return (op_ms, "operations") if op_ms > by_bytes else (by_bytes, "bytes")
+
+
+def sm_clock_mhz() -> int:
+    """The card's maximum SM clock in MHz, as nvidia-smi reports it."""
+    got = _run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                "--format=csv,noheader,nounits"]).splitlines()[0].strip()
+    need(got.isdigit(), f"nvidia-smi gave no SM clock: {got!r}")
+    return int(got)
+
+
 def dma_bytes(nl: int, w: int, reps: int) -> int:
     """Bytes T5 must move: each lane's words that its rounds copy, read
     once (the windows of consecutive rounds overlap where w > 128), its
@@ -2379,7 +2440,8 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     from lz4_sgori_torch.probes import sort_probe as P4
 
     dev = torch.device(DEVICE)
-    errs = dict.fromkeys(PATHPROBES, 0)
+    probes = path_probes(mods)
+    errs = dict.fromkeys(probes, 0)
 
     def same(key, got, want, what):
         e = maxdiff(got, want)
@@ -2479,6 +2541,25 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
         same("probe_walk", P15.walk(t, PROBE_WALK_STEPS),
              P15.walk_plain(t, PROBE_WALK_STEPS),
              f"T15 on {what}, {PROBE_WALK_STEPS} steps")
+    harness_ins = {b: P15.body_inputs(b, dev) for b in P15.BODIES}
+    rng = np.random.default_rng(14)
+    for b, ins in harness_ins.items():
+        key = HARNESS + b
+        wide = [torch.from_numpy(
+            rng.normal(size=t.shape).astype(np.float32)
+            if t.is_floating_point() else
+            rng.integers(-(1 << 31), 1 << 31, t.shape).astype(np.int32)
+        ).to(dev) for t in ins]
+        for args, r, what in ((ins, 0, "the tool's"), (ins, 1, "the tool's"),
+                              (ins, 3, "the tool's"),
+                              (ins, PROBE_HARNESS_R, "the tool's"),
+                              (wide, 3, "int32-wide")):
+            out, sink = P15.harness(b, r, *args)
+            want_out, want_sink = P15.harness_plain(b, r, *args)
+            same(key, out.view(torch.int32), want_out.view(torch.int32),
+                 f"T14a {b} out on {what} inputs at R {r}")
+            same(key, sink, want_sink,
+                 f"T14a {b} sink on {what} inputs at R {r}")
     print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} (and "
           f"torch.sort), T5 at {PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
           f"words x {PROBE_DMA_REPS} rounds (64 rounds of 512 words refused), "
@@ -2490,7 +2571,9 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"T13 refused {refused} with no launch and fit rows {fit} + "
           f"{P3.FIT_RING} ({P3.scratch_bytes(fit, P3.FIT_RING)} of {limit} "
           f"bytes; one row more refused), T15 on the tool's table and one "
-          f"that wraps: ok ({time.perf_counter() - t0:.1f} s)")
+          f"that wraps, T14a's {len(P15.BODIES)} bodies at R 0, 1, 3 and "
+          f"{PROBE_HARNESS_R} and on int32-wide inputs (out bit for bit, "
+          f"sink exactly): ok ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 34: the probe path, counters reset just before ----
     for m in mods.values():
@@ -2502,11 +2585,12 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     t_path = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     need(not any(rcs.values()), f"a probe's main() failed: {rcs}")
-    check_launches(counts, "probe", PATHPROBES,
-                   [k for k in mods if k not in PATHPROBES])
-    print(f"probe path: the six main()s at the tools' defaults "
+    check_launches(counts, "probe", probes,
+                   [k for k in mods if k not in probes])
+    print(f"probe path: the six main()s at the tools' defaults (T14a at "
+          f"the card's counts) "
           f"({t_path:.1f} s), launches "
-          + str({k: counts[k] for k in PATHPROBES}))
+          + str({k: counts[k] for k in probes}))
 
     # ---- phase 35: times per call at each row's shape ----
     logn, span = PROBE_SORT_LOGN[-1], P78.BANDED_SPANS[-1]
@@ -2575,15 +2659,41 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                        f"{n15} steps, the plain version "
                        f"{PROBE_WALK_STEPS}"),
     }
-    # a call of T15's 2^25 steps takes most of a second: fewer of them
-    kernel_calls = {"probe_walk": 2}
+    # T14a: a call at the card's higher count; the bound counts each input
+    # read once, out and sink written once, and the fewest lane operations
+    clock = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ops_per_ms = sms * ISSUE_LANES * clock * 1e3
+    op_bound = {}
+    for b, body in P15.BODIES.items():
+        key, ins, n = HARNESS + b, harness_ins[b], body.card[1]
+        op_bound[key] = n * body.ops / ops_per_ms
+        calls[key] = (
+            lambda b=b, n=n, ins=ins: P15.harness(b, n, *ins),
+            lambda b=b, ins=ins: P15.harness_plain(b, PROBE_HARNESS_PLAIN,
+                                                   *ins),
+            HARNESS_READS.get(b, tensor_bytes(*ins)) + out_bytes + 4,
+            f"R {n}, the plain version {PROBE_HARNESS_PLAIN}; {body.ops} "
+            f"ops and {body.nbytes} input bytes an iteration: "
+            f"{op_bound[key]:.6f} ms at {sms} SMs x "
+            f"{ISSUE_LANES} lanes x {clock} MHz, {op_bound[key] * sms:.6f} "
+            "ms on the one SM the kernel uses")
+    # a call of T15's 2^25 steps takes most of a second, one of T14a's
+    # 50-200 ms: fewer of them
+    kernel_calls = {"probe_walk": 2, **dict.fromkeys(op_bound, 2)}
     sub_times = {}
     for key, (fk, fp, nbytes, shape) in calls.items():
         sub_times[key] = (time_ms(fk, kernel_calls.get(key, 10)),
                           time_ms(fp, 1), nbytes)
+        bound, by = bound_ms(nbytes, op_bound.get(key, 0.0))
         print(f"[{card}] {key} at {shape}: kernel {sub_times[key][0]:.4f} ms,"
-              f" plain {sub_times[key][1]:.4f} ms, bound "
-              f"{nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes)")
+              f" plain {sub_times[key][1]:.4f} ms, bound {bound:.6f} ms by "
+              f"{by} ({nbytes} bytes)")
+    # a body faster than its operations at one SM would disprove the count
+    fast = {k: (sub_times[k][0], v * sms) for k, v in op_bound.items()
+            if sub_times[k][0] < v * sms}
+    need(not fast, f"T14a bodies faster than their lane operations at one "
+         f"SM (kernel ms, figure ms): {fast}")
 
     # ---- phase 36: T4 in turns with torch.sort ----
     lib, ker = in_turns(time_ms, lambda: torch.sort(x, dim=0),
@@ -2593,7 +2703,7 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"{ker / lib:.4f}x; T5-T15: no single PyTorch call computes the "
           "looped function, so no library time")
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
-            "library": {"probe_sort": lib}}
+            "library": {"probe_sort": lib}, "op_bound": op_bound}
 
 
 if __name__ == "__main__":

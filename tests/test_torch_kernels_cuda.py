@@ -1,7 +1,7 @@
-"""The kernels of the twenty-five CUDA sources (K1-K7, K9, K8's gaps,
+"""The kernels of the twenty-six CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
-T1-T3, and the probes T4-T13 and T15, T6 and T7, T9 and T10, T11 and T12
-sharing a source each) against their
+T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
+a source each, T14a's 15 bodies one) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -732,20 +732,49 @@ def test_t15_probe_walk(dev):
             assert torch.equal(got, want), r
 
 
+@pytest.mark.parametrize("name", list(P15.BODIES))
+def test_t14a_probe_harness(dev, name):
+    """Each body against its plain version, ``out`` bit for bit and
+    ``sink`` exactly, one launch a call: the tool's inputs at R 0, 1, 3 and
+    257, and inputs drawn over all of int32 (so that every sum wraps and
+    every shift meets negative values) at R 3."""
+    ins = P15.body_inputs(name, dev)
+    rng = np.random.default_rng(14)
+    wide = [torch.from_numpy(
+        rng.normal(size=t.shape).astype(np.float32) if t.is_floating_point()
+        else rng.integers(-(1 << 31), 1 << 31, t.shape).astype(np.int32)
+    ).to(dev) for t in ins]
+    for args, r in [(ins, 0), (ins, 1), (ins, 3), (ins, 257), (wide, 3)]:
+        P15.harness_launches[name] = 0
+        out, sink = P15.harness(name, r, *args)
+        want_out, want_sink = P15.harness_plain(name, r, *args)
+        torch.cuda.synchronize()
+        assert P15.harness_launches[name] == 1
+        assert torch.equal(out.view(torch.int32),
+                           want_out.view(torch.int32)), r
+        assert sink.shape == () and torch.equal(sink, want_sink), r
+
+
 def test_t9_t15_mains_launch_every_kernel(dev, capsys):
-    """The two main()s at small round counts: each of the six wrappers
-    launches, and the capacity list stops at the tool's first size."""
+    """The two main()s at small round counts: each of the six wrappers and
+    each of the 15 harness bodies launches, the capacity list stops at the
+    tool's first size, and the five tensor-core readings are listed."""
     for c in ("gather_launches", "scatter_launches", "fifo_launches",
               "state_launches", "vmem_launches"):
         setattr(P3, c, 0)
     P15.launches = 0
+    P15.harness_launches.update(dict.fromkeys(P15.BODIES, 0))
     assert P3.main(["--div", "1000"]) == 0
-    assert P15.main(["--steps", "64", "4096"]) == 0
+    assert P15.main(["--div", "64", "--steps", "64", "4096"]) == 0
     out = capsys.readouterr().out
     assert all(getattr(P3, c) > 0 for c in (
         "gather_launches", "scatter_launches", "fifo_launches",
         "state_launches", "vmem_launches"))
     assert P15.launches > 0
+    assert all(n > 0 for n in P15.harness_launches.values())
+    assert out.count("not ported yet") == 5
+    for body in P15.BODIES.values():
+        assert f"{body.reading}: " in out and " us/iter" in out
     assert "rows=16384 (+4096 ring): FAIL" in out
     assert "rows=20480" not in out
     assert "the largest scratch that fits" in out and ": OK" in out

@@ -377,7 +377,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: T3.scatter(16, 1), lambda: T3.fifo(1),
                  lambda: T3.state(1), lambda: T3.vmem(8, 8),
-                 lambda: T3.main([]), lambda: T15.main([])):
+                 lambda: T3.main([]), lambda: T15.main([]),
+                 lambda: T15.harness("vpu", 1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -413,13 +414,15 @@ def test_argument_checks():
 
 def test_main_on_the_cpu(monkeypatch, capsys):
     """Both ``main()``s with small counts and one timing of each: the
-    tool's lines, each R, and every scratch size of the tool fitting the
-    plain version."""
+    tools' lines, each R, and every scratch size of the tool fitting the
+    plain version (``microbench2``'s harness readings in
+    ``test_torch_probes3.py``)."""
     monkeypatch.setattr(probes, "TRIES", 1)
     for c in COUNTERS:
         setattr(T3, c, 0)
     assert T3.main(["--div", "20000", "--device", "cpu"]) == 0
-    assert T15.main(["--steps", "16", "64", "--device", "cpu"]) == 0
+    assert T15.main(["--div", "1000000", "--steps", "16", "64",
+                     "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     for R in T3.GATHER_R:
         assert f"per-lane gather (R={R}):" in out
