@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-six CUDA sources of the port from
-``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 43
-kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each, and
-T14a's 15 harness bodies one) and
+Builds the twenty-seven CUDA sources of the port from
+``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 48
+kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
+T14a's 15 harness bodies one, T14b's 5 tensor-core readings one) and
 drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
@@ -155,9 +155,10 @@ sort, T5 per-lane async row copies, T6 pass-1 get / put rounds, T7
 K-batched gets and puts, T8 the 26-word byte extract, T9 and T10 the
 per-lane word gather and scatter, T11 the FIFO bitroll, T12 the 30-op
 state step, T13 the scratch capacity probe, T14a the primitive-rate
-harness around 15 bodies, T15 the dependent scalar walk; kernels
-probe_sort, probe_dma, probe_table, probe_banded, probe_lane, probe_step,
-probe_smem, probe_harness and probe_walk) at the tools' shapes and
+harness around 15 vector-unit bodies, T14b its 5 tensor-core readings,
+T15 the dependent scalar walk; kernels probe_sort, probe_dma,
+probe_table, probe_banded, probe_lane, probe_step, probe_smem,
+probe_harness, probe_harness_tc and probe_walk) at the tools' shapes and
 seeds, in ``_smoke_probes``:
 
 33. each probe against its plain version exactly: T4 at logN 10 and 16
@@ -171,20 +172,28 @@ seeds, in ``_smoke_probes``:
     tool's table and on one whose walk wraps within a few steps; each
     of T14a's 15 bodies on the tool's inputs at R 0, 1, 3 and 300 and on
     inputs drawn over all of int32 at R 3 (every sum wraps), ``out`` bit
-    for bit and ``sink`` exactly;
+    for bit and ``sink`` exactly; each of T14b's 5 readings at R 0, 1, 3
+    and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
+    bit, every other out (kernel and plain version) within E of the
+    float64 reference (``harness_reference``) and every float sink within
+    the summed bound;
 34. the probe path with the counters reset just before: each probe's
-    ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14a at
-    the card's counts), which prints ns per iteration by differencing
-    two repeat counts; the 26 wrappers and bodies launched and no codec
-    kernel;
+    ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14's 20
+    readings at the card's counts), which prints ns per iteration by
+    differencing two repeat counts; the 31 wrappers and bodies launched
+    and no codec kernel;
 35. times with CUDA events at each row's shape: the kernel and its plain
     version per call (the Python-stepped plain versions of T11, T12,
-    T14a and T15 at fewer rounds), and the bound: the bytes over 3.35
-    TB/s, for T14a the larger of that and its fewest lane operations
-    (``Body.ops``) over the card's SMs x 128 lanes x its maximum SM
-    clock; each T14a body no faster than that figure at one SM;
-36. T4 in turns with ``torch.sort``, the record's one library time (no
-    single PyTorch call computes T5-T15's loops).
+    T14 and T15 at fewer rounds), and the bound: the bytes over 3.35
+    TB/s, for T14 the larger of that and its operations (``Body.ops``:
+    T14a's fewest lane operations, T14b's tensor FLOPs) over the card's
+    SMs x ``Body.rate`` (128 lanes; 4096 dense bf16 or 2048 TF32 FLOP) x
+    its maximum SM clock; each T14 body no faster than that figure at
+    one SM; each T14b reading in turns with ``torch.mm`` of one
+    iteration's product (float32 result) on the whole card, its
+    ``library_ms`` that product's time times the call's R iterations;
+36. T4 in turns with ``torch.sort`` (no single PyTorch call computes
+    T5-T15's loops; T14b's library times are phase 35's).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -269,7 +278,7 @@ PROBE_STEP_PLAIN = 1000
 # steps of T15's checks and of its plain version in phase 35 (the
 # kernel's time is at the tool's 2^25)
 PROBE_WALK_STEPS = 3000
-# T14a: the kernel key of a body of probes.microbench2.BODIES is this
+# T14: the kernel key of a body of probes.microbench2.BODIES is this
 # prefix and its name; the largest R of the bodies' checks, and the R of
 # their Python-stepped plain versions in phase 35 (the kernels' times are
 # at the card's higher count)
@@ -280,9 +289,8 @@ PROBE_HARNESS_PLAIN = 64
 # below it) and statrow (rows 8-15) read; every other body reads all of
 # its inputs within a call of the card's counts
 HARNESS_READS = {"dynrow": 263 * 128 * 4, "statrow": 8 * 128 * 4}
-# lane operations an SM of the H100 issues a clock (4 schedulers x 32
-# lanes), also its FP32 lanes: the data sheet's 67 TFLOP/s, an FMA two
-ISSUE_LANES = 128
+# products in each timing of a T14b reading's library call
+LIBRARY_CALLS = 200
 
 KERNELS = [
     ("K1 decode_v7", "decode_v7",
@@ -331,10 +339,10 @@ SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table",
            "probe_gather": "probe_lane", "probe_scatter": "probe_lane",
            "probe_fifo": "probe_step", "probe_state": "probe_step"}
 # H100 SXM device memory rate (NVIDIA data sheet, 3.35 TB/s at 700 W) in
-# bytes per millisecond: the bound of every kernel here but T14a's. The
-# codec kernels do a few integer operations a byte they move; T14a's
+# bytes per millisecond: the bound of every kernel here but T14's. The
+# codec kernels do a few integer operations a byte they move; T14's
 # bodies do many on a few inputs, so theirs is the larger of the bytes'
-# time and their lane operations' at ISSUE_LANES a clock an SM.
+# time and their operations' at Body.rate a clock an SM.
 HBM_BYTES_PER_MS = 3.35e9
 PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
 PATH4 = ("cand", "parse_enc3", "decode_v6")
@@ -644,7 +652,8 @@ def _smoke(torch, start: float) -> int:
             "probe_smem": Counter(P3, "vmem_launches", P3.load_smem_kernel),
             "probe_walk": P15,
             **{HARNESS + b: Counter(P15, "harness_launches",
-                                    P15.load_harness_kernel, b)
+                                    lambda b=b: P15.load_harness_kernel(
+                                        P15.BODIES[b].source), b)
                for b in P15.BODIES}}
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
@@ -880,14 +889,15 @@ def _smoke(torch, start: float) -> int:
     for r in parts:
         errs.update({k: max(v, errs.get(k, 0)) for k, v in r["errs"].items()})
         sub_times.update(r["sub_times"])
-    kernels = KERNELS + [(f"T14a harness {b}", HARNESS + b,
-                          f"tools/microbench2.py:{body.line}")
-                         for b, body in P15.BODIES.items()]
+    kernels = KERNELS + [
+        (f"T14{'b' if body.source == P15.TC else 'a'} harness {b}",
+         HARNESS + b, f"tools/microbench2.py:{body.line}")
+        for b, body in P15.BODIES.items()]
     record = {"kernels": []}
     for label, key, where in kernels:
         bound, by = bound_ms(sub_times[key][2], rp["op_bound"].get(key, 0.0))
-        source = "probe_harness" if key.startswith(HARNESS) else \
-            SOURCES.get(key, key)
+        source = P15.BODIES[key[len(HARNESS):]].source \
+            if key.startswith(HARNESS) else SOURCES.get(key, key)
         record["kernels"].append({
             "name": label, "route": "cuda",
             "source": f"lz4_sgori_torch/csrc/{source}.cu",
@@ -896,7 +906,9 @@ def _smoke(torch, start: float) -> int:
             "max_abs_err": errs[key],
             "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
             "bound_ms": bound, "bound_by": by,
-            "library_ms": rp["library"].get(key)})
+            "library_ms": rp["library"].get(key),
+            **({"library_of": rp["library_of"][key]}
+               if key in rp["library_of"] else {})})
     for k in record["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, bound "
               f"{k['bound_ms']:.6f} ms ({k['ms'] / k['bound_ms']:.1f}x)")
@@ -2542,9 +2554,11 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
              P15.walk_plain(t, PROBE_WALK_STEPS),
              f"T15 on {what}, {PROBE_WALK_STEPS} steps")
     harness_ins = {b: P15.body_inputs(b, dev) for b in P15.BODIES}
+    t14a = [b for b, body in P15.BODIES.items() if body.source == P15.VPU]
+    t14b = [b for b, body in P15.BODIES.items() if body.source == P15.TC]
     rng = np.random.default_rng(14)
-    for b, ins in harness_ins.items():
-        key = HARNESS + b
+    for b in t14a:
+        ins, key = harness_ins[b], HARNESS + b
         wide = [torch.from_numpy(
             rng.normal(size=t.shape).astype(np.float32)
             if t.is_floating_point() else
@@ -2560,6 +2574,44 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                  f"T14a {b} out on {what} inputs at R {r}")
             same(key, sink, want_sink,
                  f"T14a {b} sink on {what} inputs at R {r}")
+    # T14b: the float readings within E of the float64 reference (kernel
+    # and plain version alike), the exact ones bit for bit; max_abs_err is
+    # the kernel's largest difference from the plain version's out
+    worst_e = dict.fromkeys(t14b, 0.0)
+    for b in t14b:
+        ins, key = harness_ins[b], HARNESS + b
+        for r in (0, 1, 3, PROBE_HARNESS_R):
+            out, sink = P15.harness(b, r, *ins)
+            want_out, want_sink = P15.harness_plain(b, r, *ins)
+            what, body = f"T14b {b} at R {r}", P15.BODIES[b]
+            if body.exact:
+                same(key, out.view(torch.int32), want_out.view(torch.int32),
+                     f"{what}: out")
+            if body.sink == torch.int32:
+                same(key, sink, want_sink, f"{what}: sink")
+                continue
+            ref, e_out, ref_sink, e_sink = P15.harness_reference(b, r, *ins)
+            for got, who in ((out, "the kernel"), (want_out, "the plain "
+                                                   "version")):
+                units = float(((got.double() - ref).abs()
+                               / e_out.clamp_min(1e-300)).max()) if r else 0.
+                need(units <= 1.0, f"{what}: {who}'s out is {units:.4f} E "
+                                   "from the float64 reference")
+                if got is out:
+                    worst_e[b] = max(worst_e[b], units)
+            for got, who in ((sink, "the kernel"), (want_sink, "the plain "
+                                                    "version")):
+                need(abs(float(got) - ref_sink) <= e_sink,
+                     f"{what}: {who}'s sink {float(got)!r} is more than "
+                     f"{e_sink!r} from {ref_sink!r}")
+            errs[key] = max(errs[key], float((out - want_out).abs().max()))
+    print("T14b against the float64 reference (worst cell of the kernel's "
+          "out in units of E, up to R "
+          f"{PROBE_HARNESS_R}): " + ", ".join(
+              f"{b} {worst_e[b]:.6f}" for b in t14b
+              if not P15.BODIES[b].exact) + "; exact: " + ", ".join(
+              f"{b} {errs[HARNESS + b]}" for b in t14b
+              if P15.BODIES[b].exact))
     print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} (and "
           f"torch.sort), T5 at {PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
           f"words x {PROBE_DMA_REPS} rounds (64 rounds of 512 words refused), "
@@ -2571,9 +2623,11 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"T13 refused {refused} with no launch and fit rows {fit} + "
           f"{P3.FIT_RING} ({P3.scratch_bytes(fit, P3.FIT_RING)} of {limit} "
           f"bytes; one row more refused), T15 on the tool's table and one "
-          f"that wraps, T14a's {len(P15.BODIES)} bodies at R 0, 1, 3 and "
+          f"that wraps, T14a's {len(t14a)} bodies at R 0, 1, 3 and "
           f"{PROBE_HARNESS_R} and on int32-wide inputs (out bit for bit, "
-          f"sink exactly): ok ({time.perf_counter() - t0:.1f} s)")
+          f"sink exactly), T14b's {len(t14b)} readings at R 0, 1, 3 and "
+          f"{PROBE_HARNESS_R} (within E or bit for bit): ok "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 34: the probe path, counters reset just before ----
     for m in mods.values():
@@ -2587,8 +2641,8 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     need(not any(rcs.values()), f"a probe's main() failed: {rcs}")
     check_launches(counts, "probe", probes,
                    [k for k in mods if k not in probes])
-    print(f"probe path: the six main()s at the tools' defaults (T14a at "
-          f"the card's counts) "
+    print(f"probe path: the six main()s at the tools' defaults (T14's "
+          f"{len(P15.BODIES)} readings at the card's counts) "
           f"({t_path:.1f} s), launches "
           + str({k: counts[k] for k in probes}))
 
@@ -2659,24 +2713,25 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                        f"{n15} steps, the plain version "
                        f"{PROBE_WALK_STEPS}"),
     }
-    # T14a: a call at the card's higher count; the bound counts each input
-    # read once, out and sink written once, and the fewest lane operations
+    # T14: a call at the card's higher count; the bound counts each input
+    # read once, out and sink written once, and the body's operations (the
+    # fewest lane operations, or the tensor FLOPs) at Body.rate an SM
     clock = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ops_per_ms = sms * ISSUE_LANES * clock * 1e3
     op_bound = {}
     for b, body in P15.BODIES.items():
         key, ins, n = HARNESS + b, harness_ins[b], body.card[1]
-        op_bound[key] = n * body.ops / ops_per_ms
+        op_bound[key] = n * body.ops / (sms * body.rate * clock * 1e3)
         calls[key] = (
             lambda b=b, n=n, ins=ins: P15.harness(b, n, *ins),
             lambda b=b, ins=ins: P15.harness_plain(b, PROBE_HARNESS_PLAIN,
                                                    *ins),
-            HARNESS_READS.get(b, tensor_bytes(*ins)) + out_bytes + 4,
+            HARNESS_READS.get(b, tensor_bytes(*ins)) + out_bytes
+            + body.sink.itemsize,
             f"R {n}, the plain version {PROBE_HARNESS_PLAIN}; {body.ops} "
             f"ops and {body.nbytes} input bytes an iteration: "
             f"{op_bound[key]:.6f} ms at {sms} SMs x "
-            f"{ISSUE_LANES} lanes x {clock} MHz, {op_bound[key] * sms:.6f} "
+            f"{body.rate} ops x {clock} MHz, {op_bound[key] * sms:.6f} "
             "ms on the one SM the kernel uses")
     # a call of T15's 2^25 steps takes most of a second, one of T14a's
     # 50-200 ms: fewer of them
@@ -2692,8 +2747,28 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     # a body faster than its operations at one SM would disprove the count
     fast = {k: (sub_times[k][0], v * sms) for k, v in op_bound.items()
             if sub_times[k][0] < v * sms}
-    need(not fast, f"T14a bodies faster than their lane operations at one "
-         f"SM (kernel ms, figure ms): {fast}")
+    need(not fast, f"T14 bodies faster than their operations at one SM "
+         f"(kernel ms, figure ms): {fast}")
+    # T14b in turns with torch.mm of iteration 0's product on the whole
+    # card (the port never calls it); library_ms is its time a product
+    # times the R iterations of the kernel's call
+    library, library_of = {}, {}
+    for b in t14b:
+        key, n = HARNESS + b, P15.BODIES[b].card[1]
+        mm, how = library_product(torch, *P15.tool_operands(b, 0,
+                                                            *harness_ins[b]))
+        ker, lib = in_turns(time_ms, calls[key][0], lambda mm=mm: [
+            mm() for _ in range(LIBRARY_CALLS)], 1)
+        lib /= LIBRARY_CALLS
+        library[key] = lib * n
+        library_of[key] = (f"{how} of one iteration's product, in turns "
+                           f"with the kernel, x R {n}")
+        print(f"[{card}] {key} in turns (kernel, {how}, {how}, kernel): "
+              f"kernel {ker / n * 1e3:.3f} us an iteration on one SM "
+              f"({op_bound[key] * sms / n * 1e3:.3f} us its figure), "
+              f"{how} {lib * 1e3:.3f} us a product on {sms} SMs "
+              f"({ker / n / lib:.4f}x; allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32})")
 
     # ---- phase 36: T4 in turns with torch.sort ----
     lib, ker = in_turns(time_ms, lambda: torch.sort(x, dim=0),
@@ -2701,9 +2776,26 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     print(f"[{card}] T4 at logN {logn} in turns (torch.sort, T4, T4, "
           f"torch.sort): torch.sort {lib:.4f} ms, T4 {ker:.4f} ms, "
           f"{ker / lib:.4f}x; T5-T15: no single PyTorch call computes the "
-          "looped function, so no library time")
+          "looped function (T14b's library time is its products')")
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
-            "library": {"probe_sort": lib}, "op_bound": op_bound}
+            "library": {"probe_sort": lib, **library},
+            "library_of": library_of, "op_bound": op_bound}
+
+
+def library_product(torch, a, b):
+    """One PyTorch product ``a @ b`` with a float32 result, and its name:
+    ``torch.mm`` with ``out_dtype`` for bf16 operands where the card's
+    build has it (a bf16 @ bf16 ``matmul`` returns bf16), else on float32
+    copies."""
+    if a.dtype == torch.float32:
+        return (lambda: torch.mm(a, b)), "torch.mm"
+    try:
+        torch.mm(a, b, out_dtype=torch.float32)
+        return (lambda: torch.mm(a, b, out_dtype=torch.float32)), \
+            "torch.mm(out_dtype=float32)"
+    except (RuntimeError, TypeError):
+        a, b = a.float(), b.float()
+        return (lambda: torch.mm(a, b)), "torch.mm on float32 copies"
 
 
 if __name__ == "__main__":

@@ -1,17 +1,18 @@
-"""T14a and T15, the primitive rates of the vectorized design.
+"""T14 and T15, the primitive rates of the vectorized design.
 
-T14a, ``harness(name, r, *inputs) -> (out, sink)``: the tool's harness
+T14, ``harness(name, r, *inputs) -> (out, sink)``: the tool's harness
 (``tools/microbench2.py:_harness``) around one of its bodies. From ``acc =
 zeros((8, 128), float32)``, each ``i`` of ``0 .. r - 1`` computes the
 body's whole result from the read-only inputs and adds its rows ``[:8]``
 (or a row or column of it, broadcast) into ``acc`` as float32, one add an
 iteration in iteration order; nothing else carries over. int32 arithmetic
 wraps and ``>>`` is arithmetic; ``lcg(x) = x * 1664525 + 1013904223``.
-``out`` is ``acc``; ``sink`` (int32) is the wrapping sum, over all
-iterations, of every element of the whole result (an int32 by value, a
+``out`` is ``acc``; ``sink`` is the sum, over all iterations, of every
+element of the whole result, so that a kernel must compute all of it. For
+T14a's bodies it is an int32, the wrapping sum (an int32 by value, a
 float32 by its bit pattern; the one-hot of ``ohbuild`` as the flat index
-``512 * row + col`` of each of its ones), so that a kernel must compute
-all of it. The bodies (``BODIES``, the tool's lines):
+``512 * row + col`` of each of its ones). T14a's bodies (``BODIES``, the
+tool's lines), on the vector unit:
 
 - ``vpu`` (:105): ``x = a512 + i``, then 8x ``x = (x ^ (x + 1)) + (x >>
   1)`` over all 512 rows;
@@ -31,12 +32,35 @@ all of it. The bodies (``BODIES``, the tool's lines):
 - ``shiftsel`` (:327): row r of ``a512[(r + (lcg(amt[r] + i) & 31)) %
   512]``.
 
-The tool's five tensor-core readings (``body_mxu`` in bf16 and f32,
-``body_gather``, ``body_cumsum_mxu`` and ``body_cumsum_mxu_lane``) are not
-ported yet. ``harness`` launches ``csrc/probe_harness.cu`` (one block of
-1024 threads, ``acc`` in registers, the loop over ``r`` in the kernel) on
-CUDA tensors and runs the body's plain version on CPU tensors; without
-inputs it takes the tool's (``tool_inputs``) on ``device``.
+T14b, the tool's tensor-core readings through the same ``harness`` (the
+body's matrix product each iteration, rows ``[:8]`` into ``acc``):
+
+- ``mxu_bf16``, ``mxu_f32`` (:115): ``(mA * ((i & 1) + 1)) @ mB`` on the
+  bf16 draws, and on the same values as float32;
+- ``gather`` (:130): ``onehot((lcg(ids + i) >> 7) & 511, 512) @
+  data_bf``, a (2048, 128) row gather, exact;
+- ``cumsum_mxu`` (:296): ``tril(ones(512, 512)) @ float32(a512 + i)``;
+- ``cumsum_mxu_lane`` (:307): ``float32(a512 + i) @ triu(ones(128,
+  128))``.
+
+Their ``sink`` is a 0-d float64, the sum of every element of the float32
+product (``gather``'s an int32 as above). The plain versions take each
+product in float64, round it once to float32 and add rows ``[:8]`` into
+``acc`` in iteration order; the kernel's order of summation inside a
+product differs, so ``mxu_bf16``, ``mxu_f32`` and ``cumsum_mxu_lane`` are
+held within ``harness_reference``'s bound E of the float64 value, and
+``gather`` and ``cumsum_mxu``'s ``out`` (every product row 0-7 exact,
+``Body.exact``) bit for bit. The kernel rounds the float32 operands of a
+product to TF32, exact on the tool's inputs (bf16 values, 0/1
+triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
+below 2^22.
+
+``harness`` launches ``csrc/probe_harness.cu`` (T14a: one block of 1024
+threads, ``acc`` in registers, the loop over ``r`` in the kernel) or
+``csrc/probe_harness_tc.cu`` (T14b: one block of 256 threads, mma.sync on
+the tensor cores) on CUDA tensors and runs the body's plain version on
+CPU tensors; without inputs it takes the tool's (``tool_inputs``) on
+``device``.
 
 T15, ``walk(tbl, r)``: the dependent scalar walk, from ``x = 1``, ``r``
 steps of ``x = tbl[x & 511] + x + 1`` over a 512-word int32 table in
@@ -72,6 +96,9 @@ TBL = 512
 STEPS = (65536, 1 << 25)    # the walk's two step counts (the tool's)
 N = 512 * 128               # the cells of a512
 ACC = 8 * 128
+MXU = 512 * 512 * 128       # the multiply-adds of body_mxu's product
+LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
+VPU, TC = "probe_harness", "probe_harness_tc"   # the sources
 launches = 0
 
 
@@ -80,8 +107,12 @@ def load_kernel():
     return _build.load("probe_walk", {"lz4t_probe_walk": "ppip"})
 
 
-def load_harness_kernel():
-    """Build (once) and load csrc/probe_harness.cu (T14a)."""
+def load_harness_kernel(source: str):
+    """Build (once) and load a harness source: csrc/probe_harness.cu
+    (``VPU``, T14a) or csrc/probe_harness_tc.cu (``TC``, T14b)."""
+    if source == TC:
+        return _build.load("probe_harness_tc",
+                           {"lz4t_probe_harness_tc": "ippippp"})
     return _build.load("probe_harness", {"lz4t_probe_harness": "ippippp"})
 
 
@@ -90,8 +121,9 @@ def load_harness_kernel():
 def tool_inputs() -> dict[str, np.ndarray]:
     """The inputs of the tool's ``main()``: ``default_rng(0)``'s draws
     replayed in its order, each consuming the stream, the tensor-core
-    readings' (``mA``, ``mB``, ``data_bf``) included. Integer arrays are
-    int32, ``g2048`` float64 rounded to float32."""
+    readings' (``mA``, ``mB``, ``data_bf``, float64 as drawn) included,
+    and the triangles the tool builds (``tri`` :302, ``triu`` :313).
+    Integer arrays are int32, ``g2048`` float64 rounded to float32."""
     rng = np.random.default_rng(0)
     out = {"a512": rng.integers(0, 1 << 20, (512, 128))}        # :102
     out["mA"] = rng.normal(size=(512, 512))                       # :121
@@ -105,6 +137,8 @@ def tool_inputs() -> dict[str, np.ndarray]:
     out["tblv"] = rng.integers(0, TBL, (TBL,))                    # :253
     out["small"] = rng.integers(0, 100, (8, 128))                 # :260
     out["x128"] = rng.integers(0, 1 << 20, (128, 512))            # :323
+    out["tri"] = np.tril(np.ones((512, 512), np.float32))
+    out["triu"] = np.triu(np.ones((128, 128), np.float32))
     return {k: v.astype(np.int32) if v.dtype == np.int64 else v
             for k, v in out.items()}
 
@@ -119,7 +153,16 @@ INPUTS = {"a512": (torch.int32, (512, 128)), "ids": (torch.int32, (2048, 1)),
           "g2048": (torch.float32, (2048, 128)),
           "amt": (torch.int32, (512, 1)), "tbl": (torch.int32, (128, 512)),
           "idx1": (torch.int32, (1, 512)), "small": (torch.int32, (8, 128)),
-          "x128": (torch.int32, (128, 512))}
+          "x128": (torch.int32, (128, 512)),
+          "mA": (torch.bfloat16, (512, 512)),
+          "mB": (torch.bfloat16, (512, 128)),
+          "mA32": (torch.float32, (512, 512)),
+          "mB32": (torch.float32, (512, 128)),
+          "data_bf": (torch.bfloat16, (512, 128)),
+          "tri": (torch.float32, (512, 512)),
+          "triu": (torch.float32, (128, 128))}
+# the f32 reading's inputs: the bf16 draws as float32 (the tool's astype)
+AS_F32 = {"mA32": "mA", "mB32": "mB"}
 
 
 # ---- the bodies' plain versions: one iteration each ----
@@ -213,6 +256,51 @@ def _shiftsel(i, a, amt):
     return sel[:8], sel.sum()
 
 
+# T14b: the tensor-core bodies. Each float reading is a product A_i @ B of
+# operands exact in float64 (bf16 and float32 values, int32 sums converted
+# to float32 as the tool's astype); the plain version rounds it once to
+# float32, and its sink is the float64 sum of that float32 result.
+
+def _f64(t):
+    return t.to(torch.float64)
+
+
+def _x(i, a):
+    """``float32(a512 + i)``, the int32 sum wrapped."""
+    return signed32(a.to(torch.int64) + i).to(torch.float32)
+
+
+def tool_operands(name: str, i: int, *ins: torch.Tensor):
+    """The two operands of iteration ``i``'s product of T14b reading
+    ``name``, in the tool's types (bf16 or float32) from its inputs (int32
+    or int64 integers)."""
+    if name == "gather":
+        ids, data = ins
+        idv = (_lcg(ids.to(torch.int64) + i) >> 7) & 511
+        cols = torch.arange(512, device=ids.device)
+        return (cols[None, :] == idv).to(torch.bfloat16), data
+    if name == "cumsum_mxu":
+        return ins[1], _x(i, ins[0])
+    if name == "cumsum_mxu_lane":
+        return _x(i, ins[0]), ins[1]
+    a, b = ins
+    return a * ((i & 1) + 1), b     # a power of two: exact in bf16
+
+
+def _product(name: str):
+    def step(i, *ins):
+        a, b = tool_operands(name, i, *ins)
+        c = (_f64(a) @ _f64(b)).to(torch.float32)
+        return c[:8], _f64(c).sum()
+    return step
+
+
+def _gather(i, ids, data):
+    idv = (_lcg(ids + i) >> 7) & 511
+    g = data.to(torch.float32)[idv[:, 0]]
+    return g[:8], g.view(torch.int32).to(torch.int64).sum()
+
+
 @dataclass(frozen=True)
 class Body:
     reading: str             # the tool's reading name
@@ -221,12 +309,18 @@ class Body:
     tool: tuple[int, int]    # the tool's two repeat counts
     card: tuple[int, int]    # the port's on the card
     items: int               # the tool's divisor of ns/item
-    ops: int                 # the fewest lane operations an iteration (below)
+    ops: int                 # the fewest operations an iteration (below)
     nbytes: int              # input bytes an iteration reads
     step: Callable
+    rate: int = LANES        # ops one SM does a clock
+    source: str = VPU        # the kernel's source, csrc/<source>.cu
+    sink: torch.dtype = torch.int32
+    exact: bool = True       # out equals the plain version's bit for bit
 
 
-# ops: the fewest instructions a lane executes to compute an iteration's
+# ops: for T14a's bodies, on the vector unit (at LANES a clock an SM), the
+# fewest instructions a lane executes to compute an iteration's
+
 # whole result and acc's update, for a bound on the time: each operation
 # of an element fused as the ISA allows (lcg(x + i) and a mask, one IMAD
 # with i * 1664525 + 1013904223 formed once and one LOP3; a shift and an
@@ -236,7 +330,11 @@ class Body:
 # arithmetic of data movement not counted, nor the sink's adds (the
 # kernel's own check); then one int-to-float conversion for each int32
 # value that enters acc (fori's, loop-invariant, none) and acc's 1024
-# float adds. nbytes: the input words the function reads, 4 bytes each.
+# float adds. For T14b's, on the tensor cores, the FLOPs of the product
+# the function needs, 2 m n k (not the kernel's two passes of a split TF32
+# product), at the H100's dense rate an SM a clock for the product's type:
+# 4096 in bf16, 2048 in TF32. nbytes: the input bytes the
+# function reads (4 a word, 2 a bf16).
 BODIES = {b_name: Body(*fields) for b_name, fields in {
     "vpu": ("vpu_16ops_512x128", 105, ("a512",), (16384, 2097152),
             (1024, 8192), 512 * 128 * 16, 25 * N + 2 * ACC, 4 * N, _vpu),
@@ -278,22 +376,48 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
     "shiftsel": ("shiftsel32_rows_512x128", 327, ("a512", "amt"),
                  (2048, 65536), (2048, 16384), 512 * 128, 2 * 512 + 2 * ACC,
                  4 * N + 4 * 512, _shiftsel),
+    "mxu_bf16": ("mxu_512x512x128_bf16", 115, ("mA", "mB"), (8192, 524288),
+                 (512, 4096), MXU, 2 * MXU, 2 * (512 * 512 + N),
+                 _product("mxu_bf16"), BF16, TC, torch.float64, False),
+    "mxu_f32": ("mxu_512x512x128_f32", 115, ("mA32", "mB32"),
+                (8192, 524288), (256, 2048), MXU, 2 * MXU,
+                4 * (512 * 512 + N), _product("mxu_f32"), TF32, TC,
+                torch.float64, False),
+    "gather": ("onehot_rowgather_2048q_512rows", 130, ("ids", "data_bf"),
+               (4096, 262144), (256, 2048), 2048, 2 * 2048 * N,
+               4 * 2048 + 2 * N, _gather, BF16, TC),
+    "cumsum_mxu": ("cumsum_mxu_tri_512x128", 296, ("a512", "tri"),
+                   (4096, 131072), (128, 1024), N, 2 * 512 * N,
+                   4 * (N + 512 * 512), _product("cumsum_mxu"), TF32, TC,
+                   torch.float64),
+    "cumsum_mxu_lane": ("cumsum_mxu_lane_512x128", 307, ("a512", "triu"),
+                        (2048, 65536), (512, 4096), N, 2 * 128 * N,
+                        4 * (N + 128 * 128), _product("cumsum_mxu_lane"),
+                        TF32, TC, torch.float64, False),
 }.items()}
-# the body's number in csrc/probe_harness.cu: its place in BODIES
-BODY_ID = {b_name: k for k, b_name in enumerate(BODIES)}
-# the tool's readings in its order; the tensor-core ones are not ported
-ORDER = ("vpu", "mxu_512x512x128_bf16", "mxu_512x512x128_f32",
-         "onehot_rowgather_2048q_512rows", "ohbuild", "extract", "red1",
-         "red0", "bitroll", "sroll", "lroll", "vlookup", "fori", "dynrow",
-         "statrow", "cumsum_shift", "cumsum_mxu_tri_512x128",
-         "cumsum_mxu_lane_512x128", "transpose", "shiftsel")
+# the body's number in its source's switch: its place among the bodies of
+# that source in BODIES
+BODY_ID = {b_name: [n for n in BODIES if BODIES[n].source == b.source
+                    ].index(b_name) for b_name, b in BODIES.items()}
+# the tool's readings in its order
+ORDER = ("vpu", "mxu_bf16", "mxu_f32", "gather", "ohbuild", "extract",
+         "red1", "red0", "bitroll", "sroll", "lroll", "vlookup", "fori",
+         "dynrow", "statrow", "cumsum_shift", "cumsum_mxu",
+         "cumsum_mxu_lane", "transpose", "shiftsel")
 harness_launches = dict.fromkeys(BODIES, 0)
 
 
 def body_inputs(name: str, device) -> list[torch.Tensor]:
-    """The tool's inputs of body ``name`` on ``device``."""
+    """The tool's inputs of body ``name`` on ``device``, in the tool's
+    types (torch's float64 -> bfloat16 cast rounds as ``jnp.asarray``'s)."""
     ins = tool_inputs()
-    return [torch.from_numpy(ins[k]).to(device) for k in BODIES[name].inputs]
+    out = []
+    for k in BODIES[name].inputs:
+        t = torch.from_numpy(ins[AS_F32.get(k, k)])
+        if k in AS_F32:
+            t = t.to(torch.bfloat16)
+        out.append(t.to(INPUTS[k][0]).to(device))
+    return out
 
 
 def check_harness_args(name: str, r: int, inputs) -> torch.device:
@@ -318,20 +442,23 @@ def harness(name: str, r: int, *inputs: torch.Tensor, device="cuda"
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """``r`` iterations of body ``name`` on ``inputs`` (the tool's on
     ``device`` when none are given): ``out`` (8, 128) float32 and ``sink``,
-    a 0-d int32."""
+    a 0-d tensor of ``BODIES[name].sink`` (int32, or float64 for the
+    float tensor-core readings)."""
     if not inputs:
         inputs = body_inputs(name, resolve_device(device))
     dev = check_harness_args(name, r, inputs)
     if dev.type == "cpu":
         return harness_plain(name, r, *inputs)
-    lib = load_harness_kernel()
+    body = BODIES[name]
+    lib = load_harness_kernel(body.source)
+    entry = getattr(lib, f"lz4t_{body.source}")
     ins = [t.contiguous() for t in inputs]
     ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
-    sink = torch.empty((), dtype=torch.int32, device=dev)
-    _build.check(lib.lz4t_probe_harness(
-        BODY_ID[name], *ptrs, r, out.data_ptr(), sink.data_ptr(),
-        _build.stream(dev)), f"probe_harness {name}")
+    sink = torch.empty((), dtype=body.sink, device=dev)
+    _build.check(entry(BODY_ID[name], *ptrs, r, out.data_ptr(),
+                       sink.data_ptr(), _build.stream(dev)),
+                 f"{body.source} {name}")
     harness_launches[name] += 1
     return out, sink
 
@@ -339,22 +466,56 @@ def harness(name: str, r: int, *inputs: torch.Tensor, device="cuda"
 def harness_plain(name: str, r: int, *inputs: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: the iterations one after another on the inputs'
-    device, int32 values in int64 wrapped to 32 bits, each contribution
-    converted from int32 to float32 (rounded to nearest) and added into
-    ``acc`` in iteration order."""
+    device, int32 values in int64 wrapped to 32 bits (float inputs keep
+    their values), each contribution converted from int32 to float32
+    (rounded to nearest) and added into ``acc`` in iteration order."""
     body = BODIES[name]
-    ins = [t if t.dtype == torch.float32 else t.to(torch.int64)
+    ins = [t if t.is_floating_point() else t.to(torch.int64)
            for t in inputs]
     dev = inputs[0].device
+    wraps = body.sink == torch.int32
     acc = torch.zeros((8, 128), dtype=torch.float32, device=dev)
-    sink = torch.zeros((), dtype=torch.int64, device=dev)
+    sink = torch.zeros((), dtype=torch.int64 if wraps else torch.float64,
+                       device=dev)
     for i in range(r):
         part, whole = body.step(i, *ins)
         if part.dtype != torch.float32:
             part = wrap32(part).to(torch.float32)
         acc = acc + part.expand(8, 128)
-        sink = (sink + whole) & M32
-    return acc, wrap32(sink)
+        sink = (sink + whole) & M32 if wraps else sink + whole
+    return acc, wrap32(sink) if wraps else sink
+
+
+def harness_reference(name: str, r: int, *inputs: torch.Tensor):
+    """The float64 reference of a float tensor-core reading
+    (``tool_operands``) and its bound: ``(out, e_out, sink, e_sink)``.
+    ``out`` is the exact running sum of the products' rows ``[:8]``
+    (float64), ``sink`` the sum of every element of every product; a
+    result within ``e_out`` of ``out`` in every cell and within ``e_sink``
+    of ``sink`` is right:
+
+        E = sum_i (n 2^-24 sum_k |a_ik b_kj| + 2^-24 |acc_i|),
+
+    n the product's depth (512, or 128 for the lane cumsum) and ``acc_i``
+    the exact running sum after iteration i (no acc term for the sink).
+    Any order of summation in float32 of each product, rounded to float32
+    and added into a float32 ``acc`` in iteration order, stays within E."""
+    check_harness_args(name, r, inputs)
+    if BODIES[name].sink != torch.float64:
+        raise ValueError(f"{name} is held bit for bit, not within a bound")
+    dev = inputs[0].device
+    out = torch.zeros((8, 128), dtype=torch.float64, device=dev)
+    e_out = torch.zeros_like(out)
+    sink = e_sink = torch.zeros((), dtype=torch.float64, device=dev)
+    u = 2.0 ** -24
+    for i in range(r):
+        a, b = (_f64(t) for t in tool_operands(name, i, *inputs))
+        p, q = a @ b, a.abs() @ b.abs()
+        out = out + p[:8]
+        e_out = e_out + a.shape[1] * u * q[:8] + u * out.abs()
+        sink = sink + p.sum()
+        e_sink = e_sink + a.shape[1] * u * q.sum()
+    return out, e_out, float(sink), float(e_sink)
 
 
 # ---- T15: the dependent scalar walk ----
@@ -411,10 +572,6 @@ def main(argv=None) -> int:
         p.error(f"--div must be at least 1, got {a.div}")
     print(f"devices: {device_name(dev)}", flush=True)
     for name in ORDER:
-        if name not in BODIES:
-            print(f"{name}: not ported yet (a tensor-core reading)",
-                  flush=True)
-            continue
         body = BODIES[name]
         ins = body_inputs(name, dev)
         n_lo = max(1, body.card[0] // a.div)

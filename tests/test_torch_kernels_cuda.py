@@ -1,7 +1,7 @@
-"""The kernels of the twenty-six CUDA sources (K1-K7, K9, K8's gaps,
+"""The kernels of the twenty-seven CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
 T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
-a source each, T14a's 15 bodies one) against their
+a source each, T14a's 15 bodies one, T14b's 5 readings one) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -732,7 +732,8 @@ def test_t15_probe_walk(dev):
             assert torch.equal(got, want), r
 
 
-@pytest.mark.parametrize("name", list(P15.BODIES))
+@pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
+                                  if b.source == P15.VPU])
 def test_t14a_probe_harness(dev, name):
     """Each body against its plain version, ``out`` bit for bit and
     ``sink`` exactly, one launch a call: the tool's inputs at R 0, 1, 3 and
@@ -755,10 +756,37 @@ def test_t14a_probe_harness(dev, name):
         assert sink.shape == () and torch.equal(sink, want_sink), r
 
 
+@pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
+                                  if b.source == P15.TC])
+def test_t14b_probe_harness_tc(dev, name):
+    """Each tensor-core reading against its plain version and the float64
+    reference at R 0, 1, 3 and 300 on the tool's inputs, one launch a
+    call: ``gather``'s out and sink and ``cumsum_mxu``'s out bit for bit,
+    every other out within E of the reference in each cell and every
+    float sink within the summed bound."""
+    ins = P15.body_inputs(name, dev)
+    for r in (0, 1, 3, 300):
+        P15.harness_launches[name] = 0
+        out, sink = P15.harness(name, r, *ins)
+        want_out, want_sink = P15.harness_plain(name, r, *ins)
+        torch.cuda.synchronize()
+        assert P15.harness_launches[name] == 1
+        assert sink.shape == () and sink.dtype == want_sink.dtype
+        if P15.BODIES[name].exact:
+            assert torch.equal(out.view(torch.int32),
+                               want_out.view(torch.int32)), r
+        if P15.BODIES[name].sink == torch.int32:
+            assert torch.equal(sink, want_sink), r
+            continue
+        ref, e_out, ref_sink, e_sink = P15.harness_reference(name, r, *ins)
+        assert bool(((out.double() - ref).abs() <= e_out).all()), r
+        assert abs(float(sink) - ref_sink) <= e_sink, r
+
+
 def test_t9_t15_mains_launch_every_kernel(dev, capsys):
     """The two main()s at small round counts: each of the six wrappers and
-    each of the 15 harness bodies launches, the capacity list stops at the
-    tool's first size, and the five tensor-core readings are listed."""
+    each of the 20 harness bodies launches, the capacity list stops at the
+    tool's first size, and no reading is left unported."""
     for c in ("gather_launches", "scatter_launches", "fifo_launches",
               "state_launches", "vmem_launches"):
         setattr(P3, c, 0)
@@ -772,7 +800,7 @@ def test_t9_t15_mains_launch_every_kernel(dev, capsys):
         "state_launches", "vmem_launches"))
     assert P15.launches > 0
     assert all(n > 0 for n in P15.harness_launches.values())
-    assert out.count("not ported yet") == 5
+    assert out.count("not ported yet") == 0
     for body in P15.BODIES.values():
         assert f"{body.reading}: " in out and " us/iter" in out
     assert "rows=16384 (+4096 ring): FAIL" in out

@@ -215,18 +215,19 @@ def test_t14a_bodies_are_the_tools():
     kernel's switch takes the bodies in the table's order."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
-    assert set(T14.BODIES) == set(TOOL_BODIES)
-    assert [n for n in T14.ORDER if n in T14.BODIES] == list(T14.BODIES)
-    for name, body in T14.BODIES.items():
+    t14a = {n: b for n, b in T14.BODIES.items() if b.source == T14.VPU}
+    assert set(t14a) == set(TOOL_BODIES)
+    assert [n for n in T14.ORDER if n in t14a] == list(t14a)
+    for name, body in t14a.items():
         assert lines[body.line - 1].strip().startswith(f"def body_{name}(")
         assert f'"{body.reading}"' in "\n".join(lines[body.line:body.line + 15])
         assert body.card[0] < body.card[1] and body.tool[0] < body.tool[1]
-    assert len(T14.ORDER) == 20 and len(T14.BODIES) == 15
+    assert len(T14.ORDER) == 20 and len(t14a) == 15
     with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
                            "probe_harness.cu")) as f:
         cases = re.findall(r"case (\d+): return launch<(\w+)>", f.read())
     assert [(int(k), s.lower()) for k, s in cases] == [
-        (T14.BODY_ID[n], n.replace("_", "")) for n in T14.BODIES]
+        (T14.BODY_ID[n], n.replace("_", "")) for n in t14a]
 
 
 # ---- sink: numpy models of three bodies ----
@@ -307,6 +308,7 @@ def test_cpu_runs_the_plain_version():
     for name in T14.BODIES:
         out, sink = T14.harness(name, 2, device="cpu")
         assert out.device.type == "cpu" and sink.device.type == "cpu"
+        assert sink.dtype == T14.BODIES[name].sink
         want = T14.harness_plain(name, 2, *T14.body_inputs(name, "cpu"))
         assert torch.equal(out, want[0]) and torch.equal(sink, want[1])
     assert not any(T14.harness_launches.values())
@@ -330,7 +332,7 @@ def test_harness_argument_checks():
     a = torch.zeros((512, 128), dtype=torch.int32)
     amt = torch.zeros((512, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="unknown body"):
-        T14.harness("mxu", 1, a)
+        T14.harness("nonesuch", 1, a)
     with pytest.raises(TypeError, match="takes 2 inputs"):
         T14.harness("bitroll", 1, a)
     with pytest.raises(TypeError, match="a512"):
@@ -349,22 +351,18 @@ def test_harness_argument_checks():
 
 def test_main_on_the_cpu(monkeypatch, capsys):
     """``main()`` with the counts divided and one timing of each: the
-    tool's 20 readings in its order (the five tensor-core ones not ported
-    yet), then the walk's."""
+    tool's 20 readings in its order, each timed, then the walk's."""
     monkeypatch.setattr(probes, "TRIES", 1)
     assert T14.main(["--div", "4096", "--steps", "16", "64",
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "devices: cpu (the plain version)"
     readings = [line.split(":")[0] for line in out[1:]]
-    want = [T14.BODIES[n].reading if n in T14.BODIES else n
-            for n in T14.ORDER]
+    want = [T14.BODIES[n].reading for n in T14.ORDER]
+    assert len(want) == 20
     assert readings == want + ["smem_scalar_walk (dependent)"]
     for line in out[1:]:
-        name = line.split(":")[0]
-        if name in T14.ORDER:
-            assert line.endswith("not ported yet (a tensor-core reading)")
-        else:
-            assert " us/iter (" in line and line.endswith(" ns/item)")
+        assert " us/iter (" in line and line.endswith(" ns/item)")
+        assert "not ported" not in line
     with pytest.raises(SystemExit):
         T14.main(["--div", "0", "--device", "cpu"])
