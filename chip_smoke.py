@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-seven CUDA sources of the port from
+Builds the twenty-eight CUDA sources of the port from
 ``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 48
 kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
-T14a's 15 harness bodies one, T14b's 5 tensor-core readings one) and
+T14a's 15 harness bodies one, T14b's 5 tensor-core readings two: three
+on one SM in ``probe_harness_tc``, ``gather`` and ``cumsum_mxu`` on every
+SM in ``probe_harness_wg``) and
 drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
@@ -158,8 +160,8 @@ state step, T13 the scratch capacity probe, T14a the primitive-rate
 harness around 15 vector-unit bodies, T14b its 5 tensor-core readings,
 T15 the dependent scalar walk; kernels probe_sort, probe_dma,
 probe_table, probe_banded, probe_lane, probe_step, probe_smem,
-probe_harness, probe_harness_tc and probe_walk) at the tools' shapes and
-seeds, in ``_smoke_probes``:
+probe_harness, probe_harness_tc, probe_harness_wg and probe_walk) at the
+tools' shapes and seeds, in ``_smoke_probes``:
 
 33. each probe against its plain version exactly: T4 at logN 10 and 16
     (and against ``torch.sort``), T5 at 1, 32 and 128 lanes of 128 and
@@ -176,7 +178,9 @@ seeds, in ``_smoke_probes``:
     and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
     bit, every other out (kernel and plain version) within E of the
     float64 reference (``harness_reference``) and every float sink within
-    the summed bound;
+    the summed bound; the two whole-card readings (``probe_harness_wg``,
+    its grid printed) also at R 33 (whole waves of items) and 301 (a
+    partial last wave), and twice at each R with the same bits;
 34. the probe path with the counters reset just before: each probe's
     ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14's 20
     readings at the card's counts), which prints ns per iteration by
@@ -188,8 +192,9 @@ seeds, in ``_smoke_probes``:
     TB/s, for T14 the larger of that and its operations (``Body.ops``:
     T14a's fewest lane operations, T14b's tensor FLOPs) over the card's
     SMs x ``Body.rate`` (128 lanes; 4096 dense bf16 or 2048 TF32 FLOP) x
-    its maximum SM clock; each T14 body no faster than that figure at
-    one SM; each T14b reading in turns with ``torch.mm`` of one
+    its maximum SM clock; each T14 body no faster than that figure on
+    the SMs it uses (one; every SM for ``probe_harness_wg``'s); each
+    T14b reading in turns with ``torch.mm`` of one
     iteration's product (float32 result) on the whole card, its
     ``library_ms`` that product's time times the call's R iterations;
 36. T4 in turns with ``torch.sort`` (no single PyTorch call computes
@@ -890,7 +895,7 @@ def _smoke(torch, start: float) -> int:
         errs.update({k: max(v, errs.get(k, 0)) for k, v in r["errs"].items()})
         sub_times.update(r["sub_times"])
     kernels = KERNELS + [
-        (f"T14{'b' if body.source == P15.TC else 'a'} harness {b}",
+        (f"T14{'b' if body.source in P15.TENSOR else 'a'} harness {b}",
          HARNESS + b, f"tools/microbench2.py:{body.line}")
         for b, body in P15.BODIES.items()]
     record = {"kernels": []}
@@ -2555,7 +2560,8 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
              f"T15 on {what}, {PROBE_WALK_STEPS} steps")
     harness_ins = {b: P15.body_inputs(b, dev) for b in P15.BODIES}
     t14a = [b for b, body in P15.BODIES.items() if body.source == P15.VPU]
-    t14b = [b for b, body in P15.BODIES.items() if body.source == P15.TC]
+    t14b = [b for b, body in P15.BODIES.items()
+            if body.source in P15.TENSOR]
     rng = np.random.default_rng(14)
     for b in t14a:
         ins, key = harness_ins[b], HARNESS + b
@@ -2605,6 +2611,38 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
                      f"{what}: {who}'s sink {float(got)!r} is more than "
                      f"{e_sink!r} from {ref_sink!r}")
             errs[key] = max(errs[key], float((out - want_out).abs().max()))
+    # the whole-card readings: whole and partial waves of the grid's
+    # items, and the same bits from two calls (a static item list)
+    grid = P15.wg_grid(dev)
+    for b in t14b:
+        if P15.BODIES[b].source != P15.WG:
+            continue
+        ins, key = harness_ins[b], HARNESS + b
+        for r in (0, 1, 3, 33, PROBE_HARNESS_R, PROBE_HARNESS_R + 1):
+            out, sink = P15.harness(b, r, *ins)
+            out2, sink2 = P15.harness(b, r, *ins)
+            same(key, out2.view(torch.int32), out.view(torch.int32),
+                 f"T14b {b} at R {r}: a second call's out")
+            same(key, sink2.reshape(1).view(torch.uint8),
+                 sink.reshape(1).view(torch.uint8),
+                 f"T14b {b} at R {r}: a second call's sink")
+            if r in (33, PROBE_HARNESS_R + 1):
+                want_out, want_sink = P15.harness_plain(b, r, *ins)
+                same(key, out.view(torch.int32), want_out.view(torch.int32),
+                     f"T14b {b} at R {r}: out")
+                if P15.BODIES[b].sink == torch.int32:
+                    same(key, sink, want_sink, f"T14b {b} at R {r}: sink")
+                else:
+                    _, _, ref_sink, e_sink = P15.harness_reference(b, r,
+                                                                   *ins)
+                    need(abs(float(sink) - ref_sink) <= e_sink,
+                         f"T14b {b} at R {r}: sink {float(sink)!r} is more "
+                         f"than {e_sink!r} from {ref_sink!r}")
+    print(f"T14b whole-card readings on a grid of {grid} blocks (one an "
+          f"SM): {', '.join(b for b in t14b if P15.BODIES[b].source == P15.WG)}"
+          f" at R 0, 1, 3, 33, {PROBE_HARNESS_R} and {PROBE_HARNESS_R + 1} "
+          "(33: whole waves; 301: a partial last wave) against the plain "
+          "version, two calls each with the same bits: ok")
     print("T14b against the float64 reference (worst cell of the kernel's "
           "out in units of E, up to R "
           f"{PROBE_HARNESS_R}): " + ", ".join(
@@ -2718,6 +2756,9 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     # fewest lane operations, or the tensor FLOPs) at Body.rate an SM
     clock = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the SMs a body's kernel runs on: probe_harness_wg's grid, else one
+    used = {HARNESS + b: grid if body.source == P15.WG else 1
+            for b, body in P15.BODIES.items()}
     op_bound = {}
     for b, body in P15.BODIES.items():
         key, ins, n = HARNESS + b, harness_ins[b], body.card[1]
@@ -2731,11 +2772,13 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
             f"R {n}, the plain version {PROBE_HARNESS_PLAIN}; {body.ops} "
             f"ops and {body.nbytes} input bytes an iteration: "
             f"{op_bound[key]:.6f} ms at {sms} SMs x "
-            f"{body.rate} ops x {clock} MHz, {op_bound[key] * sms:.6f} "
-            "ms on the one SM the kernel uses")
-    # a call of T15's 2^25 steps takes most of a second, one of T14a's
-    # 50-200 ms: fewer of them
-    kernel_calls = {"probe_walk": 2, **dict.fromkeys(op_bound, 2)}
+            f"{body.rate} ops x {clock} MHz, "
+            f"{op_bound[key] * sms / used[key]:.6f} ms on the {used[key]} "
+            "SMs the kernel uses")
+    # a call of T15's 2^25 steps takes most of a second, one of T14's on
+    # one SM 50-200 ms: fewer of them
+    kernel_calls = {"probe_walk": 2, **{k: 2 if n == 1 else 10
+                                        for k, n in used.items()}}
     sub_times = {}
     for key, (fk, fp, nbytes, shape) in calls.items():
         sub_times[key] = (time_ms(fk, kernel_calls.get(key, 10)),
@@ -2744,11 +2787,13 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
         print(f"[{card}] {key} at {shape}: kernel {sub_times[key][0]:.4f} ms,"
               f" plain {sub_times[key][1]:.4f} ms, bound {bound:.6f} ms by "
               f"{by} ({nbytes} bytes)")
-    # a body faster than its operations at one SM would disprove the count
-    fast = {k: (sub_times[k][0], v * sms) for k, v in op_bound.items()
-            if sub_times[k][0] < v * sms}
-    need(not fast, f"T14 bodies faster than their operations at one SM "
-         f"(kernel ms, figure ms): {fast}")
+    # a body faster than its operations on the SMs it uses would disprove
+    # the count
+    fast = {k: (sub_times[k][0], v * sms / used[k], used[k])
+            for k, v in op_bound.items()
+            if sub_times[k][0] < v * sms / used[k]}
+    need(not fast, f"T14 bodies faster than their operations on the SMs "
+         f"they use (kernel ms, figure ms, SMs): {fast}")
     # T14b in turns with torch.mm of iteration 0's product on the whole
     # card (the port never calls it); library_ms is its time a product
     # times the R iterations of the kernel's call
@@ -2757,15 +2802,18 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
         key, n = HARNESS + b, P15.BODIES[b].card[1]
         mm, how = library_product(torch, *P15.tool_operands(b, 0,
                                                             *harness_ins[b]))
+        # a call on one SM takes 50-200 ms, one on every SM under 1 ms
         ker, lib = in_turns(time_ms, calls[key][0], lambda mm=mm: [
-            mm() for _ in range(LIBRARY_CALLS)], 1)
+            mm() for _ in range(LIBRARY_CALLS)], kernel_calls[key] // 2)
         lib /= LIBRARY_CALLS
         library[key] = lib * n
         library_of[key] = (f"{how} of one iteration's product, in turns "
                            f"with the kernel, x R {n}")
         print(f"[{card}] {key} in turns (kernel, {how}, {how}, kernel): "
-              f"kernel {ker / n * 1e3:.3f} us an iteration on one SM "
-              f"({op_bound[key] * sms / n * 1e3:.3f} us its figure), "
+              f"kernel {ker / n * 1e3:.3f} us an iteration on "
+              f"{used[key]} SM{'s' if used[key] > 1 else ''} "
+              f"({op_bound[key] * sms / used[key] / n * 1e3:.3f} us its "
+              "figure there), "
               f"{how} {lib * 1e3:.3f} us a product on {sms} SMs "
               f"({ker / n / lib:.4f}x; allow_tf32 "
               f"{torch.backends.cuda.matmul.allow_tf32})")

@@ -1,15 +1,15 @@
-// T14b, the tensor-core readings of the primitive-rate harness: from acc =
-// 0 ((8, 128) float32, in shared memory), each iteration i of 0 .. r-1
-// computes one body's whole matrix product on the tensor cores and adds
-// its rows [:8] into acc, one float32 add a cell an iteration in iteration
-// order. sink sums every element of every iteration's whole product, so
-// that no part of it can be left out: in float64 for the float readings,
-// as the wrapping 32-bit sum of the float32 bit patterns for the gather.
+// T14b, three of the tensor-core readings of the primitive-rate harness:
+// from acc = 0 ((8, 128) float32, in shared memory), each iteration i of
+// 0 .. r-1 computes one body's whole matrix product on the tensor cores
+// and adds its rows [:8] into acc, one float32 add a cell an iteration in
+// iteration order. sink sums every element of every iteration's whole
+// product in float64, so that no part of it can be left out.
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
-// _harness.run at :60) with the bodies of its main() that run on the MXU:
-// body_mxu (:115) in bf16 and in f32, body_gather (:130), body_cumsum_mxu
-// (:296) and body_cumsum_mxu_lane (:307).
+// _harness.run at :60) with three bodies of its main() that run on the
+// MXU: body_mxu (:115) in bf16 and in f32 and body_cumsum_mxu_lane (:307).
+// body_gather (:130) and body_cumsum_mxu (:296) run in
+// probe_harness_wg.cu (wgmma on a persistent grid of every SM).
 //
 // What bounds it on the H100: the tensor cores of one SM (4096 dense bf16
 // FLOP a clock, 2048 TF32), the shared-memory reads of the B fragments,
@@ -30,15 +30,9 @@
 // - mxu_f32: m16n8k8 TF32 with its inputs rounded to TF32 (cvt.rna),
 //   exact for the tool's inputs, which are bf16 values; B (mB, 256 KiB)
 //   staged in two slabs of 64 columns an iteration, A read for each.
-// - gather: the one-hot (2048, 512) built in registers from the indices
-//   in shared memory, m16n8k16 bf16 against data_bf resident; every
-//   product and sum exact (one non-zero term a row).
-// - cumsum_mxu: tri @ float32(a512 + i) in split TF32: each element x of
-//   B is hi = x with its 13 low mantissa bits cleared plus lo = x - hi
-//   rounded to TF32, two mma each; exact for |x| < 2^22, so rows 0-7 (sums
-//   of at most 8 integers below 2^21) are exact. B staged in two slabs of
-//   64 columns an iteration, tri read for each.
-// - cumsum_mxu_lane: float32(a512 + i) @ triu, A split as above, triu
+// - cumsum_mxu_lane: float32(a512 + i) @ triu in split TF32: each
+//   element x of A is hi = x with its 13 low mantissa bits cleared plus lo
+//   = x - hi rounded to TF32, two mma each, exact for |x| < 2^22; triu
 //   (64 KiB) resident.
 
 #include <cuda_runtime.h>
@@ -112,24 +106,6 @@ struct FSink {  // float64 sum of the elements
   }
 };
 
-struct ISink {  // wrapping sum of the float32 bit patterns
-  uint32_t s = 0;
-  __device__ void add(float v) { s += __float_as_uint(v); }
-  __device__ void store(void* out, double* red) {
-    uint32_t x = s;
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
-    uint32_t* r = (uint32_t*)red;
-    if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint32_t tot = 0;
-      for (int w = 0; w < kWarps; ++w) tot += r[w];
-      *(int*)out = (int)tot;
-    }
-  }
-};
-
 // A finished tile (rows row0 .. row0 + 31, columns col0 .. col0 + 63),
 // each element times f: into the sink, and rows 0-7 into acc.
 template <class Sink>
@@ -195,10 +171,9 @@ __device__ __forceinline__ void gemm_bf16(const ALoad& la,
 // la(k0, a) gives a[m][h] = the 4 float32 (as bits) of A's row row0 + 16m
 // + 8h + g at physical k k0 + 4t .. 4t + 3; mma step s of the 16-k chunk
 // takes physical 4t + 2s as the logical t and 4t + 2s + 1 as t + 4. bs
-// holds B as it is (bs[k * S + n]). kASplit: A's elements as hi + lo
-// (two mma), else rounded to TF32; kBSplit: B's likewise, else B is
-// already TF32.
-template <int S, bool kASplit, bool kBSplit, class ALoad>
+// holds B as it is (bs[k * S + n]), already TF32. kASplit: A's elements
+// as hi + lo (two mma), else rounded to TF32.
+template <int S, bool kASplit, class ALoad>
 __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
                                           const uint32_t* bs, int col0,
                                           float (&c)[2][8][4]) {
@@ -230,14 +205,7 @@ __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
         const uint32_t* p = bs + (k0 + 4 * t + 2 * s) * S + col0 + 8 * j + g;
-        const uint32_t b0 = p[0], b1 = p[S];
-        uint32_t bh0 = b0, bh1 = b1, bl0 = 0, bl1 = 0;
-        if (kBSplit) {
-          bh0 = b0 & kHi;
-          bh1 = b1 & kHi;
-          bl0 = tf32(__uint_as_float(b0) - __uint_as_float(bh0));
-          bl1 = tf32(__uint_as_float(b1) - __uint_as_float(bh1));
-        }
+        const uint32_t bh0 = p[0], bh1 = p[S];
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           mma_tf32(c[m][j], ah[m][0][2 * s], ah[m][1][2 * s],
@@ -245,9 +213,6 @@ __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
           if (kASplit)
             mma_tf32(c[m][j], al[m][0][2 * s], al[m][1][2 * s],
                      al[m][0][2 * s + 1], al[m][1][2 * s + 1], bh0, bh1);
-          if (kBSplit)
-            mma_tf32(c[m][j], ah[m][0][2 * s], ah[m][1][2 * s],
-                     ah[m][0][2 * s + 1], ah[m][1][2 * s + 1], bl0, bl1);
         }
       }
 #pragma unroll
@@ -270,23 +235,6 @@ struct RowsBf16 {  // bf16 (rows, 512), 8 at k0 + 8t
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         out[m][h] = ldg4(a + (row0 + 16 * m + 8 * h + g) * 512 + k0 + 8 * t);
-  }
-};
-
-struct OneHot {  // the one-hot row of index v: bf16 1.0 at column v
-  int v[2][2];
-  __device__ void operator()(int k0, uint4 (&out)[2][2]) const {
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = v[m][h] - (k0 + 8 * t);
-        const uint32_t w = (unsigned)d < 8u ? 0x3f80u << (16 * (d & 1)) : 0u;
-        const int q = d >> 1;
-        out[m][h] = make_uint4(q == 0 ? w : 0u, q == 1 ? w : 0u,
-                               q == 2 ? w : 0u, q == 3 ? w : 0u);
-      }
   }
 };
 
@@ -371,66 +319,9 @@ struct MxuF32 {  // :115, (a * ((i & 1) + 1)) @ b, float32 in TF32
       __syncthreads();
       for (int tile = threadIdx.x >> 5; tile < 16; tile += kWarps) {
         float c[2][8][4] = {};
-        gemm_tf32<kSlab, false, false>(
+        gemm_tf32<kSlab, false>(
             RowsF32{(const float*)p0, 512, tile * 32}, 512, w, 0, c);
         finish_tile(c, f, tile * 32, slab * 64, acc, sk);
-      }
-    }
-  }
-};
-
-struct Gather {  // :130, onehot((lcg(ids + i) >> 7) & 511, 512) @ data_bf
-  using Sink = ISink;
-  static constexpr int kWork = 128 * kBt + 2 * 2048;
-  static __device__ void prologue(const void*, const void* p1, uint32_t* w) {
-    stage_bt(p1, w);
-  }
-  static __device__ void iteration(int i, const void* p0, const void*,
-                                   uint32_t* w, float* acc, Sink& sk) {
-    const int* ids = (const int*)p0;
-    // double-buffered by parity: one barrier an iteration orders them
-    int* idv = (int*)(w + 128 * kBt) + (i & 1) * 2048;
-    for (int q = threadIdx.x; q < 2048; q += kThreads)
-      idv[q] = ((int)lcg((uint32_t)ids[q] + (uint32_t)i) >> 7) & 511;
-    __syncthreads();
-    const int g = (threadIdx.x & 31) >> 2;
-    for (int tile = threadIdx.x >> 5; tile < 128; tile += kWarps) {
-      const int row0 = (tile & 63) * 32, col0 = (tile >> 6) * 64;
-      OneHot oh;
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          oh.v[m][h] = idv[row0 + 16 * m + 8 * h + g];
-      float c[2][8][4] = {};
-      gemm_bf16(oh, w, col0, c);
-      finish_tile(c, 1.f, row0, col0, acc, sk);
-    }
-  }
-};
-
-struct CumsumMxu {  // :296, tri @ float32(a512 + i), B in split TF32
-  using Sink = FSink;
-  static constexpr int kWork = 512 * kSlab;
-  static __device__ void prologue(const void*, const void*, uint32_t*) {}
-  static __device__ void iteration(int i, const void* p0, const void* p1,
-                                   uint32_t* w, float* acc, Sink& sk) {
-    const int2* x = (const int2*)p0;
-    for (int slab = 0; slab < 2; ++slab) {
-      __syncthreads();  // every warp is done with the last slab
-      for (int e = threadIdx.x; e < 512 * 32; e += kThreads) {
-        const int k = e >> 5, n2 = e & 31;
-        const int2 v = __ldg(x + k * 64 + slab * 32 + n2);
-        *(uint2*)(w + k * kSlab + 2 * n2) = make_uint2(
-            __float_as_uint(__int2float_rn((int)((uint32_t)v.x + (uint32_t)i))),
-            __float_as_uint(__int2float_rn((int)((uint32_t)v.y + (uint32_t)i))));
-      }
-      __syncthreads();
-      for (int tile = threadIdx.x >> 5; tile < 16; tile += kWarps) {
-        float c[2][8][4] = {};
-        gemm_tf32<kSlab, false, true>(
-            RowsF32{(const float*)p1, 512, tile * 32}, 512, w, 0, c);
-        finish_tile(c, 1.f, tile * 32, slab * 64, acc, sk);
       }
     }
   }
@@ -449,7 +340,7 @@ struct CumsumMxuLane {  // :307, float32(a512 + i) @ triu, A in split TF32
     for (int tile = threadIdx.x >> 5; tile < 32; tile += kWarps) {
       const int row0 = (tile & 15) * 32, col0 = (tile >> 4) * 64;
       float c[2][8][4] = {};
-      gemm_tf32<kTriu, true, false>(
+      gemm_tf32<kTriu, true>(
           RowsInt{(const int*)p0, (uint32_t)i, row0}, 128, w, col0, c);
       finish_tile(c, 1.f, row0, col0, acc, sk);
     }
@@ -488,9 +379,9 @@ int launch(const void* in0, const void* in1, int r, void* out, void* sink,
 
 }  // namespace
 
-// body: 0-4 in the order of the tensor-core bodies of
-// lz4_sgori_torch.probes.microbench2.BODIES; in0, in1: the body's inputs;
-// out: (8, 128) float32; sink: one float64 (one int32 for the gather).
+// body: 0 mxu_bf16, 1 mxu_f32, 2 cumsum_mxu_lane (the order of the bodies
+// of this source in lz4_sgori_torch.probes.microbench2.BODIES); in0, in1:
+// the body's inputs; out: (8, 128) float32; sink: one float64.
 extern "C" int lz4t_probe_harness_tc(int body, const void* in0,
                                      const void* in1, int r, void* out,
                                      void* sink, void* stream) {
@@ -499,9 +390,7 @@ extern "C" int lz4t_probe_harness_tc(int body, const void* in0,
   switch (body) {
     case 0: return launch<MxuBf16>(in0, in1, r, out, sink, st);
     case 1: return launch<MxuF32>(in0, in1, r, out, sink, st);
-    case 2: return launch<Gather>(in0, in1, r, out, sink, st);
-    case 3: return launch<CumsumMxu>(in0, in1, r, out, sink, st);
-    case 4: return launch<CumsumMxuLane>(in0, in1, r, out, sink, st);
+    case 2: return launch<CumsumMxuLane>(in0, in1, r, out, sink, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

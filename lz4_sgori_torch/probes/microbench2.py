@@ -56,11 +56,15 @@ triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
 below 2^22.
 
 ``harness`` launches ``csrc/probe_harness.cu`` (T14a: one block of 1024
-threads, ``acc`` in registers, the loop over ``r`` in the kernel) or
-``csrc/probe_harness_tc.cu`` (T14b: one block of 256 threads, mma.sync on
-the tensor cores) on CUDA tensors and runs the body's plain version on
-CPU tensors; without inputs it takes the tool's (``tool_inputs``) on
-``device``.
+threads, ``acc`` in registers, the loop over ``r`` in the kernel),
+``csrc/probe_harness_tc.cu`` (``mxu_bf16``, ``mxu_f32`` and
+``cumsum_mxu_lane``: one block of 256 threads, mma.sync on the tensor
+cores) or ``csrc/probe_harness_wg.cu`` (``gather`` and ``cumsum_mxu``: a
+persistent grid of one block an SM over a static list of (iteration, row
+band) items, wgmma, tri through TMA; each iteration's rows 0-7 go to a
+scratch buffer that a second kernel adds into ``acc`` in iteration
+order) on CUDA tensors and runs the body's plain version on CPU tensors;
+without inputs it takes the tool's (``tool_inputs``) on ``device``.
 
 T15, ``walk(tbl, r)``: the dependent scalar walk, from ``x = 1``, ``r``
 steps of ``x = tbl[x & 511] + x + 1`` over a 512-word int32 table in
@@ -98,7 +102,8 @@ N = 512 * 128               # the cells of a512
 ACC = 8 * 128
 MXU = 512 * 512 * 128       # the multiply-adds of body_mxu's product
 LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
-VPU, TC = "probe_harness", "probe_harness_tc"   # the sources
+VPU, TC, WG = "probe_harness", "probe_harness_tc", "probe_harness_wg"
+TENSOR = (TC, WG)           # the sources of T14b's tensor-core readings
 launches = 0
 
 
@@ -109,11 +114,20 @@ def load_kernel():
 
 def load_harness_kernel(source: str):
     """Build (once) and load a harness source: csrc/probe_harness.cu
-    (``VPU``, T14a) or csrc/probe_harness_tc.cu (``TC``, T14b)."""
+    (``VPU``, T14a), csrc/probe_harness_tc.cu (``TC``) or
+    csrc/probe_harness_wg.cu (``WG``, T14b)."""
+    if source == WG:
+        return _build.load("probe_harness_wg",
+                           {"lz4t_probe_harness_wg": "ippipppip"})
     if source == TC:
         return _build.load("probe_harness_tc",
                            {"lz4t_probe_harness_tc": "ippippp"})
     return _build.load("probe_harness", {"lz4t_probe_harness": "ippippp"})
+
+
+def wg_grid(device) -> int:
+    """The blocks of a ``WG`` launch: one on each SM of ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---- the tool's inputs ----
@@ -385,10 +399,10 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
                 torch.float64, False),
     "gather": ("onehot_rowgather_2048q_512rows", 130, ("ids", "data_bf"),
                (4096, 262144), (256, 2048), 2048, 2 * 2048 * N,
-               4 * 2048 + 2 * N, _gather, BF16, TC),
+               4 * 2048 + 2 * N, _gather, BF16, WG),
     "cumsum_mxu": ("cumsum_mxu_tri_512x128", 296, ("a512", "tri"),
                    (4096, 131072), (128, 1024), N, 2 * 512 * N,
-                   4 * (N + 512 * 512), _product("cumsum_mxu"), TF32, TC,
+                   4 * (N + 512 * 512), _product("cumsum_mxu"), TF32, WG,
                    torch.float64),
     "cumsum_mxu_lane": ("cumsum_mxu_lane_512x128", 307, ("a512", "triu"),
                         (2048, 65536), (512, 4096), N, 2 * 128 * N,
@@ -456,8 +470,15 @@ def harness(name: str, r: int, *inputs: torch.Tensor, device="cuda"
     ptrs = [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
     sink = torch.empty((), dtype=body.sink, device=dev)
+    extra = []
+    if body.source == WG:
+        # each iteration's rows 0-7, then a partial sink a block
+        grid = wg_grid(dev)
+        scratch = torch.empty(r * 4 * ACC + 8 * grid, dtype=torch.uint8,
+                              device=dev)
+        extra = [scratch.data_ptr(), grid]
     _build.check(entry(BODY_ID[name], *ptrs, r, out.data_ptr(),
-                       sink.data_ptr(), _build.stream(dev)),
+                       sink.data_ptr(), *extra, _build.stream(dev)),
                  f"{body.source} {name}")
     harness_launches[name] += 1
     return out, sink

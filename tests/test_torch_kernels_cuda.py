@@ -1,7 +1,9 @@
-"""The kernels of the twenty-seven CUDA sources (K1-K7, K9, K8's gaps,
+"""The kernels of the twenty-eight CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
 T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
-a source each, T14a's 15 bodies one, T14b's 5 readings one) against their
+a source each, T14a's 15 bodies one, T14b's 5 readings two: 3 on
+``probe_harness_tc``, ``gather`` and ``cumsum_mxu`` on
+``probe_harness_wg``) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -757,13 +759,13 @@ def test_t14a_probe_harness(dev, name):
 
 
 @pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
-                                  if b.source == P15.TC])
+                                  if b.source in P15.TENSOR])
 def test_t14b_probe_harness_tc(dev, name):
-    """Each tensor-core reading against its plain version and the float64
-    reference at R 0, 1, 3 and 300 on the tool's inputs, one launch a
-    call: ``gather``'s out and sink and ``cumsum_mxu``'s out bit for bit,
-    every other out within E of the reference in each cell and every
-    float sink within the summed bound."""
+    """Each tensor-core reading (both sources) against its plain version
+    and the float64 reference at R 0, 1, 3 and 300 on the tool's inputs,
+    one launch a call: ``gather``'s out and sink and ``cumsum_mxu``'s out
+    bit for bit, every other out within E of the reference in each cell
+    and every float sink within the summed bound."""
     ins = P15.body_inputs(name, dev)
     for r in (0, 1, 3, 300):
         P15.harness_launches[name] = 0
@@ -781,6 +783,32 @@ def test_t14b_probe_harness_tc(dev, name):
         ref, e_out, ref_sink, e_sink = P15.harness_reference(name, r, *ins)
         assert bool(((out.double() - ref).abs() <= e_out).all()), r
         assert abs(float(sink) - ref_sink) <= e_sink, r
+
+
+@pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
+                                  if b.source == P15.WG])
+def test_t14b_probe_harness_wg_waves(dev, name):
+    """The whole-card readings over the grid's waves: at R 33 (whole waves
+    of items on 132 SMs) and 301 (a partial last wave) against the plain
+    version (``gather``'s out and sink and ``cumsum_mxu``'s out bit for
+    bit, its sink within the summed bound), and two calls at each R that
+    give the same out and sink bits."""
+    ins = P15.body_inputs(name, dev)
+    for r in (33, 301):
+        out, sink = P15.harness(name, r, *ins)
+        out2, sink2 = P15.harness(name, r, *ins)
+        want_out, want_sink = P15.harness_plain(name, r, *ins)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), out2.view(torch.int32)), r
+        assert torch.equal(sink.reshape(1).view(torch.uint8),
+                           sink2.reshape(1).view(torch.uint8)), r
+        assert torch.equal(out.view(torch.int32),
+                           want_out.view(torch.int32)), r
+        if P15.BODIES[name].sink == torch.int32:
+            assert torch.equal(sink, want_sink), r
+        else:
+            _, _, ref_sink, e_sink = P15.harness_reference(name, r, *ins)
+            assert abs(float(sink) - ref_sink) <= e_sink, r
 
 
 def test_t9_t15_mains_launch_every_kernel(dev, capsys):

@@ -147,13 +147,17 @@ def test_t14b_tool_and_plain_within_the_reference(tool, name):
 
 def test_t14b_bodies_are_the_tools():
     """The five readings with the tool's names, lines and repeat counts,
-    the kernel's switch in the table's order, the one-SM rates, the card
-    counts of ``cumsum_mxu`` below 2^20 (its rows 0-7 exact), and the
-    tool's 20 readings named through ``BODIES``."""
+    each kernel source's switch in the order of its bodies in the table
+    (``probe_harness_tc``: ``mxu_bf16``, ``mxu_f32``, ``cumsum_mxu_lane``;
+    ``probe_harness_wg``: ``gather``, ``cumsum_mxu``), the rates an SM,
+    the card counts of ``cumsum_mxu`` below 2^20 (its rows 0-7 exact), and
+    the tool's 20 readings named through ``BODIES``."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
-    tc = [n for n, b in T14.BODIES.items() if b.source == T14.TC]
+    tc = [n for n, b in T14.BODIES.items() if b.source in T14.TENSOR]
     assert tc == list(TC)
+    assert [n for n in TC if T14.BODIES[n].source == T14.WG] == [
+        "gather", "cumsum_mxu"]
     tool_counts = {"mxu_bf16": (8192, 524288), "mxu_f32": (8192, 524288),
                    "gather": (4096, 262144), "cumsum_mxu": (4096, 131072),
                    "cumsum_mxu_lane": (2048, 65536)}
@@ -171,11 +175,15 @@ def test_t14b_bodies_are_the_tools():
     assert [n for n in TC if T14.BODIES[n].exact] == ["gather", "cumsum_mxu"]
     assert [n for n in TC if T14.BODIES[n].sink == torch.int32] == ["gather"]
     assert sorted(T14.ORDER) == sorted(T14.BODIES)
-    with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
-                           "probe_harness_tc.cu")) as f:
-        cases = re.findall(r"case (\d+): return launch<(\w+)>", f.read())
-    assert [(int(k), s.lower()) for k, s in cases] == [
-        (T14.BODY_ID[n], n.replace("_", "")) for n in TC]
+    # each source's switch: case k runs the body whose BODY_ID is k
+    for source, pattern in ((T14.TC, r"case (\d+): return launch<(\w+)>"),
+                            (T14.WG, r"case (\d+): return run_(\w+)\(")):
+        with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
+                               f"{source}.cu")) as f:
+            cases = re.findall(pattern, f.read())
+        assert [(int(k), s.lower().replace("_", "")) for k, s in cases] == [
+            (T14.BODY_ID[n], n.replace("_", "")) for n in TC
+            if T14.BODIES[n].source == source]
 
 
 def test_t14b_inputs_are_the_tools():
@@ -341,3 +349,76 @@ def test_t14b_failed_build_raises_and_never_falls_back(monkeypatch):
         T14.harness("mxu_bf16", 3, *args)
     assert built == ["probe_harness_tc"]
     assert T14.harness_launches["mxu_bf16"] == 0
+
+
+def test_t14b_wg_failed_build_raises_and_never_falls_back(monkeypatch):
+    """A whole-card reading builds ``probe_harness_wg``; when the build
+    fails it raises, and no plain result comes back."""
+    built = []
+
+    def no_nvcc(name, *_a, **_k):
+        built.append(name)
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    T14.harness_launches["gather"] = 0
+    args = [t.as_subclass(_OnCuda) for t in T14.body_inputs("gather", "cpu")]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        T14.harness("gather", 3, *args)
+    assert built == ["probe_harness_wg"]
+    assert T14.harness_launches["gather"] == 0
+
+
+def _wg_emulated(name, r, ins, grid, rng):
+    """``probe_harness_wg``'s reduction contract on the CPU: the items
+    (iteration, row band) of a static list dealt to ``grid`` blocks, run in
+    a shuffled order; band 0's rows [:8] to a per-iteration buffer, added
+    into acc in iteration order; a sink partial a block, summed in block
+    order."""
+    rows = 64 if name == "gather" else 128
+    bands = 2048 // rows if name == "gather" else 512 // rows
+    wraps = T14.BODIES[name].sink == torch.int32
+    scratch = torch.full((r, 8, 128), float("nan"))
+    part = [0] * grid if wraps else [0.0] * grid
+    for w in rng.permutation(r * bands):
+        i, band = divmod(int(w), bands)
+        a, b = T14.tool_operands(name, i, *ins)
+        c = (a[band * rows:(band + 1) * rows].double() @ b.double()).to(
+            torch.float32)
+        if wraps:
+            part[w % grid] += int(c.view(torch.int32).to(torch.int64).sum())
+        else:
+            part[w % grid] += float(c.double().sum())
+        if band == 0:
+            scratch[i] = c[:8]
+    acc = torch.zeros((8, 128), dtype=torch.float32)
+    for i in range(r):
+        acc = acc + scratch[i]
+    sink = 0 if wraps else 0.0
+    for p in part:
+        sink += p
+    if wraps:
+        return acc, torch.tensor(((sink + (1 << 31)) & M32) - (1 << 31),
+                                 dtype=torch.int32)
+    return acc, torch.tensor(sink, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("name", ["gather", "cumsum_mxu"])
+def test_t14b_wg_reduction_contract(name):
+    """Items in a shuffled order, rows 0-7 through a per-iteration buffer
+    added in iteration order, sink partials a block summed in block order:
+    at R 0, 1, 3 and 40 ``out`` equals ``harness_plain`` bit for bit
+    (``gather``'s ``sink`` too), ``cumsum_mxu``'s ``sink`` within the
+    summed bound."""
+    rng = np.random.default_rng(12)
+    ins = T14.body_inputs(name, "cpu")
+    for r in (0, 1, 3, 40):
+        out, sink = _wg_emulated(name, r, ins, 7, rng)
+        want_out, want_sink = T14.harness_plain(name, r, *ins)
+        assert np.array_equal(_bits(out.numpy()), _bits(want_out.numpy())), r
+        if name == "gather":
+            assert torch.equal(sink, want_sink), r
+        else:
+            _, _, ref_sink, e_sink = T14.harness_reference(name, r, *ins)
+            assert abs(float(sink) - ref_sink) <= e_sink, r
+            assert abs(float(want_sink) - ref_sink) <= e_sink, r
