@@ -5,9 +5,11 @@
 Builds the twenty-eight CUDA sources of the port from
 ``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 48
 kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
-T14a's 15 harness bodies one, T14b's 5 tensor-core readings two: three
-on one SM in ``probe_harness_tc``, ``gather`` and ``cumsum_mxu`` on every
-SM in ``probe_harness_wg``) and
+T14a's 15 harness bodies and T14b's 5 tensor-core readings three: 14
+bodies on one SM in ``probe_harness``, ``mxu_bf16`` and
+``cumsum_mxu_lane`` on one SM in ``probe_harness_tc``, ``ohbuild``,
+``mxu_f32``, ``gather`` and ``cumsum_mxu`` on every SM in
+``probe_harness_wg``) and
 drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
@@ -178,9 +180,11 @@ tools' shapes and seeds, in ``_smoke_probes``:
     and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
     bit, every other out (kernel and plain version) within E of the
     float64 reference (``harness_reference``) and every float sink within
-    the summed bound; the two whole-card readings (``probe_harness_wg``,
-    its grid printed) also at R 33 (whole waves of items) and 301 (a
-    partial last wave), and twice at each R with the same bits;
+    the summed bound; the four whole-card readings (``probe_harness_wg``:
+    ``ohbuild``, ``mxu_f32``, ``gather``, ``cumsum_mxu``; the grid
+    printed) at R 0, 1, 3, 33 (whole waves of items), 300 and 301 (a
+    partial last wave), twice at each R with the same bits, held as
+    above;
 34. the probe path with the counters reset just before: each probe's
     ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14's 20
     readings at the card's counts), which prints ns per iteration by
@@ -194,11 +198,19 @@ tools' shapes and seeds, in ``_smoke_probes``:
     SMs x ``Body.rate`` (128 lanes; 4096 dense bf16 or 2048 TF32 FLOP) x
     its maximum SM clock; each T14 body no faster than that figure on
     the SMs it uses (one; every SM for ``probe_harness_wg``'s); each
-    T14b reading in turns with ``torch.mm`` of one
-    iteration's product (float32 result) on the whole card, its
-    ``library_ms`` that product's time times the call's R iterations;
-36. T4 in turns with ``torch.sort`` (no single PyTorch call computes
-    T5-T15's loops; T14b's library times are phase 35's).
+    T14 reading that one PyTorch call computes in turns with that call
+    on iteration 0's operands, precomputed, on the whole card (T14b:
+    ``torch.mm`` of one iteration's product, float32 result; T14a's
+    twelve: ``microbench2.library_call``, ``torch.eq`` for ``ohbuild``,
+    ``torch.gather``, ``torch.sum``, ``torch.cumsum``, a transposed copy,
+    ``torch.index_select``, ``torch.add``, ``torch.clone``, a float32
+    conversion), ``LIBRARY_CALLS`` calls a turn, its ``library_ms`` the
+    call's time times the kernel's R iterations, and the factor (the
+    kernel's us an iteration over the call's);
+36. T4 in turns with ``torch.sort``, then the ranking of every row with
+    a library time by its factor. No single PyTorch call computes the
+    looped functions of T5-T13 and T15, nor three of T14a's bodies:
+    ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -294,7 +306,7 @@ PROBE_HARNESS_PLAIN = 64
 # below it) and statrow (rows 8-15) read; every other body reads all of
 # its inputs within a call of the card's counts
 HARNESS_READS = {"dynrow": 263 * 128 * 4, "statrow": 8 * 128 * 4}
-# products in each timing of a T14b reading's library call
+# calls in each timing of a T14 reading's library call
 LIBRARY_CALLS = 200
 
 KERNELS = [
@@ -681,9 +693,14 @@ def _smoke(torch, start: float) -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in
                       _build.build_seconds.items()))
     for k, log in _build.build_log.items():
+        entry, spills = "", ""
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"ptxas {k}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] + " "   # the mangled name
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"ptxas {k} {entry}: {line.strip()}; {spills}")
 
     def sync():
         torch.cuda.synchronize()
@@ -895,7 +912,7 @@ def _smoke(torch, start: float) -> int:
         errs.update({k: max(v, errs.get(k, 0)) for k, v in r["errs"].items()})
         sub_times.update(r["sub_times"])
     kernels = KERNELS + [
-        (f"T14{'b' if body.source in P15.TENSOR else 'a'} harness {b}",
+        (f"T14{'b' if b in P15.T14B else 'a'} harness {b}",
          HARNESS + b, f"tools/microbench2.py:{body.line}")
         for b, body in P15.BODIES.items()]
     record = {"kernels": []}
@@ -2559,9 +2576,9 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
              P15.walk_plain(t, PROBE_WALK_STEPS),
              f"T15 on {what}, {PROBE_WALK_STEPS} steps")
     harness_ins = {b: P15.body_inputs(b, dev) for b in P15.BODIES}
-    t14a = [b for b, body in P15.BODIES.items() if body.source == P15.VPU]
-    t14b = [b for b, body in P15.BODIES.items()
-            if body.source in P15.TENSOR]
+    t14a, t14b = P15.T14A, P15.T14B
+    whole_card = [b for b, body in P15.BODIES.items()
+                  if body.source == P15.WG]
     rng = np.random.default_rng(14)
     for b in t14a:
         ins, key = harness_ins[b], HARNESS + b
@@ -2614,35 +2631,38 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
     # the whole-card readings: whole and partial waves of the grid's
     # items, and the same bits from two calls (a static item list)
     grid = P15.wg_grid(dev)
-    for b in t14b:
-        if P15.BODIES[b].source != P15.WG:
-            continue
-        ins, key = harness_ins[b], HARNESS + b
+    for b in whole_card:
+        ins, key, body = harness_ins[b], HARNESS + b, P15.BODIES[b]
         for r in (0, 1, 3, 33, PROBE_HARNESS_R, PROBE_HARNESS_R + 1):
+            what = f"T14 {b} on {grid} blocks at R {r}"
             out, sink = P15.harness(b, r, *ins)
             out2, sink2 = P15.harness(b, r, *ins)
             same(key, out2.view(torch.int32), out.view(torch.int32),
-                 f"T14b {b} at R {r}: a second call's out")
+                 f"{what}: a second call's out")
             same(key, sink2.reshape(1).view(torch.uint8),
                  sink.reshape(1).view(torch.uint8),
-                 f"T14b {b} at R {r}: a second call's sink")
-            if r in (33, PROBE_HARNESS_R + 1):
-                want_out, want_sink = P15.harness_plain(b, r, *ins)
+                 f"{what}: a second call's sink")
+            want_out, want_sink = P15.harness_plain(b, r, *ins)
+            if body.exact:
                 same(key, out.view(torch.int32), want_out.view(torch.int32),
-                     f"T14b {b} at R {r}: out")
-                if P15.BODIES[b].sink == torch.int32:
-                    same(key, sink, want_sink, f"T14b {b} at R {r}: sink")
-                else:
-                    _, _, ref_sink, e_sink = P15.harness_reference(b, r,
-                                                                   *ins)
-                    need(abs(float(sink) - ref_sink) <= e_sink,
-                         f"T14b {b} at R {r}: sink {float(sink)!r} is more "
-                         f"than {e_sink!r} from {ref_sink!r}")
-    print(f"T14b whole-card readings on a grid of {grid} blocks (one an "
-          f"SM): {', '.join(b for b in t14b if P15.BODIES[b].source == P15.WG)}"
-          f" at R 0, 1, 3, 33, {PROBE_HARNESS_R} and {PROBE_HARNESS_R + 1} "
-          "(33: whole waves; 301: a partial last wave) against the plain "
-          "version, two calls each with the same bits: ok")
+                     f"{what}: out")
+            if body.sink == torch.int32:
+                same(key, sink, want_sink, f"{what}: sink")
+                continue
+            ref, e_out, ref_sink, e_sink = P15.harness_reference(b, r, *ins)
+            units = float(((out.double() - ref).abs()
+                           / e_out.clamp_min(1e-300)).max()) if r else 0.
+            need(units <= 1.0, f"{what}: out is {units:.4f} E from the "
+                               "float64 reference")
+            need(abs(float(sink) - ref_sink) <= e_sink,
+                 f"{what}: sink {float(sink)!r} is more than {e_sink!r} "
+                 f"from {ref_sink!r}")
+    print(f"T14 whole-card readings on a grid of {grid} blocks (one an "
+          f"SM): {', '.join(whole_card)} at R 0, 1, 3, 33, "
+          f"{PROBE_HARNESS_R} and {PROBE_HARNESS_R + 1} (33: whole waves; "
+          "301: a partial last wave) against the plain version (out bit "
+          "for bit where exact, else within E of the float64 reference), "
+          "two calls each with the same bits: ok")
     print("T14b against the float64 reference (worst cell of the kernel's "
           "out in units of E, up to R "
           f"{PROBE_HARNESS_R}): " + ", ".join(
@@ -2794,37 +2814,53 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
             if sub_times[k][0] < v * sms / used[k]}
     need(not fast, f"T14 bodies faster than their operations on the SMs "
          f"they use (kernel ms, figure ms, SMs): {fast}")
-    # T14b in turns with torch.mm of iteration 0's product on the whole
-    # card (the port never calls it); library_ms is its time a product
-    # times the R iterations of the kernel's call
-    library, library_of = {}, {}
-    for b in t14b:
-        key, n = HARNESS + b, P15.BODIES[b].card[1]
-        mm, how = library_product(torch, *P15.tool_operands(b, 0,
-                                                            *harness_ins[b]))
-        # a call on one SM takes 50-200 ms, one on every SM under 1 ms
-        ker, lib = in_turns(time_ms, calls[key][0], lambda mm=mm: [
-            mm() for _ in range(LIBRARY_CALLS)], kernel_calls[key] // 2)
+    # each T14 reading with a library call in turns with that one PyTorch
+    # call on iteration 0's operands, precomputed, on the whole card (the
+    # port never calls it): T14b's torch.mm of the product, T14a's twelve
+    # (microbench2.library_call); library_ms is the call's time times the
+    # R iterations of the kernel's call, the factor the kernel's time an
+    # iteration over the call's
+    library, library_of, factor = {}, {}, {}
+    for b, body in P15.BODIES.items():
+        key, n, ins = HARNESS + b, body.card[1], harness_ins[b]
+        if b in P15.T14B:
+            fn, how = library_product(torch, *P15.tool_operands(b, 0, *ins))
+            what = "one iteration's product"
+        elif b in P15.WHOLE:
+            fn, how = P15.library_call(b, *ins)
+            what = "iteration 0's whole result"
+        else:
+            continue
+        # a call on one SM takes 50-200 ms, one on every SM under 2 ms
+        ker, lib = in_turns(time_ms, calls[key][0], lambda fn=fn: [
+            fn() for _ in range(LIBRARY_CALLS)], kernel_calls[key] // 2)
         lib /= LIBRARY_CALLS
         library[key] = lib * n
-        library_of[key] = (f"{how} of one iteration's product, in turns "
-                           f"with the kernel, x R {n}")
-        print(f"[{card}] {key} in turns (kernel, {how}, {how}, kernel): "
-              f"kernel {ker / n * 1e3:.3f} us an iteration on "
+        library_of[key] = (f"{how}, computing {what}, in turns with the "
+                           f"kernel, x R {n}")
+        factor[key] = ker / n / lib
+        print(f"[{card}] {key} in turns (kernel, call, call, kernel): "
+              f"kernel {ker / n * 1e3:.4f} us an iteration on "
               f"{used[key]} SM{'s' if used[key] > 1 else ''} "
-              f"({op_bound[key] * sms / used[key] / n * 1e3:.3f} us its "
-              "figure there), "
-              f"{how} {lib * 1e3:.3f} us a product on {sms} SMs "
-              f"({ker / n / lib:.4f}x; allow_tf32 "
-              f"{torch.backends.cuda.matmul.allow_tf32})")
+              f"({op_bound[key] * sms / used[key] / n * 1e3:.4f} us its "
+              f"figure there), {how} {lib * 1e3:.4f} us a call on {sms} "
+              f"SMs ({factor[key]:.4f}x"
+              + (f"; allow_tf32 {torch.backends.cuda.matmul.allow_tf32})"
+                 if b in P15.T14B else ")"))
 
-    # ---- phase 36: T4 in turns with torch.sort ----
+    # ---- phase 36: T4 in turns with torch.sort; the ranking ----
     lib, ker = in_turns(time_ms, lambda: torch.sort(x, dim=0),
                         lambda: P4.device_sort(x), 10)
+    factor["probe_sort"] = ker / lib
     print(f"[{card}] T4 at logN {logn} in turns (torch.sort, T4, T4, "
           f"torch.sort): torch.sort {lib:.4f} ms, T4 {ker:.4f} ms, "
-          f"{ker / lib:.4f}x; T5-T15: no single PyTorch call computes the "
-          "looped function (T14b's library time is its products')")
+          f"{ker / lib:.4f}x; no single PyTorch call computes the looped "
+          "function of T5-T13, T15 or three of T14a's bodies (vpu, sroll, "
+          "lroll: chains of operations)")
+    print(f"[{card}] ranking, kernel over its library call (T4 a call; "
+          "T14 an iteration over a call): " + ", ".join(
+              f"{k} {v:.4f}x" for k, v in sorted(factor.items(),
+                                                  key=lambda kv: -kv[1])))
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
             "library": {"probe_sort": lib, **library},
             "library_of": library_of, "op_bound": op_bound}

@@ -4,14 +4,14 @@
 // (or a row or column of it, broadcast) into acc, one float32 add an
 // iteration in iteration order. sink is the wrapping 32-bit sum, over all
 // iterations, of every element of the whole result (a float by its bit
-// pattern; the one-hot as the flat index 512 * row + col of each one), so
-// that no part of the result can be left out. int32 arithmetic wraps
+// pattern), so that no part of the result can be left out. int32 arithmetic wraps
 // (uint32_t: signed overflow is undefined in C++) and >> is arithmetic
 // (int); lcg(x) = x * 1664525 + 1013904223.
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
 // _harness.run at :60) with the bodies of its main() that run on the
-// vector unit (:105-337); each body is a template argument of one kernel.
+// vector unit (:105-337) but body_ohbuild (:144), which runs on every SM
+// in probe_harness_wg.cu; each body is a template argument of one kernel.
 //
 // What bounds it on the H100: the bodies' instructions at one SM's issue
 // rate (4 schedulers, 32 lanes each a clock), L2 reads into one SM for
@@ -74,31 +74,6 @@ struct Vpu {  // :105, x = a512 + i; 8x x = (x ^ (x + 1)) + (x >> 1)
         x = (x ^ (x + 1u)) + (uint32_t)((int)x >> 1);
       sink += x;
       if (k == 0) mine = as_float(x);
-    }
-    return mine;
-  }
-};
-
-struct OhBuild {  // :144, the (2048, 512) one-hot of (lcg(ids + i) >> 7) & 511
-  static __device__ float step(int i, int t, const void* p0, const void*,
-                               uint32_t* s, uint32_t& sink) {
-    const int* ids = (const int*)p0;
-    for (int q = t; q < 2048; q += kThreads)
-      s[q] = (uint32_t)(((int)lcg((uint32_t)ids[q] + (uint32_t)i) >> 7) & 511);
-    __syncthreads();
-    // every element (row, col) of the one-hot: thread t takes lanes
-    // c + 128j of rows r0 + 8k
-    const uint32_t c = t & 127, r0 = t >> 7;
-    float mine = 0.f;
-#pragma unroll 2
-    for (uint32_t k = 0; k < 256; ++k) {
-      const uint32_t row = r0 + 8 * k, one = s[row];
-#pragma unroll
-      for (uint32_t j = 0; j < 4; ++j) {
-        const uint32_t col = c + 128 * j;
-        sink += col == one ? row * 512 + col : 0u;
-      }
-      if (k == 0) mine = c == one ? 1.f : 0.f;
     }
     return mine;
   }
@@ -386,7 +361,8 @@ int launch(const void* in0, const void* in1, int r, void* out, void* sink,
 
 }  // namespace
 
-// body: 0-14 in the order of lz4_sgori_torch.probes.microbench2.BODIES;
+// body: 0-13 in the order of this source's bodies in
+// lz4_sgori_torch.probes.microbench2.BODIES;
 // in0, in1: the body's inputs (in1 null for a body of one); out: (8, 128)
 // float32; sink: one int32.
 extern "C" int lz4t_probe_harness(int body, const void* in0, const void* in1,
@@ -396,20 +372,19 @@ extern "C" int lz4t_probe_harness(int body, const void* in0, const void* in1,
   cudaStream_t st = (cudaStream_t)stream;
   switch (body) {
     case 0: return launch<Vpu>(in0, in1, r, out, sink, st);
-    case 1: return launch<OhBuild>(in0, in1, r, out, sink, st);
-    case 2: return launch<Extract>(in0, in1, r, out, sink, st);
-    case 3: return launch<Red1>(in0, in1, r, out, sink, st);
-    case 4: return launch<Red0>(in0, in1, r, out, sink, st);
-    case 5: return launch<Bitroll>(in0, in1, r, out, sink, st);
-    case 6: return launch<Sroll>(in0, in1, r, out, sink, st);
-    case 7: return launch<Lroll>(in0, in1, r, out, sink, st);
-    case 8: return launch<Vlookup>(in0, in1, r, out, sink, st);
-    case 9: return launch<Fori>(in0, in1, r, out, sink, st);
-    case 10: return launch<Dynrow>(in0, in1, r, out, sink, st);
-    case 11: return launch<Statrow>(in0, in1, r, out, sink, st);
-    case 12: return launch<CumsumShift>(in0, in1, r, out, sink, st);
-    case 13: return launch<Transpose>(in0, in1, r, out, sink, st);
-    case 14: return launch<Shiftsel>(in0, in1, r, out, sink, st);
+    case 1: return launch<Extract>(in0, in1, r, out, sink, st);
+    case 2: return launch<Red1>(in0, in1, r, out, sink, st);
+    case 3: return launch<Red0>(in0, in1, r, out, sink, st);
+    case 4: return launch<Bitroll>(in0, in1, r, out, sink, st);
+    case 5: return launch<Sroll>(in0, in1, r, out, sink, st);
+    case 6: return launch<Lroll>(in0, in1, r, out, sink, st);
+    case 7: return launch<Vlookup>(in0, in1, r, out, sink, st);
+    case 8: return launch<Fori>(in0, in1, r, out, sink, st);
+    case 9: return launch<Dynrow>(in0, in1, r, out, sink, st);
+    case 10: return launch<Statrow>(in0, in1, r, out, sink, st);
+    case 11: return launch<CumsumShift>(in0, in1, r, out, sink, st);
+    case 12: return launch<Transpose>(in0, in1, r, out, sink, st);
+    case 13: return launch<Shiftsel>(in0, in1, r, out, sink, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,4 @@
-// T14b, three of the tensor-core readings of the primitive-rate harness:
+// T14b, two of the tensor-core readings of the primitive-rate harness:
 // from acc = 0 ((8, 128) float32, in shared memory), each iteration i of
 // 0 .. r-1 computes one body's whole matrix product on the tensor cores
 // and adds its rows [:8] into acc, one float32 add a cell an iteration in
@@ -6,9 +6,9 @@
 // product in float64, so that no part of it can be left out.
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
-// _harness.run at :60) with three bodies of its main() that run on the
-// MXU: body_mxu (:115) in bf16 and in f32 and body_cumsum_mxu_lane (:307).
-// body_gather (:130) and body_cumsum_mxu (:296) run in
+// _harness.run at :60) with two bodies of its main() that run on the
+// MXU: body_mxu (:115) in bf16 and body_cumsum_mxu_lane (:307). body_mxu
+// in f32, body_gather (:130) and body_cumsum_mxu (:296) run in
 // probe_harness_wg.cu (wgmma on a persistent grid of every SM).
 //
 // What bounds it on the H100: the tensor cores of one SM (4096 dense bf16
@@ -16,8 +16,8 @@
 // and the L2 reads of A into one SM. The TPU runs the harness on one core
 // with its inputs in VMEM (grid (1,)); here it is one block of 256 threads
 // (8 warps) on one SM, written with mma.sync (a simple first kernel;
-// wgmma and TMA are later work). A, 512 KiB to 1 MiB, exceeds a block's
-// 227 KiB of shared memory: every warp reads its A fragments from L2 with
+// wgmma and TMA are later work). A, 512 KiB, exceeds a block's 227 KiB
+// of shared memory: every warp reads its A fragments from L2 with
 // 16-byte loads, one chunk ahead, and B sits in shared memory. Each warp
 // computes tiles of 32 rows x 64 columns (2 x 8 mma tiles, 64 float32
 // accumulators a thread). The k order inside a chunk is permuted so that
@@ -27,9 +27,6 @@
 // - mxu_bf16: m16n8k16 bf16 -> f32, B (mB, 128 KiB) resident in shared
 //   memory, transposed; the factor (i & 1) + 1, a power of two, scales
 //   the f32 product (the same bits as scaling a).
-// - mxu_f32: m16n8k8 TF32 with its inputs rounded to TF32 (cvt.rna),
-//   exact for the tool's inputs, which are bf16 values; B (mB, 256 KiB)
-//   staged in two slabs of 64 columns an iteration, A read for each.
 // - cumsum_mxu_lane: float32(a512 + i) @ triu in split TF32: each
 //   element x of A is hi = x with its 13 low mantissa bits cleared plus lo
 //   = x - hi rounded to TF32, two mma each, exact for |x| < 2^22; triu
@@ -46,7 +43,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kAccWords = 8 * 128;
 constexpr uint32_t kHi = 0xffffe000u;   // a float's sign, exponent, 10 mantissa bits
 constexpr int kBt = 272;                // words a row of a transposed bf16 B (512 k)
-constexpr int kSlab = 66;               // words a row of a staged f32 B slab (64 columns)
 constexpr int kTriu = 130;              // words a row of triu (128 columns)
 
 __device__ __forceinline__ uint32_t lcg(uint32_t x) {
@@ -171,9 +167,9 @@ __device__ __forceinline__ void gemm_bf16(const ALoad& la,
 // la(k0, a) gives a[m][h] = the 4 float32 (as bits) of A's row row0 + 16m
 // + 8h + g at physical k k0 + 4t .. 4t + 3; mma step s of the 16-k chunk
 // takes physical 4t + 2s as the logical t and 4t + 2s + 1 as t + 4. bs
-// holds B as it is (bs[k * S + n]), already TF32. kASplit: A's elements
-// as hi + lo (two mma), else rounded to TF32.
-template <int S, bool kASplit, class ALoad>
+// holds B as it is (bs[k * S + n]), already TF32; A's elements as hi +
+// lo, two mma each.
+template <int S, class ALoad>
 __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
                                           const uint32_t* bs, int col0,
                                           float (&c)[2][8][4]) {
@@ -192,13 +188,8 @@ __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const uint32_t x = comp(a[m][h], q);
-          if (kASplit) {
-            ah[m][h][q] = x & kHi;
-            al[m][h][q] = tf32(__uint_as_float(x) -
-                               __uint_as_float(x & kHi));
-          } else {
-            ah[m][h][q] = tf32(__uint_as_float(x));
-          }
+          ah[m][h][q] = x & kHi;
+          al[m][h][q] = tf32(__uint_as_float(x) - __uint_as_float(x & kHi));
         }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -210,9 +201,8 @@ __device__ __forceinline__ void gemm_tf32(const ALoad& la, int K,
         for (int m = 0; m < 2; ++m) {
           mma_tf32(c[m][j], ah[m][0][2 * s], ah[m][1][2 * s],
                    ah[m][0][2 * s + 1], ah[m][1][2 * s + 1], bh0, bh1);
-          if (kASplit)
-            mma_tf32(c[m][j], al[m][0][2 * s], al[m][1][2 * s],
-                     al[m][0][2 * s + 1], al[m][1][2 * s + 1], bh0, bh1);
+          mma_tf32(c[m][j], al[m][0][2 * s], al[m][1][2 * s],
+                   al[m][0][2 * s + 1], al[m][1][2 * s + 1], bh0, bh1);
         }
       }
 #pragma unroll
@@ -235,19 +225,6 @@ struct RowsBf16 {  // bf16 (rows, 512), 8 at k0 + 8t
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         out[m][h] = ldg4(a + (row0 + 16 * m + 8 * h + g) * 512 + k0 + 8 * t);
-  }
-};
-
-struct RowsF32 {  // float32 (rows, ld), 4 at k0 + 4t
-  const float* a;
-  int ld, row0;
-  __device__ void operator()(int k0, uint4 (&out)[2][2]) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        out[m][h] = ldg4(a + (row0 + 16 * m + 8 * h + g) * ld + k0 + 4 * t);
   }
 };
 
@@ -301,32 +278,6 @@ struct MxuBf16 {  // :115, (a * ((i & 1) + 1)) @ b, bf16
   }
 };
 
-struct MxuF32 {  // :115, (a * ((i & 1) + 1)) @ b, float32 in TF32
-  using Sink = FSink;
-  static constexpr int kWork = 512 * kSlab;
-  static __device__ void prologue(const void*, const void*, uint32_t*) {}
-  static __device__ void iteration(int i, const void* p0, const void* p1,
-                                   uint32_t* w, float* acc, Sink& sk) {
-    const float f = (float)((i & 1) + 1);
-    const float2* b = (const float2*)p1;
-    for (int slab = 0; slab < 2; ++slab) {
-      __syncthreads();  // every warp is done with the last slab
-      for (int e = threadIdx.x; e < 512 * 32; e += kThreads) {
-        const int k = e >> 5, n2 = e & 31;
-        const float2 v = __ldg(b + k * 64 + slab * 32 + n2);
-        *(uint2*)(w + k * kSlab + 2 * n2) = make_uint2(tf32(v.x), tf32(v.y));
-      }
-      __syncthreads();
-      for (int tile = threadIdx.x >> 5; tile < 16; tile += kWarps) {
-        float c[2][8][4] = {};
-        gemm_tf32<kSlab, false>(
-            RowsF32{(const float*)p0, 512, tile * 32}, 512, w, 0, c);
-        finish_tile(c, f, tile * 32, slab * 64, acc, sk);
-      }
-    }
-  }
-};
-
 struct CumsumMxuLane {  // :307, float32(a512 + i) @ triu, A in split TF32
   using Sink = FSink;
   static constexpr int kWork = 128 * kTriu;
@@ -340,7 +291,7 @@ struct CumsumMxuLane {  // :307, float32(a512 + i) @ triu, A in split TF32
     for (int tile = threadIdx.x >> 5; tile < 32; tile += kWarps) {
       const int row0 = (tile & 15) * 32, col0 = (tile >> 4) * 64;
       float c[2][8][4] = {};
-      gemm_tf32<kTriu, true>(
+      gemm_tf32<kTriu>(
           RowsInt{(const int*)p0, (uint32_t)i, row0}, 128, w, col0, c);
       finish_tile(c, 1.f, row0, col0, acc, sk);
     }
@@ -379,7 +330,7 @@ int launch(const void* in0, const void* in1, int r, void* out, void* sink,
 
 }  // namespace
 
-// body: 0 mxu_bf16, 1 mxu_f32, 2 cumsum_mxu_lane (the order of the bodies
+// body: 0 mxu_bf16, 1 cumsum_mxu_lane (the order of the bodies
 // of this source in lz4_sgori_torch.probes.microbench2.BODIES); in0, in1:
 // the body's inputs; out: (8, 128) float32; sink: one float64.
 extern "C" int lz4t_probe_harness_tc(int body, const void* in0,
@@ -389,8 +340,7 @@ extern "C" int lz4t_probe_harness_tc(int body, const void* in0,
   cudaStream_t st = (cudaStream_t)stream;
   switch (body) {
     case 0: return launch<MxuBf16>(in0, in1, r, out, sink, st);
-    case 1: return launch<MxuF32>(in0, in1, r, out, sink, st);
-    case 2: return launch<CumsumMxuLane>(in0, in1, r, out, sink, st);
+    case 1: return launch<CumsumMxuLane>(in0, in1, r, out, sink, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

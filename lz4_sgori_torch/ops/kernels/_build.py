@@ -71,8 +71,9 @@ def _build(name: str) -> str:
 def load(name: str, entries: dict[str, str]) -> ctypes.CDLL:
     """Build (once) and load csrc/<name>.cu. ``entries`` maps each C entry
     point to its signature, one letter per argument: ``p`` for a pointer
-    or the stream (``c_void_p``), ``i`` for a length (``c_int``)."""
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    or the stream (``c_void_p``), ``i`` for a length (``c_int``), ``n``
+    for a byte count (``c_size_t``)."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "n": ctypes.c_size_t}
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:

@@ -55,16 +55,22 @@ product to TF32, exact on the tool's inputs (bf16 values, 0/1
 triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
 below 2^22.
 
-``harness`` launches ``csrc/probe_harness.cu`` (T14a: one block of 1024
-threads, ``acc`` in registers, the loop over ``r`` in the kernel),
-``csrc/probe_harness_tc.cu`` (``mxu_bf16``, ``mxu_f32`` and
-``cumsum_mxu_lane``: one block of 256 threads, mma.sync on the tensor
-cores) or ``csrc/probe_harness_wg.cu`` (``gather`` and ``cumsum_mxu``: a
-persistent grid of one block an SM over a static list of (iteration, row
-band) items, wgmma, tri through TMA; each iteration's rows 0-7 go to a
-scratch buffer that a second kernel adds into ``acc`` in iteration
-order) on CUDA tensors and runs the body's plain version on CPU tensors;
+``harness`` launches ``csrc/probe_harness.cu`` (T14a's bodies but
+``ohbuild``: one block of 1024 threads, ``acc`` in registers, the loop
+over ``r`` in the kernel), ``csrc/probe_harness_tc.cu`` (``mxu_bf16``
+and ``cumsum_mxu_lane``: one block of 256 threads, mma.sync on the
+tensor cores) or ``csrc/probe_harness_wg.cu`` (``ohbuild``, ``mxu_f32``,
+``gather`` and ``cumsum_mxu``: a persistent grid of one block an SM over
+a static list of work items, read-only operands held in shared memory;
+wgmma for the products, tri through TMA; each iteration's rows 0-7 go to
+a scratch buffer that a second kernel adds into ``acc`` in iteration
+order, ``ohbuild``'s counted in integers, so that it takes R below 2^24)
+on CUDA tensors and runs the body's plain version on CPU tensors;
 without inputs it takes the tool's (``tool_inputs``) on ``device``.
+``library_call`` gives the one PyTorch call that computes iteration 0's
+whole result of twelve of T14a's bodies (``WHOLE``; all but the chains
+``vpu``, ``sroll`` and ``lroll``), the yardstick that ``chip_smoke.py``
+times them against.
 
 T15, ``walk(tbl, r)``: the dependent scalar walk, from ``x = 1``, ``r``
 steps of ``x = tbl[x & 511] + x + 1`` over a 512-word int32 table in
@@ -86,7 +92,7 @@ so that a call of the higher takes 50-200 ms on an H100; the tool's are
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -103,7 +109,6 @@ ACC = 8 * 128
 MXU = 512 * 512 * 128       # the multiply-adds of body_mxu's product
 LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
 VPU, TC, WG = "probe_harness", "probe_harness_tc", "probe_harness_wg"
-TENSOR = (TC, WG)           # the sources of T14b's tensor-core readings
 launches = 0
 
 
@@ -114,11 +119,12 @@ def load_kernel():
 
 def load_harness_kernel(source: str):
     """Build (once) and load a harness source: csrc/probe_harness.cu
-    (``VPU``, T14a), csrc/probe_harness_tc.cu (``TC``) or
-    csrc/probe_harness_wg.cu (``WG``, T14b)."""
+    (``VPU``, 14 of T14a's bodies), csrc/probe_harness_tc.cu (``TC``, two
+    of T14b's readings) or csrc/probe_harness_wg.cu (``WG``, the
+    whole-card ones)."""
     if source == WG:
         return _build.load("probe_harness_wg",
-                           {"lz4t_probe_harness_wg": "ippipppip"})
+                           {"lz4t_probe_harness_wg": "ippipppnip"})
     if source == TC:
         return _build.load("probe_harness_tc",
                            {"lz4t_probe_harness_tc": "ippippp"})
@@ -128,6 +134,16 @@ def load_harness_kernel(source: str):
 def wg_grid(device) -> int:
     """The blocks of a ``WG`` launch: one on each SM of ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wg_scratch_bytes(name: str, r: int, grid: int) -> int:
+    """The scratch of a ``WG`` launch of body ``name``: each iteration's
+    rows 0-7 (4 KiB, two for ``mxu_f32``'s k-halves) or, for ``ohbuild``,
+    each block's counts of acc's ones (4 KiB); then a sink partial (8
+    bytes) a block. The C entry is told the size and refuses a launch
+    that needs more (its ``scratch_need``)."""
+    rows = grid if name == "ohbuild" else r * (2 if name == "mxu_f32" else 1)
+    return rows * 4 * ACC + 8 * grid
 
 
 # ---- the tool's inputs ----
@@ -196,33 +212,108 @@ def _vpu(i, a):
     return x[:8], x.sum()
 
 
+# The twelve bodies whose iteration is one PyTorch call: the call's
+# arguments in iteration i from the body's inputs (int64 in the plain
+# steps, the tool's types in ``library_call``; indices int64), and the
+# call. Iteration i's whole result is the call on them (``whole``); the
+# plain steps are built on it, and ``library_call`` binds iteration 0's
+# arguments to the same call.
+
+class Call(NamedTuple):
+    args: Callable           # (i, *inputs) -> the call's arguments
+    fn: Callable             # the one PyTorch call
+    label: str
+
+
+def _idx(t, i):
+    """``lcg(t + i)`` of an int32-valued input, as int64."""
+    return _lcg(t.to(torch.int64) + i)
+
+
+def _plus(a, i):
+    """``a + i`` wrapped to int32's range, in ``a``'s dtype."""
+    return signed32(a.to(torch.int64) + i).to(a.dtype)
+
+
+def _ohbuild_args(i, ids):
+    return (torch.arange(512, device=ids.device)[None, :],
+            (_idx(ids, i) >> 7) & 511)
+
+
+def _bitroll_args(i, a, amt):
+    lanes = torch.arange(128, device=a.device)[None, :]
+    return a, 1, (lanes + (_idx(amt, i) & 127)) & 127
+
+
+def _dynrow_args(i, a):
+    row = (i * 37) & 255
+    return (a[row:row + 8],)
+
+
+def _shiftsel_args(i, a, amt):
+    rows = torch.arange(512, device=a.device)
+    return a, 0, (rows + (_idx(amt, i)[:, 0] & 31)) & 511
+
+
+def _sum(x, dim):
+    return torch.sum(x, dim, keepdim=True, dtype=x.dtype)
+
+
+def _cumsum(x, dim):
+    return torch.cumsum(x, dim, dtype=x.dtype)
+
+
+WHOLE = {
+    "ohbuild": Call(_ohbuild_args, torch.eq, "torch.eq of the (1, 512) "
+                    "column iota with idv (2048, 1)"),
+    "extract": Call(lambda i, g, ids: (g, 1, _idx(ids, i) & 127),
+                    torch.gather, "torch.gather(g2048, 1, idx)"),
+    "red1": Call(lambda i, a: (_plus(a, i), 1), _sum, "torch.sum over dim 1"),
+    "red0": Call(lambda i, a: (_plus(a, i), 0), _sum, "torch.sum over dim 0"),
+    "bitroll": Call(_bitroll_args, torch.gather,
+                    "torch.gather(a512, 1, idx)"),
+    "vlookup": Call(lambda i, tbl, idx1: (tbl, 0, _idx(idx1, i) & 127),
+                    torch.gather, "torch.gather(tbl, 0, idx)"),
+    "fori": Call(lambda i, small: (small, torch.float32), torch.Tensor.to,
+                 "small.to(torch.float32), the tool's astype"),
+    "dynrow": Call(_dynrow_args, torch.clone,
+                   "torch.clone of the 8 rows a512[row:row + 8]"),
+    "statrow": Call(lambda i, a: (a[8:16], i), torch.add,
+                    "torch.add(a512[8:16], i)"),
+    "cumsum_shift": Call(lambda i, a: (_plus(a, i), 0), _cumsum,
+                         "torch.cumsum(x, 0, dtype=torch.int32)"),
+    "transpose": Call(lambda i, x128: (_plus(x128, i),),
+                      lambda x: x.t().contiguous(), "x128.t().contiguous()"),
+    "shiftsel": Call(_shiftsel_args, torch.index_select,
+                     "torch.index_select(a512, 0, idx)"),
+}
+
+
+def whole(name: str, i: int, *ins: torch.Tensor) -> torch.Tensor:
+    """Iteration ``i``'s whole result of body ``name`` (``WHOLE``), an
+    int64 result wrapped to int32's range."""
+    c = WHOLE[name]
+    v = c.fn(*c.args(i, *ins))
+    return signed32(v) if v.dtype == torch.int64 else v
+
+
 def _ohbuild(i, ids):
-    idv = (_lcg(ids + i) >> 7) & 511
-    cols = torch.arange(512, device=ids.device)
-    oh = cols[None, :] == idv
+    oh = whole("ohbuild", i, ids)
     flat = torch.arange(2048 * 512, device=ids.device).reshape(2048, 512)
     return oh[:8, :128].to(torch.int64), torch.where(oh, flat, 0).sum()
 
 
 def _extract(i, g, ids):
-    v = g.gather(1, _lcg(ids + i) & 127)
+    v = whole("extract", i, g, ids)
     return v[:8], v.view(torch.int32).to(torch.int64).sum()
 
 
-def _red1(i, a):
-    v = signed32(signed32(a + i).sum(1, keepdim=True))
-    return v[:8], v.sum()
-
-
-def _red0(i, a):
-    v = signed32(signed32(a + i).sum(0, keepdim=True))
-    return v, v.sum()
-
-
-def _bitroll(i, a, amt):
-    lanes = torch.arange(128, device=a.device)
-    x = a.gather(1, (lanes[None, :] + (_lcg(amt + i) & 127)) & 127)
-    return x[:8], x.sum()
+def _rows(name: str):
+    """The step of a body whose rows 0-7 enter acc."""
+    def step(i, *ins):
+        v = whole(name, i, *ins)
+        return v[:8], v.sum()
+    return step
 
 
 def _chained_roll(dim: int):
@@ -235,39 +326,26 @@ def _chained_roll(dim: int):
 
 
 def _vlookup(i, tbl, idx1):
-    v = tbl.gather(0, _lcg(idx1 + i) & 127)
+    v = whole("vlookup", i, tbl, idx1)
     return v[:, :128], v.sum()
 
 
 def _fori(i, small):
-    return small, small.sum()
+    return whole("fori", i, small), small.sum()
 
 
-def _dynrow(i, a):
-    row = (i * 37) & 255
-    v = a[row:row + 8]
-    return v, v.sum()
-
-
-def _statrow(i, a):
-    v = signed32(a[8:16] + i)
-    return v, v.sum()
-
-
-def _cumsum_shift(i, a):
-    x = signed32(signed32(a + i).cumsum(0))
-    return x[:8], x.sum()
-
-
-def _transpose(i, x128):
-    t = signed32(x128 + i).T
-    return t[:8], t.sum()
-
-
-def _shiftsel(i, a, amt):
-    rows = torch.arange(512, device=a.device)[:, None]
-    sel = a[((rows + (_lcg(amt + i) & 31)) & 511)[:, 0]]
-    return sel[:8], sel.sum()
+def library_call(name: str, *ins: torch.Tensor):
+    """The yardstick of a T14a body's time: one PyTorch call that computes
+    iteration 0's whole result (``whole(name, 0, ...)``, in int32, float32
+    or bool) from the body's inputs (in the tool's types), its arguments
+    precomputed; ``(fn, label)``. The three bodies that no single call
+    computes have none (``KeyError``): ``vpu``, ``sroll`` and ``lroll``
+    are chains of operations. Only timings call it."""
+    if name not in WHOLE:
+        raise KeyError(f"no single PyTorch call computes body {name!r}")
+    c = WHOLE[name]
+    args = c.args(0, *ins)
+    return (lambda: c.fn(*args)), c.label
 
 
 # T14b: the tensor-core bodies. Each float reading is a product A_i @ B of
@@ -330,6 +408,7 @@ class Body:
     source: str = VPU        # the kernel's source, csrc/<source>.cu
     sink: torch.dtype = torch.int32
     exact: bool = True       # out equals the plain version's bit for bit
+    r_limit: int = 1 << 31   # R must be below it
 
 
 # ops: for T14a's bodies, on the vector unit (at LANES a clock an SM), the
@@ -352,19 +431,21 @@ class Body:
 BODIES = {b_name: Body(*fields) for b_name, fields in {
     "vpu": ("vpu_16ops_512x128", 105, ("a512",), (16384, 2097152),
             (1024, 8192), 512 * 128 * 16, 25 * N + 2 * ACC, 4 * N, _vpu),
+    # ohbuild's kernel counts acc's ones in integers: exact below 2^24,
+    # where the float32 running sum of 0s and 1s stops counting
     "ohbuild": ("onehot_build_2048x512", 144, ("ids",), (4096, 262144),
-                (384, 3072), 2048, 2 * 2048 + 2048 * 256 + ACC, 4 * 2048,
-                _ohbuild),
+                (1024, 8192), 2048, 2 * 2048 + 2048 * 256 + ACC, 4 * 2048,
+                _ohbuild, LANES, WG, torch.int32, True, 1 << 24),
     "extract": ("lane_extract_2048x128", 155, ("g2048", "ids"),
                 (4096, 262144), (8192, 65536), 2048, 2 * 2048 + ACC,
                 8 * 2048, _extract),
     "red1": ("reduce_lanes_512x128", 168, ("a512",), (16384, 1048576),
-             (4096, 32768), 1, N // 2 + 8 + ACC, 4 * N, _red1),
+             (4096, 32768), 1, N // 2 + 8 + ACC, 4 * N, _rows("red1")),
     "red0": ("reduce_sublanes_512x128", 175, ("a512",), (16384, 1048576),
-             (8192, 65536), 1, N // 2 + 128 + ACC, 4 * N, _red0),
+             (8192, 65536), 1, N // 2 + 128 + ACC, 4 * N, _rows("red0")),
     "bitroll": ("bitroll7_lanes_512x128", 183, ("a512", "amt"),
                 (8192, 262144), (4096, 32768), 512, 2 * 512 + 2 * ACC,
-                4 * N + 4 * 512, _bitroll),
+                4 * N + 4 * 512, _rows("bitroll")),
     "sroll": ("chained8_sublane_roll_512x128", 197, ("a512",),
               (8192, 262144), (2048, 16384), 8, 8 * N + 2 * ACC, 4 * N,
               _chained_roll(0)),
@@ -378,24 +459,24 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
              (1 << 21, 1 << 24), 1, ACC, 4 * ACC, _fori),
     "dynrow": ("dyn_sublane_read8_512x128", 265, ("a512",),
                (16384, 1048576), (1 << 18, 1 << 21), 1, 2 * ACC, 4 * ACC,
-               _dynrow),
+               _rows("dynrow")),
     "statrow": ("static_sublane_read8_512x128", 275, ("a512",),
                 (16384, 1048576), (1 << 19, 1 << 22), 1, 3 * ACC, 4 * ACC,
-                _statrow),
+                _rows("statrow")),
     "cumsum_shift": ("cumsum_logshift_rows_512x128", 284, ("a512",),
                      (2048, 65536), (2048, 16384), 512 * 128, N + 2 * ACC,
-                     8 * N, _cumsum_shift),
+                     8 * N, _rows("cumsum_shift")),
     "transpose": ("transpose_128x512", 318, ("x128",), (2048, 65536),
-                  (4096, 32768), 1, N + 2 * ACC, 4 * N, _transpose),
+                  (4096, 32768), 1, N + 2 * ACC, 4 * N, _rows("transpose")),
     "shiftsel": ("shiftsel32_rows_512x128", 327, ("a512", "amt"),
                  (2048, 65536), (2048, 16384), 512 * 128, 2 * 512 + 2 * ACC,
-                 4 * N + 4 * 512, _shiftsel),
+                 4 * N + 4 * 512, _rows("shiftsel")),
     "mxu_bf16": ("mxu_512x512x128_bf16", 115, ("mA", "mB"), (8192, 524288),
                  (512, 4096), MXU, 2 * MXU, 2 * (512 * 512 + N),
                  _product("mxu_bf16"), BF16, TC, torch.float64, False),
     "mxu_f32": ("mxu_512x512x128_f32", 115, ("mA32", "mB32"),
                 (8192, 524288), (256, 2048), MXU, 2 * MXU,
-                4 * (512 * 512 + N), _product("mxu_f32"), TF32, TC,
+                4 * (512 * 512 + N), _product("mxu_f32"), TF32, WG,
                 torch.float64, False),
     "gather": ("onehot_rowgather_2048q_512rows", 130, ("ids", "data_bf"),
                (4096, 262144), (256, 2048), 2048, 2 * 2048 * N,
@@ -413,6 +494,9 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
 # that source in BODIES
 BODY_ID = {b_name: [n for n in BODIES if BODIES[n].source == b.source
                     ].index(b_name) for b_name, b in BODIES.items()}
+# T14a's vector-unit bodies and T14b's tensor-core readings, by rate
+T14A = tuple(n for n, b in BODIES.items() if b.rate == LANES)
+T14B = tuple(n for n, b in BODIES.items() if b.rate != LANES)
 # the tool's readings in its order
 ORDER = ("vpu", "mxu_bf16", "mxu_f32", "gather", "ohbuild", "extract",
          "red1", "red0", "bitroll", "sroll", "lroll", "vlookup", "fori",
@@ -447,8 +531,10 @@ def check_harness_args(name: str, r: int, inputs) -> torch.device:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise TypeError(f"{k} must be {dtype} {shape}, got {t.dtype} "
                             f"{tuple(t.shape)}")
-    if not 0 <= r < 1 << 31:
-        raise ValueError(f"r must be in [0, 2^31), got {r}")
+    limit = BODIES[name].r_limit
+    if not 0 <= r < limit:
+        raise ValueError(f"r must be in [0, 2^{limit.bit_length() - 1}) "
+                         f"for {name}, got {r}")
     return check_device(*inputs)
 
 
@@ -472,11 +558,10 @@ def harness(name: str, r: int, *inputs: torch.Tensor, device="cuda"
     sink = torch.empty((), dtype=body.sink, device=dev)
     extra = []
     if body.source == WG:
-        # each iteration's rows 0-7, then a partial sink a block
         grid = wg_grid(dev)
-        scratch = torch.empty(r * 4 * ACC + 8 * grid, dtype=torch.uint8,
-                              device=dev)
-        extra = [scratch.data_ptr(), grid]
+        scratch = torch.empty(wg_scratch_bytes(name, r, grid),
+                              dtype=torch.uint8, device=dev)
+        extra = [scratch.data_ptr(), scratch.numel(), grid]
     _build.check(entry(BODY_ID[name], *ptrs, r, out.data_ptr(),
                        sink.data_ptr(), *extra, _build.stream(dev)),
                  f"{body.source} {name}")

@@ -18,6 +18,7 @@ from lz4_sgori_tpu import blocks as JB
 from lz4_sgori_tpu import golden, native
 from lz4_sgori_tpu.utils import oracle
 from lz4_sgori_tpu.utils.stats import Stats
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 BS = 16384          # the smallest block of the seg engine's v7 decode band
 

@@ -8,6 +8,7 @@ port does not serve."""
 import pytest
 
 from lz4_sgori_torch import cli
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 
 def test_compress_decompress_files(tmp_path, fixtures, capsys):

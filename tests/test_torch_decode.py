@@ -13,6 +13,7 @@ from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden
 from lz4_sgori_tpu.utils import oracle
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 
 def _pack(payloads, width=None):

@@ -18,6 +18,7 @@ from lz4_sgori_torch.ops.kernels import gaps as G
 from lz4_sgori_torch.ops.kernels import parse_enc3_deep as K8E
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_tpu import golden
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 LOREM = (b"Lorem ipsum dolor sit amet, consectetur adipiscing elit, sed "
          b"do eiusmod tempor incididunt ut labore et dolore magna aliqua. ")

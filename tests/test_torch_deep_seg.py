@@ -17,6 +17,7 @@ from lz4_sgori_torch.ops.kernels import gaps as G
 from lz4_sgori_torch.ops.kernels import parse_seg_deep as K8S
 from lz4_sgori_tpu import golden
 from test_torch_deep import _batch, _piecewise_cases, deep_blocks
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("bs,accel", [(16384, 1), (16384, 8), (65536, 1)])

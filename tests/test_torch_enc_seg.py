@@ -11,6 +11,7 @@ from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from lz4_sgori_tpu import golden
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 LOREM = (b"Lorem ipsum dolor sit amet, consectetur adipiscing elit, sed "
          b"do eiusmod tempor incididunt ut labore et dolore magna aliqua. ")

@@ -25,6 +25,7 @@ from lz4_sgori_torch.ops.kernels import mcode as M
 from lz4_sgori_torch.ops.kernels import parse_enc3_mlen as K10C
 from lz4_sgori_torch.ops.kernels import parse_seg_mlen as K10B
 from lz4_sgori_tpu import golden
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 LOREM = (b"Lorem ipsum dolor sit amet, consectetur adipiscing "
          b"elit, sed do eiusmod tempor incididunt ut labore. ")

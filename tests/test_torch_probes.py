@@ -26,6 +26,7 @@ from lz4_sgori_torch.probes import microbench4 as T78
 from lz4_sgori_torch.probes import microbench6 as T6
 from lz4_sgori_torch.probes import mul32, sort_probe as T4, wrap32
 from lz4_sgori_tpu.ops.pallas import lockstep as LK
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("sort_probe", "dma_probe", "microbench6", "microbench4")

@@ -29,6 +29,7 @@ from lz4_sgori_torch import probes
 from lz4_sgori_torch.ops.kernels import _build
 from lz4_sgori_torch.probes import microbench2 as T15
 from lz4_sgori_torch.probes import microbench3 as T3
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("microbench3", "microbench2")

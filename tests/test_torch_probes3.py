@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lz4_sgori_torch import probes
 from lz4_sgori_torch.ops.kernels import _build
 from lz4_sgori_torch.probes import microbench2 as T14
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = ("jax_compilation_cache_dir",
@@ -211,12 +212,15 @@ def test_t14a_equals_the_tool(tool, name):
 
 def test_t14a_bodies_are_the_tools():
     """The table lists the tool's 15 vector-unit readings, with its repeat
-    counts, every line it cites opens a body of that name, and the
-    kernel's switch takes the bodies in the table's order."""
+    counts, every line it cites opens a body of that name, ``ohbuild``
+    runs on every SM (``probe_harness_wg``) and ``probe_harness.cu``'s
+    switch takes the other 14 in the table's order."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
-    t14a = {n: b for n, b in T14.BODIES.items() if b.source == T14.VPU}
+    t14a = {n: T14.BODIES[n] for n in T14.T14A}
     assert set(t14a) == set(TOOL_BODIES)
+    assert [n for n, b in t14a.items() if b.source != T14.VPU] == ["ohbuild"]
+    assert t14a["ohbuild"].source == T14.WG
     assert [n for n in T14.ORDER if n in t14a] == list(t14a)
     for name, body in t14a.items():
         assert lines[body.line - 1].strip().startswith(f"def body_{name}(")
@@ -227,7 +231,8 @@ def test_t14a_bodies_are_the_tools():
                            "probe_harness.cu")) as f:
         cases = re.findall(r"case (\d+): return launch<(\w+)>", f.read())
     assert [(int(k), s.lower()) for k, s in cases] == [
-        (T14.BODY_ID[n], n.replace("_", "")) for n in t14a]
+        (T14.BODY_ID[n], n.replace("_", "")) for n, b in t14a.items()
+        if b.source == T14.VPU]
 
 
 # ---- sink: numpy models of three bodies ----

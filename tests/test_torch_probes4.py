@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lz4_sgori_torch.ops.kernels import _build
 from lz4_sgori_torch.probes import microbench2 as T14
 from test_torch_probes3 import _OnCuda, tool  # noqa: F401 (a fixture)
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC = ("mxu_bf16", "mxu_f32", "gather", "cumsum_mxu", "cumsum_mxu_lane")
@@ -148,16 +149,18 @@ def test_t14b_tool_and_plain_within_the_reference(tool, name):
 def test_t14b_bodies_are_the_tools():
     """The five readings with the tool's names, lines and repeat counts,
     each kernel source's switch in the order of its bodies in the table
-    (``probe_harness_tc``: ``mxu_bf16``, ``mxu_f32``, ``cumsum_mxu_lane``;
-    ``probe_harness_wg``: ``gather``, ``cumsum_mxu``), the rates an SM,
-    the card counts of ``cumsum_mxu`` below 2^20 (its rows 0-7 exact), and
-    the tool's 20 readings named through ``BODIES``."""
+    (``probe_harness_tc``: ``mxu_bf16``, ``cumsum_mxu_lane``;
+    ``probe_harness_wg``: T14a's ``ohbuild``, then ``mxu_f32``, ``gather``,
+    ``cumsum_mxu``), the rates an SM, the card counts of ``cumsum_mxu``
+    below 2^20 (its rows 0-7 exact), and the tool's 20 readings named
+    through ``BODIES``."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
-    tc = [n for n, b in T14.BODIES.items() if b.source in T14.TENSOR]
-    assert tc == list(TC)
+    assert T14.T14B == TC
     assert [n for n in TC if T14.BODIES[n].source == T14.WG] == [
-        "gather", "cumsum_mxu"]
+        "mxu_f32", "gather", "cumsum_mxu"]
+    assert [n for n in TC if T14.BODIES[n].source == T14.TC] == [
+        "mxu_bf16", "cumsum_mxu_lane"]
     tool_counts = {"mxu_bf16": (8192, 524288), "mxu_f32": (8192, 524288),
                    "gather": (4096, 262144), "cumsum_mxu": (4096, 131072),
                    "cumsum_mxu_lane": (2048, 65536)}
@@ -182,7 +185,7 @@ def test_t14b_bodies_are_the_tools():
                                f"{source}.cu")) as f:
             cases = re.findall(pattern, f.read())
         assert [(int(k), s.lower().replace("_", "")) for k, s in cases] == [
-            (T14.BODY_ID[n], n.replace("_", "")) for n in TC
+            (T14.BODY_ID[n], n.replace("_", "")) for n in T14.BODIES
             if T14.BODIES[n].source == source]
 
 

@@ -24,6 +24,7 @@ from lz4_sgori_torch.retired import lockstep_v9 as T3
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden
 from lz4_sgori_tpu.utils import oracle
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 RETIRED = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools", "retired")

@@ -11,6 +11,7 @@ from lz4_sgori_torch import routing as R
 from lz4_sgori_torch.ops.decode import decompress_blocks_device
 from lz4_sgori_torch.ops.encode import compress_blocks_device
 from lz4_sgori_tpu.ops import routing as J
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 FIO_SIZES = [4096, 8192, 16384, 32768, 65536, 131072, 262144,
              524288, 1048576, 2097152, 4194304, 96 * 1024, 65536 + 4096]

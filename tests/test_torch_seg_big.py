@@ -18,6 +18,7 @@ from lz4_sgori_torch.ops.encode import compress_blocks_device
 from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
 from lz4_sgori_tpu import golden
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 LOREM = (b"Lorem ipsum dolor sit amet, consectetur adipiscing elit, sed "
          b"do eiusmod tempor incididunt ut labore et dolore magna aliqua. ")

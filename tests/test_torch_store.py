@@ -11,6 +11,7 @@ from lz4_sgori_torch.ops.kernels import lockstep_v6 as K5
 from lz4_sgori_torch.ops.kernels import parse_enc3 as K7
 from lz4_sgori_tpu import blocks as JB
 from lz4_sgori_tpu import store as JS
+from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture
