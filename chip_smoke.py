@@ -2,14 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-eight CUDA sources of the port from
+Builds the twenty-seven CUDA sources of the port from
 ``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 48
 kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
-T14a's 15 harness bodies and T14b's 5 tensor-core readings three: 14
-bodies on one SM in ``probe_harness``, ``mxu_bf16`` and
-``cumsum_mxu_lane`` on one SM in ``probe_harness_tc``, ``ohbuild``,
-``mxu_f32``, ``gather`` and ``cumsum_mxu`` on every SM in
-``probe_harness_wg``) and
+T14a's 15 harness bodies and T14b's 5 tensor-core readings two: 14
+bodies on one SM in ``probe_harness``, ``ohbuild`` and the five
+tensor-core readings on every SM in ``probe_harness_wg``) and
 drives seven paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
@@ -162,7 +160,7 @@ state step, T13 the scratch capacity probe, T14a the primitive-rate
 harness around 15 vector-unit bodies, T14b its 5 tensor-core readings,
 T15 the dependent scalar walk; kernels probe_sort, probe_dma,
 probe_table, probe_banded, probe_lane, probe_step, probe_smem,
-probe_harness, probe_harness_tc, probe_harness_wg and probe_walk) at the
+probe_harness, probe_harness_wg and probe_walk) at the
 tools' shapes and seeds, in ``_smoke_probes``:
 
 33. each probe against its plain version exactly: T4 at logN 10 and 16
@@ -180,9 +178,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
     bit, every other out (kernel and plain version) within E of the
     float64 reference (``harness_reference``) and every float sink within
-    the summed bound; the four whole-card readings (``probe_harness_wg``:
-    ``ohbuild``, ``mxu_f32``, ``gather``, ``cumsum_mxu``; the grid
-    printed) at R 0, 1, 3, 33 (whole waves of items), 300 and 301 (a
+    the summed bound; the six whole-card readings (``probe_harness_wg``:
+    ``ohbuild`` and the five tensor-core readings; the grid printed)
+    at R 0, 1, 3, 33 (whole waves of items), 300 and 301 (a
     partial last wave), twice at each R with the same bits, held as
     above;
 34. the probe path with the counters reset just before: each probe's
@@ -198,18 +196,32 @@ tools' shapes and seeds, in ``_smoke_probes``:
     SMs x ``Body.rate`` (128 lanes; 4096 dense bf16 or 2048 TF32 FLOP) x
     its maximum SM clock; each T14 body no faster than that figure on
     the SMs it uses (one; every SM for ``probe_harness_wg``'s); each
-    T14 reading that one PyTorch call computes in turns with that call
-    on iteration 0's operands, precomputed, on the whole card (T14b:
-    ``torch.mm`` of one iteration's product, float32 result; T14a's
-    twelve: ``microbench2.library_call``, ``torch.eq`` for ``ohbuild``,
+    row that one PyTorch call computes in turns with that call on its
+    operands, precomputed, on the whole card (T14b: ``torch.mm`` of one
+    iteration's product, float32 result; T14a's twelve:
+    ``microbench2.library_call``, ``torch.eq`` for ``ohbuild``,
     ``torch.gather``, ``torch.sum``, ``torch.cumsum``, a transposed copy,
     ``torch.index_select``, ``torch.add``, ``torch.clone``, a float32
-    conversion), ``LIBRARY_CALLS`` calls a turn, its ``library_ms`` the
-    call's time times the kernel's R iterations, and the factor (the
-    kernel's us an iteration over the call's);
-36. T4 in turns with ``torch.sort``, then the ranking of every row with
-    a library time by its factor. No single PyTorch call computes the
-    looped functions of T5-T13 and T15, nor three of T14a's bodies:
+    conversion; T5, T9 and T10, whose rounds do not depend on one
+    another: round 0's ``torch.gather`` or ``index_put_``,
+    ``dma_probe.library_call`` and ``microbench3.library_call``, against
+    the kernel's time a round by differencing two round counts), each
+    call timed two ways: its device time, ``LIBRARY_CALLS`` calls
+    captured into a CUDA graph and replayed (``graph_ms``, a measuring
+    instrument here only; a call that cannot be captured fails the
+    run), and its eager time, the same calls from Python (``time_ms``,
+    what a Python caller pays, which a call shorter than its dispatch
+    reads as the host's time); its ``library_ms`` the device time times
+    the kernel's iterations or rounds, its ``library_eager_ms`` the
+    eager one, and both factors (the kernel's time an iteration over the
+    call's);
+36. T4 in turns with ``torch.sort`` (both ways), then the ranking of
+    every priced row by its device factor, the eager one beside it. No
+    single PyTorch call computes the looped functions of T6 (``getk``:
+    its K gets XORed), T7 (K gets, a sum and a mask), T8 (a 26-word
+    extract and a sum), T11 (three selects and an add), T12 (30 ops) or
+    T15 (a dependent load and two adds), each round carrying state to
+    the next, nor T13 (a capacity probe), nor three of T14a's bodies:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
 Any failure exits non-zero with no result line. It needs a CUDA card
@@ -306,7 +318,7 @@ PROBE_HARNESS_PLAIN = 64
 # below it) and statrow (rows 8-15) read; every other body reads all of
 # its inputs within a call of the card's counts
 HARNESS_READS = {"dynrow": 263 * 128 * 4, "statrow": 8 * 128 * 4}
-# calls in each timing of a T14 reading's library call
+# calls in each timing of a row's library call, eager and in a CUDA graph
 LIBRARY_CALLS = 200
 
 KERNELS = [
@@ -717,6 +729,34 @@ def _smoke(torch, start: float) -> int:
         sync()
         return a.elapsed_time(b) / reps
 
+    def graph_ms(fn, calls, replays=5):
+        """The card's own time of one call of ``fn``: ``calls`` calls
+        captured into one CUDA graph (after a warm-up on a side stream),
+        replayed once, then CUDA events around ``replays`` replays, over
+        ``replays`` x ``calls``. No Python runs between the launches, so
+        a call shorter than its dispatch no longer reads as the host's
+        time. A call that cannot be captured raises."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        sync()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        sync()
+        return a.elapsed_time(b) / (replays * calls)
+
     def maxdiff(x, y):
         if x.numel() == 0:
             return 0
@@ -904,7 +944,7 @@ def _smoke(torch, start: float) -> int:
     rm = _smoke_mlen(torch, data, raw, rlen, container, card, time_ms,
                      maxdiff, mods)
     rr = _smoke_retired(torch, data, card, time_ms, maxdiff, mods)
-    rp = _smoke_probes(torch, card, time_ms, maxdiff, mods)
+    rp = _smoke_probes(torch, card, time_ms, graph_ms, maxdiff, mods)
     parts = (r4, rb, rd, rm, rr, rp)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
@@ -929,6 +969,7 @@ def _smoke(torch, start: float) -> int:
             "ms": sub_times[key][0], "plain_ms": sub_times[key][1],
             "bound_ms": bound, "bound_by": by,
             "library_ms": rp["library"].get(key),
+            "library_eager_ms": rp["library_eager"].get(key),
             **({"library_of": rp["library_of"][key]}
                if key in rp["library_of"] else {})})
     for k in record["kernels"]:
@@ -1981,13 +2022,18 @@ def env_var(name: str, value: str | None):
             os.environ[name] = prev
 
 
+def turns(*timers):
+    """The mean of two readings of each timer, taken in turns (a, b, c,
+    c, b, a), so that a drift of the card's clock falls on all."""
+    got = [[t()] for t in timers]
+    for g, t in zip(reversed(got), reversed(timers)):
+        g.append(t())
+    return [sum(g) / 2 for g in got]
+
+
 def in_turns(time_ms, fa, fb, reps: int):
-    """Mean times of ``fa`` and ``fb`` taken in turns (a, b, b, a), so
-    that a drift of the card's clock falls on both."""
-    ta, tb = [time_ms(fa, reps)], [time_ms(fb, reps)]
-    tb.append(time_ms(fb, reps))
-    ta.append(time_ms(fa, reps))
-    return sum(ta) / 2, sum(tb) / 2
+    """Mean times of ``fa`` and ``fb`` taken in turns (a, b, b, a)."""
+    return tuple(turns(lambda: time_ms(fa, reps), lambda: time_ms(fb, reps)))
 
 
 def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
@@ -2462,15 +2508,18 @@ def banded_cells(torch, tape, pos0, reps: int) -> int:
     return int(hit.sum())
 
 
-def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
-    """Phases 33-36: the design probes of ``tools/`` (T4-T13, T15) at the
+def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
+                  ) -> dict:
+    """Phases 33-36: the design probes of ``tools/`` (T4-T15) at the
     tools' shapes and seeds. Returns their errors, launch counts, per-call
-    times and T4's library time for the record."""
+    times and the library times of the rows that one PyTorch call prices
+    (on the card, from a CUDA graph, and eager) for the record."""
     from lz4_sgori_torch.probes import dma_probe as P5
     from lz4_sgori_torch.probes import microbench2 as P15
     from lz4_sgori_torch.probes import microbench3 as P3
     from lz4_sgori_torch.probes import microbench4 as P78
     from lz4_sgori_torch.probes import microbench6 as P6
+    from lz4_sgori_torch.probes import per_iter
     from lz4_sgori_torch.probes import sort_probe as P4
 
     dev = torch.device(DEVICE)
@@ -2814,13 +2863,35 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
             if sub_times[k][0] < v * sms / used[k]}
     need(not fast, f"T14 bodies faster than their operations on the SMs "
          f"they use (kernel ms, figure ms, SMs): {fast}")
-    # each T14 reading with a library call in turns with that one PyTorch
-    # call on iteration 0's operands, precomputed, on the whole card (the
-    # port never calls it): T14b's torch.mm of the product, T14a's twelve
-    # (microbench2.library_call); library_ms is the call's time times the
-    # R iterations of the kernel's call, the factor the kernel's time an
-    # iteration over the call's
-    library, library_of, factor = {}, {}, {}
+    # each row that one PyTorch call computes, in turns with that call on
+    # its operands, precomputed, on the whole card (the port never calls
+    # it): the call's device time from a CUDA graph of LIBRARY_CALLS calls
+    # (graph_ms) and its eager time, LIBRARY_CALLS calls from Python
+    # (time_ms), which a call shorter than its dispatch reads as the
+    # host's; library_ms is the device time times the iterations (or
+    # rounds) of the kernel's call, the factor the kernel's time an
+    # iteration over the call's device time
+    library, library_eager, library_of = {}, {}, {}
+    factor, eager_factor = {}, {}
+
+    def price(key, kernel_ms, fn, how, what, n, calls=LIBRARY_CALLS):
+        """Time the kernel (``kernel_ms()``: ms an iteration) and ``fn``
+        both ways in turns; record the row's library times and factors."""
+        def on_card():
+            try:
+                return graph_ms(fn, calls)
+            except Exception as e:   # the capture's own error, named
+                raise Failed(f"{key}: {how} cannot be captured into a CUDA "
+                             f"graph ({type(e).__name__}: {e})") from e
+        ker, dev_ms, eager = turns(kernel_ms, on_card,
+                                   lambda: time_ms(fn, calls))
+        library[key], library_eager[key] = dev_ms * n, eager * n
+        library_of[key] = (f"{how}, computing {what}, in turns with the "
+                           f"kernel: its device time from a CUDA graph of "
+                           f"{calls} calls, x {n}")
+        factor[key], eager_factor[key] = ker / dev_ms, ker / eager
+        return ker, dev_ms, eager
+
     for b, body in P15.BODIES.items():
         key, n, ins = HARNESS + b, body.card[1], harness_ins[b]
         if b in P15.T14B:
@@ -2832,37 +2903,70 @@ def _smoke_probes(torch, card: str, time_ms, maxdiff, mods) -> dict:
         else:
             continue
         # a call on one SM takes 50-200 ms, one on every SM under 2 ms
-        ker, lib = in_turns(time_ms, calls[key][0], lambda fn=fn: [
-            fn() for _ in range(LIBRARY_CALLS)], kernel_calls[key] // 2)
-        lib /= LIBRARY_CALLS
-        library[key] = lib * n
-        library_of[key] = (f"{how}, computing {what}, in turns with the "
-                           f"kernel, x R {n}")
-        factor[key] = ker / n / lib
-        print(f"[{card}] {key} in turns (kernel, call, call, kernel): "
-              f"kernel {ker / n * 1e3:.4f} us an iteration on "
+        ker, dev_ms, eager = price(
+            key, lambda key=key, n=n: time_ms(
+                calls[key][0], kernel_calls[key] // 2) / n,
+            fn, how, what, n)
+        print(f"[{card}] {key} in turns (kernel, graph, eager, eager, "
+              f"graph, kernel): kernel {ker * 1e3:.4f} us an iteration on "
               f"{used[key]} SM{'s' if used[key] > 1 else ''} "
               f"({op_bound[key] * sms / used[key] / n * 1e3:.4f} us its "
-              f"figure there), {how} {lib * 1e3:.4f} us a call on {sms} "
-              f"SMs ({factor[key]:.4f}x"
+              f"figure there), {how} {dev_ms * 1e3:.4f} us a call on the "
+              f"card ({factor[key]:.4f}x), {eager * 1e3:.4f} us eager "
+              f"({eager_factor[key]:.4f}x"
               + (f"; allow_tf32 {torch.backends.cuda.matmul.allow_tf32})"
                  if b in P15.T14B else ")"))
+    # T5, T9 and T10: their rounds do not depend on one another, and one
+    # call computes a round (round 0's, dma_probe and microbench3's
+    # library_call); the kernel's time a round by differencing two round
+    # counts (per_iter, as their main()s)
+    lo9, lo10 = P3.lane_reps(R9), P3.lane_reps(R10)
+    out10 = torch.zeros((R10, P3.L), dtype=torch.int32, device=dev)
+    rounds = {
+        "probe_dma": (lambda k: P5.launch(idx, hbm, w, nl, k),
+                      PROBE_DMA_REPS, P5.library_call(idx, hbm, w, nl),
+                      "round 0's copies", reps5),
+        "probe_gather": (lambda k: P3.gather(t9, k), (lo9, n9),
+                         P3.library_call("gather", t9),
+                         "round 0's 128 reads", n9),
+        "probe_scatter": (lambda k: P3.scatter(R10, k, DEVICE), (lo10, n10),
+                          P3.library_call("scatter", out10),
+                          "round 0's 128 writes", n10),
+    }
+    for key, (run, (lo, hi), (fn, how), what, n) in rounds.items():
+        ker, dev_ms, eager = price(
+            key, lambda run=run, lo=lo, hi=hi: 1e3 * per_iter(run, lo, hi,
+                                                            dev),
+            fn, how, what, n)
+        print(f"[{card}] {key} at {calls[key][3].split(' (')[0]} in turns "
+              f"(kernel, graph, eager, eager, graph, kernel): kernel "
+              f"{ker * 1e6:.3f} ns a round (rounds {lo} and {hi} "
+              f"differenced), {how} {dev_ms * 1e3:.4f} us a call on the "
+              f"card ({factor[key]:.4f}x), {eager * 1e3:.4f} us eager "
+              f"({eager_factor[key]:.4f}x)")
 
     # ---- phase 36: T4 in turns with torch.sort; the ranking ----
-    lib, ker = in_turns(time_ms, lambda: torch.sort(x, dim=0),
-                        lambda: P4.device_sort(x), 10)
-    factor["probe_sort"] = ker / lib
-    print(f"[{card}] T4 at logN {logn} in turns (torch.sort, T4, T4, "
-          f"torch.sort): torch.sort {lib:.4f} ms, T4 {ker:.4f} ms, "
-          f"{ker / lib:.4f}x; no single PyTorch call computes the looped "
-          "function of T5-T13, T15 or three of T14a's bodies (vpu, sroll, "
-          "lroll: chains of operations)")
-    print(f"[{card}] ranking, kernel over its library call (T4 a call; "
-          "T14 an iteration over a call): " + ", ".join(
-              f"{k} {v:.4f}x" for k, v in sorted(factor.items(),
-                                                  key=lambda kv: -kv[1])))
+    ker, dev_ms, eager = price(
+        "probe_sort", lambda: time_ms(lambda: P4.device_sort(x), 10),
+        lambda: torch.sort(x, dim=0), "torch.sort(dim=0)",
+        "the same column sort", 1, calls=10)
+    print(f"[{card}] T4 at logN {logn} in turns (T4, graph, eager, eager, "
+          f"graph, T4): T4 {ker:.4f} ms, torch.sort {dev_ms:.4f} ms on the "
+          f"card ({factor['probe_sort']:.4f}x), {eager:.4f} ms eager "
+          f"({eager_factor['probe_sort']:.4f}x); no single PyTorch call "
+          "computes the looped function of T6 (getk: its K gets XORed), "
+          "T7 (K gets, a sum and a mask a round), T8 (a 26-word extract "
+          "and a sum), T11 (three selects and an add), T12 (30 ops), T13 "
+          "(a capacity probe) or T15 (a dependent load and two adds), each "
+          "round carrying state to the next, nor three of T14a's bodies "
+          "(vpu, sroll, lroll: chains of operations)")
+    print(f"[{card}] ranking, kernel over its library call's device time "
+          "(T4 a call; T5, T9, T10 a round; T14 an iteration; the eager "
+          "factor in brackets): " + ", ".join(
+              f"{k} {v:.4f}x ({eager_factor[k]:.4f}x)" for k, v in sorted(
+                  factor.items(), key=lambda kv: -kv[1])))
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
-            "library": {"probe_sort": lib, **library},
+            "library": library, "library_eager": library_eager,
             "library_of": library_of, "op_bound": op_bound}
 
 

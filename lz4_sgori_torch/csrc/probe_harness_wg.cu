@@ -1,28 +1,28 @@
-// Four readings of the primitive-rate harness written for the whole
+// Six readings of the primitive-rate harness written for the whole
 // H100: from acc = 0 ((8, 128) float32), each iteration i of 0 .. r-1
 // computes the body's whole result and adds its rows [:8] into acc; sink
 // sums every element of every iteration's whole result (ohbuild: the
 // wrapping 32-bit sum of the flat index 512 row + col of each one;
-// gather: of the float32 bit patterns; mxu_f32 and cumsum_mxu: a float64
+// gather: of the float32 bit patterns; the other products: a float64
 // sum of the product).
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
-// _harness.run at :60) around body_ohbuild (:144), body_mxu in f32
-// (:115), body_gather (:130) and body_cumsum_mxu (:296). The other
-// vector-unit bodies stay in probe_harness.cu, mxu_bf16 and
-// cumsum_mxu_lane in probe_harness_tc.cu.
+// _harness.run at :60) around body_ohbuild (:144), body_mxu in bf16 and
+// f32 (:115), body_gather (:130), body_cumsum_mxu (:296) and
+// body_cumsum_mxu_lane (:307). The other vector-unit bodies stay in
+// probe_harness.cu.
 //
 // What bounds it on the H100: the integer and half-precision pipes of
 // every SM (ohbuild: a compare of two bf16 columns a word, 128 lanes a
 // clock an SM) and the tensor cores of every SM (2mnk a product at 4096
-// dense bf16 FLOP a clock an SM, 2048 TF32; the split TF32 of cumsum_mxu
-// doubles its tensor work). The TPU runs the harness sequentially on one
-// core (grid (1,)) with its inputs in VMEM; here a persistent grid of one
-// block an SM walks a static list of work items, so that a call's bits
-// depend only on its inputs and the grid, and read-only operands stay in
-// shared memory across a block's items, as the TPU keeps them in VMEM.
-// Every item computes its whole share of its iteration's result: nothing
-// is reused from another iteration.
+// dense bf16 FLOP a clock an SM, 2048 TF32; the split TF32 of the two
+// cumsums doubles their tensor work). The TPU runs the harness
+// sequentially on one core (grid (1,)) with its inputs in VMEM; here a
+// persistent grid of one block an SM walks a static list of work items,
+// so that a call's bits depend only on its inputs and the grid, and
+// read-only operands stay in shared memory across a block's items, as the
+// TPU keeps them in VMEM. Every item computes its whole share of its
+// iteration's result: nothing is reused from another iteration.
 //
 // - ohbuild: the (2048, 512) one-hot of (lcg(ids + i) >> 7) & 511, items
 //   (iteration, 64-row band) dealt w = blockIdx.x + k gridDim.x; a warp a
@@ -40,16 +40,20 @@
 //   while R < 2^24, where the float32 running sum of 0s and 1s stops
 //   being exact (it saturates at 2^24), so the wrapper and the entry
 //   refuse R >= 2^24 for this body.
-// - mxu_f32: (mA (i & 1) + 1) @ mB, m64n128k8 TF32 with its inputs
-//   rounded by cvt.rna (exact for the tool's inputs, bf16 values). A
-//   block holds one (64-row band, k-half) tile of mA (64 KiB) and mB's
-//   k-half (128 KiB, [n][k]: TF32 wgmma has no transpose) in shared
-//   memory for all its items, both with the 128-byte swizzle: 16 tiles,
-//   tile t on blocks t, t + 16, ... (a grid of at least 16), which take
-//   the iterations in turn; a block's four warpgroups take its items in
-//   turn, so that one's epilogue runs under the others' wgmmas. The factor, a power of two, scales the float32 product (exact).
-//   The two k-halves' partial rows 0-7 of band 0 go to the scratch, and
-//   the second kernel adds them, then adds that into acc.
+// - mxu_bf16 and mxu_f32: (mA (i & 1) + 1) @ mB, one kernel template
+//   over the element type: m64n128k16 bf16 as it is, or m64n128k8 TF32
+//   with the inputs rounded by cvt.rna (exact for the tool's inputs, bf16
+//   values). A block holds one (64-row band, k-part) tile of mA (64 KiB)
+//   and mB's k-part (128 KiB), both K-major ([n][k] for B: TF32 wgmma has
+//   no transpose, and bf16 takes the same layout) with the 128-byte
+//   swizzle: bf16 has one k-part of 512 (8 tiles), TF32 two k-halves of
+//   256 (16 tiles); tile t on blocks t, t + tiles, ... (a grid of at
+//   least the tiles), which take the iterations in turn; a block's four
+//   warpgroups take its items in turn, so that one's epilogue runs under
+//   the others' wgmmas. The factor, a power of two, scales the float32
+//   product (exact). Each k-part's partial rows 0-7 of band 0 go to the
+//   scratch, and the second kernel adds mxu_f32's two, then adds that
+//   into acc.
 // - gather: onehot((lcg(ids + i) >> 7) & 511, 512) @ data_bf, m64n128k16
 //   bf16 -> f32, a 64-row band a warpgroup. The one-hot A is built in
 //   registers from the band's indices, computed by the warpgroup that uses
@@ -67,13 +71,26 @@
 //   (exact for |x| < 2^22, so rows 0-7, sums of at most 8 integers below
 //   2^21, are exact), written K-major ([n][k], TF32 wgmma has no
 //   transpose) with the 128-byte swizzle; two wgmmas a k step.
+// - cumsum_mxu_lane: float32(a512 + i) @ triu, m64n128k8 TF32 with A in
+//   registers, a (64-row band) of a512 held by each block in shared
+//   memory (padded rows: no bank conflict) for all its items, 8 bands,
+//   band b on blocks b, b + 8, ... (a grid of at least 8), which take the
+//   iterations in turn, a block's three warpgroups its items in turn. triu
+//   (0s and 1s, exact in TF32) is held once a block as B, K-major,
+//   swizzled. Each thread forms its own A fragments of x = a + i from the
+//   band and splits them as cumsum_mxu does (hi + lo, exact below 2^22,
+//   so the wrapper and the entry refuse R >= 2^21): a 32-k chunk at a
+//   time, two chunks in flight, two wgmmas (hi, lo) a k step with the
+//   same B; nothing of A passes through shared memory. The sink takes
+//   each thread's elements summed in float32 pairs, as mxu's.
 //
 // Across blocks: the band-0 items of iteration i write its rows 0-7 to
 // scratch[i] (8 x 128 float32, one a k-half for mxu_f32; ohbuild: each
 // block its counts); each block writes its sink partial (a float64, or a
-// uint32); a second kernel of one block adds scratch[0 .. r-1] into acc
-// in iteration order with __fadd_rn (ohbuild: sums the blocks' counts and
-// converts them) and sums the partials in block order. r = 0 gives acc =
+// uint32); a second kernel (32 blocks, a thread a cell) adds
+// scratch[0 .. r-1] into acc in iteration order with __fadd_rn (ohbuild's,
+// of one block: sums the blocks' counts and converts them) and sums the
+// partials in block order. r = 0 gives acc =
 // 0 and sink = 0.
 
 #include <cuda.h>
@@ -161,6 +178,33 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
       ", %64, %65, p, 1, 1;\n}\n"
+      : D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A (64 x 8, registers) B (8 x 128, shared, K-major), TF32; a
+// thread holds A's rows 16 w + g and + 8 (w its warp in the warpgroup, g
+// its lane / 4) at k t and t + 4 (t its lane % 4): a[0] (g, t), a[1]
+// (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (+)= A (64 x 16, shared, K-major) B (16 x 128, shared, K-major), bf16
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : D64
       : "l"(da), "l"(db), "r"(accumulate));
 }
@@ -311,7 +355,7 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// ---- mxu_f32: a (64-row band, k-half) tile a block, resident ----
+// ---- mxu_bf16 and mxu_f32: a (64-row band, k-part) tile a block ----
 
 // d[0] = the float32 sum of d[0 .. 2H) in pairs: d[q] += d[q + H], then H/2
 template <int H>
@@ -323,39 +367,85 @@ __device__ __forceinline__ void pair_sum(float (&d)[64]) {
 
 namespace mf {
 constexpr int kThreads = 512, kWgs = kThreads / 128;
-constexpr int kTiles = 16;         // 8 bands of 64 rows x 2 k-halves
-constexpr int kA = 64 * 128;       // bytes of a (64 m, 32 k) chunk of A
+constexpr int kA = 64 * 128;       // bytes of a (64 m, 128-byte k) chunk of A
 constexpr int kSmem = 1024 + 8 * kA + 8 * kTile + 8 * (kThreads / 32);
 }  // namespace mf
 
-__global__ void __launch_bounds__(mf::kThreads, 1)
-    mxu_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   int r, float* __restrict__ scratch,
-                   double* __restrict__ part) {
-  extern __shared__ uint8_t raw[];
-  uint8_t* as = aligned_smem(raw);      // 8 chunks (64 m, 32 k)
-  uint8_t* bs = as + 8 * mf::kA;        // 8 chunks (128 n, 32 k)
-  double* red = (double*)(bs + 8 * kTile);
-  const int tid = threadIdx.x, tile = blockIdx.x % mf::kTiles;
-  const int band = tile >> 1, kh = tile & 1;
-  // the tile's blocks, and this block's place among them
-  const int blocks = ((int)gridDim.x - tile + mf::kTiles - 1) / mf::kTiles;
-  const int first = blockIdx.x / mf::kTiles;
-  // mA's tile: rows 64 band .., k 256 kh .., TF32, K-major, swizzled
-  for (int e = tid; e < 64 * 64; e += mf::kThreads) {
-    const int m = e >> 6, c = e & 63;  // c: the k quad
-    const float4 v = __ldg(
-        (const float4*)(a + (size_t)(64 * band + m) * 512 + 256 * kh) + c);
-    *(uint4*)(as + (c >> 3) * mf::kA + swz(m, c & 7)) =
-        make_uint4(tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w));
+// The element types of the product. A tile (band, part) is 64 rows of mA
+// by kK of k and mB's kK rows of that part, each 8 chunks of 128 bytes of
+// k: 16-byte pieces p = 0 .. 63 of a row (of A) or column (of B), piece p
+// in chunk p / 8 at place p % 8 of the swizzled row.
+struct F32 {   // TF32 by cvt.rna (exact on bf16 values), two k-halves
+  static constexpr int kParts = 2, kK = 256;
+  // piece p of row m: 4 float of k kK part + 4 p
+  static __device__ uint4 a_piece(const void* a, int band, int part, int m,
+                                  int p) {
+    const float4 v = __ldg((const float4*)((const float*)a +
+                                           (size_t)(64 * band + m) * 512 +
+                                           kK * part) + p);
+    return make_uint4(tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w));
   }
-  // mB's k-half (256 k, 128 n) as 8 chunks (128 n, 32 k), K-major
+  // piece o of column n: 4 float of k kK part + 4 o
+  static __device__ uint4 b_piece(const void* b, int part, int n, int o) {
+    const float* src = (const float*)b + (size_t)(kK * part + 4 * o) * 128 + n;
+    return make_uint4(tf32(__ldg(src)), tf32(__ldg(src + 128)),
+                      tf32(__ldg(src + 256)), tf32(__ldg(src + 384)));
+  }
+  // one k step: 8 k, 32 bytes
+  static __device__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                             int acc) {
+    wgmma_tf32(d, da, db, acc);
+  }
+};
+
+struct Bf16 {  // bf16 as it is, all 512 k in one part
+  static constexpr int kParts = 1, kK = 512;
+  // piece p of row m: 8 bf16 of k 8 p
+  static __device__ uint4 a_piece(const void* a, int band, int, int m,
+                                  int p) {
+    return __ldg((const uint4*)((const uint16_t*)a +
+                                (size_t)(64 * band + m) * 512) + p);
+  }
+  // piece o of column n: 8 bf16 of k 8 o, packed in pairs (k, k + 1)
+  static __device__ uint4 b_piece(const void* b, int, int n, int o) {
+    const uint16_t* src = (const uint16_t*)b + (size_t)8 * o * 128 + n;
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = (uint32_t)__ldg(src + 2 * j * 128) |
+             (uint32_t)__ldg(src + (2 * j + 1) * 128) << 16;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  // one k step: 16 k, 32 bytes
+  static __device__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                             int acc) {
+    wgmma_bf16_ss(d, da, db, acc);
+  }
+};
+
+template <class E>
+__global__ void __launch_bounds__(mf::kThreads, 1)
+    mxu_kernel(const void* __restrict__ a, const void* __restrict__ b, int r,
+               float* __restrict__ scratch, double* __restrict__ part) {
+  constexpr int kTiles = 8 * E::kParts;
+  extern __shared__ uint8_t raw[];
+  uint8_t* as = aligned_smem(raw);      // 8 chunks (64 m, 128 bytes of k)
+  uint8_t* bs = as + 8 * mf::kA;        // 8 chunks (128 n, 128 bytes of k)
+  double* red = (double*)(bs + 8 * kTile);
+  const int tid = threadIdx.x, tile = blockIdx.x % kTiles;
+  const int band = tile / E::kParts, kp = tile % E::kParts;
+  // the tile's blocks, and this block's place among them
+  const int blocks = ((int)gridDim.x - tile + kTiles - 1) / kTiles;
+  const int first = blockIdx.x / kTiles;
+  // mA's tile and mB's part, K-major, swizzled
+  for (int e = tid; e < 64 * 64; e += mf::kThreads) {
+    const int m = e >> 6, p = e & 63;
+    *(uint4*)(as + (p >> 3) * mf::kA + swz(m, p & 7)) =
+        E::a_piece(a, band, kp, m, p);
+  }
   for (int e = tid; e < 128 * 64; e += mf::kThreads) {
-    const int n = e & 127, o = e >> 7;  // o: the k quad
-    const float* src = b + (size_t)(256 * kh + 4 * o) * 128 + n;
-    *(uint4*)(bs + (o >> 3) * kTile + swz(n, o & 7)) =
-        make_uint4(tf32(__ldg(src)), tf32(__ldg(src + 128)),
-                   tf32(__ldg(src + 256)), tf32(__ldg(src + 384)));
+    const int n = e & 127, o = e >> 7;
+    *(uint4*)(bs + (o >> 3) * kTile + swz(n, o & 7)) = E::b_piece(b, kp, n, o);
   }
   fence_proxy_async();
   __syncthreads();
@@ -372,8 +462,7 @@ __global__ void __launch_bounds__(mf::kThreads, 1)
     for (int kc = 0; kc < 8; ++kc) {
       const uint64_t da = desc(as + kc * mf::kA), db = desc(bs + kc * kTile);
 #pragma unroll
-      for (int s = 0; s < 4; ++s)
-        wgmma_tf32(d, da + 2 * s, db + 2 * s, kc | s);
+      for (int s = 0; s < 4; ++s) E::mma(d, da + 2 * s, db + 2 * s, kc | s);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -383,7 +472,7 @@ __global__ void __launch_bounds__(mf::kThreads, 1)
     // E: 6 roundings of their magnitudes), times f
     const float f = (float)((i & 1) + 1);
     if (band == 0 && (tid & 127) < 32)
-      store_rows(d, scratch + ((size_t)i * 2 + kh) * 1024, f);
+      store_rows(d, scratch + ((size_t)i * E::kParts + kp) * 1024, f);
     pair_sum<32>(d);
     sink += (double)(d[0] * f);
   }
@@ -601,24 +690,163 @@ __global__ void __launch_bounds__(cs::kThreads, 1)
   }
 }
 
+// ---- cumsum_mxu_lane: a 64-row band of a512 a block, A in registers ----
+
+namespace cl {
+constexpr int kThreads = 384, kWgs = kThreads / 128;
+constexpr int kBands = 512 / 64;
+constexpr int kPitch = 132;        // words a row of the band: no bank conflict
+constexpr int kSmem = 1024 + 4 * kTile + 64 * kPitch * 4 + 8 * (kThreads / 32);
+}  // namespace cl
+
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    cumsum_lane_kernel(const int* __restrict__ a, const float* __restrict__ triu,
+                       int r, float* __restrict__ scratch,
+                       double* __restrict__ part) {
+  extern __shared__ uint8_t raw[];
+  uint8_t* bs = aligned_smem(raw);             // 4 chunks (128 n, 32 k)
+  int* rows = (int*)(bs + 4 * kTile);          // the band, 64 x kPitch
+  double* red = (double*)(rows + 64 * cl::kPitch);
+  const int tid = threadIdx.x, band = blockIdx.x % cl::kBands;
+  // the band's blocks, and this block's place among them
+  const int blocks =
+      ((int)gridDim.x - band + cl::kBands - 1) / cl::kBands;
+  const int first = blockIdx.x / cl::kBands;
+  // triu (128 k, 128 n) as B, [n][k] K-major, swizzled (0 and 1: exact)
+  for (int e = tid; e < 128 * 32; e += cl::kThreads) {
+    const int n = e & 127, o = e >> 7;  // o: the k quad
+    const float* src = triu + (size_t)4 * o * 128 + n;
+    *(uint4*)(bs + (o >> 3) * kTile + swz(n, o & 7)) =
+        make_uint4(tf32(__ldg(src)), tf32(__ldg(src + 128)),
+                   tf32(__ldg(src + 256)), tf32(__ldg(src + 384)));
+  }
+  for (int e = tid; e < 64 * 32; e += cl::kThreads) {
+    const int m = e >> 5, q = e & 31;
+    *(int4*)(rows + m * cl::kPitch + 4 * q) =
+        __ldg((const int4*)(a + (size_t)(64 * band + m) * 128) + q);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the thread's A elements: rows 16 warp + g and + 8, k t and t + 4 of
+  // each 8-k step
+  const int* r0 = rows + (16 * warp + g) * cl::kPitch + t;
+  const int* r1 = r0 + 8 * cl::kPitch;
+  const uint64_t db = desc(bs);
+  double sink = 0.0;
+  float d[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) d[q] = 0.f;
+  for (int j = wg;; j += cl::kWgs) {
+    const int i = first + blocks * j;
+    if (i >= r) break;
+    // float32(a + i) as hi + lo in TF32, a 32-k chunk at a time, two
+    // chunks in flight: hi + lo of a step, two wgmmas with its B
+    uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t(&h)[4][4] = ah[kc & 1];
+      uint32_t(&l)[4][4] = al[kc & 1];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 32 * kc + 8 * s;
+        const int v[4] = {r0[k], r1[k], r0[k + 4], r1[k + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = __int2float_rn((int)((uint32_t)v[e] + (uint32_t)i));
+          h[s][e] = __float_as_uint(x) & kHi;
+          l[s][e] = tf32(x - __uint_as_float(h[s][e]));
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint64_t b = db + (kc * kTile >> 4) + 2 * s;
+        wgmma_tf32_rs(d, h[s], b, kc | s);
+        wgmma_tf32_rs(d, l[s], b, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+    // rows 0-7 to the scratch; the sink gets the thread's 64 elements
+    // summed in pairs in float32 (within E: 6 roundings of their sum)
+    if (band == 0 && warp == 0) store_rows(d, scratch + (size_t)i * 1024);
+    pair_sum<32>(d);
+    sink += (double)d[0];
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) sink += __shfl_xor_sync(kFull, sink, m);
+  if (lane == 0) red[tid >> 5] = sink;
+  __syncthreads();
+  if (tid == 0) {
+    double tot = 0.0;
+    for (int q = 0; q < cl::kThreads / 32; ++q) tot += red[q];
+    part[blockIdx.x] = tot;
+  }
+}
+
 // acc: scratch[0 .. r-1] added in iteration order, a thread a cell (with
-// kParts 2, iteration i's two k-halves added first); sink: the blocks'
-// partials in block order
+// kParts 2, iteration i's two k-halves added first), on fk::kBlocks blocks
+// of fk::kThreads cells; each block streams its cells' 128-byte column of
+// the rows through a ring of fk::kStages stages in shared memory by
+// cp.async, 8 KiB a stage, so that three stages are in flight while it
+// adds a fourth; sink: block 0 sums the blocks' partials in block order
+namespace fk {
+constexpr int kThreads = 32, kBlocks = 1024 / kThreads, kStages = 4;
+constexpr int kStage = 64 * kThreads;  // floats of a stage
+}  // namespace fk
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
 template <bool kF64, int kParts>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(fk::kThreads)
     finish_kernel(const float* __restrict__ scratch, int r,
                   const void* __restrict__ part, int grid,
                   float* __restrict__ out, void* __restrict__ sink) {
-  const int q = threadIdx.x;
+  constexpr int kRows = fk::kStage / (kParts * fk::kThreads);  // a stage
+  __shared__ __align__(16) float ring[fk::kStages][fk::kStage];
+  const int t = threadIdx.x, col = blockIdx.x * fk::kThreads;
+  const int stages = (r + kRows - 1) / kRows;
+  // stage s: rows s kRows .. of each part, 16 bytes a copy, into the ring
+  auto load = [&](int s) {
+    float* buf = ring[s % fk::kStages];
+    for (int c = t; c < fk::kStage / 4; c += fk::kThreads) {
+      const int row = c / (kParts * fk::kThreads / 4);  // of the stage
+      const int w = c % (kParts * fk::kThreads / 4);    // part, quad
+      const int i = s * kRows + row;
+      if (i < r)
+        cp_async16(buf + 4 * c,
+                   scratch + ((size_t)i * kParts + w / (fk::kThreads / 4)) *
+                                 1024 + col + 4 * (w % (fk::kThreads / 4)));
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int s = 0; s < fk::kStages - 1; ++s) load(s);
   float acc = 0.f;
+  for (int s = 0; s < stages; ++s) {
+    load(s + fk::kStages - 1);  // into the slot that stage s - 1 freed
+    asm volatile("cp.async.wait_group %0;" ::"n"(fk::kStages - 1) : "memory");
+    __syncwarp();
+    const float* buf = ring[s % fk::kStages] + t;
+    const int n = min(kRows, r - s * kRows);
 #pragma unroll 8
-  for (int i = 0; i < r; ++i) {
-    const float* rows = scratch + (size_t)i * kParts * 1024 + q;
-    acc = __fadd_rn(acc, kParts == 2 ? __fadd_rn(rows[0], rows[1024])
-                                     : rows[0]);
+    for (int row = 0; row < n; ++row) {
+      const float* v = buf + row * kParts * fk::kThreads;
+      acc = __fadd_rn(acc, kParts == 2 ? __fadd_rn(v[0], v[fk::kThreads])
+                                       : v[0]);
+    }
+    __syncwarp();  // every lane done with the slot before it is refilled
   }
-  out[q] = acc;
-  if (q == 0) {
+  out[col + t] = acc;
+  if (blockIdx.x == 0 && t == 0) {
     if (kF64) {
       double tot = 0.0;
       for (int b = 0; b < grid; ++b) tot += ((const double*)part)[b];
@@ -673,20 +901,32 @@ int run_ohbuild(const void* ids, int r, void* out, void* sink,
   return (int)cudaGetLastError();
 }
 
-// scratch: r x 8 KiB of rows (two k-halves), then grid x 8 bytes of
-// partials
+// scratch: r x kParts x 4 KiB of rows (the k-parts of each iteration),
+// then grid x 8 bytes of partials; a grid of at least the 8 x kParts tiles
+template <class E>
+int run_mxu(const void* a, const void* b, int r, void* out, void* sink,
+            float* scratch, int grid, cudaStream_t st) {
+  if (grid < 8 * E::kParts) return (int)cudaErrorInvalidValue;
+  void* part = scratch + (size_t)r * E::kParts * 1024;
+  int e;
+  if ((e = shared_bytes(mxu_kernel<E>, mf::kSmem))) return e;
+  mxu_kernel<E><<<grid, mf::kThreads, mf::kSmem, st>>>(a, b, r, scratch,
+                                                        (double*)part);
+  if ((e = (int)cudaGetLastError())) return e;
+  finish_kernel<true, E::kParts><<<fk::kBlocks, fk::kThreads, 0, st>>>(
+      scratch, r, part, grid,
+                                                     (float*)out, sink);
+  return (int)cudaGetLastError();
+}
+
+int run_mxu_bf16(const void* a, const void* b, int r, void* out, void* sink,
+                 float* scratch, int grid, cudaStream_t st) {
+  return run_mxu<Bf16>(a, b, r, out, sink, scratch, grid, st);
+}
+
 int run_mxu_f32(const void* a, const void* b, int r, void* out, void* sink,
                 float* scratch, int grid, cudaStream_t st) {
-  if (grid < mf::kTiles) return (int)cudaErrorInvalidValue;
-  void* part = scratch + (size_t)r * 2 * 1024;
-  int e;
-  if ((e = shared_bytes(mxu_f32_kernel, mf::kSmem))) return e;
-  mxu_f32_kernel<<<grid, mf::kThreads, mf::kSmem, st>>>(
-      (const float*)a, (const float*)b, r, scratch, (double*)part);
-  if ((e = (int)cudaGetLastError())) return e;
-  finish_kernel<true, 2><<<1, 1024, 0, st>>>(scratch, r, part, grid,
-                                             (float*)out, sink);
-  return (int)cudaGetLastError();
+  return run_mxu<F32>(a, b, r, out, sink, scratch, grid, st);
 }
 
 // scratch: r x 4 KiB of rows, then grid x 8 bytes of partials
@@ -698,7 +938,8 @@ int run_gather(const void* ids, const void* data, int r, void* out,
   gather_kernel<<<grid, ga::kThreads, ga::kSmem, st>>>(
       (const int*)ids, (const uint16_t*)data, r, scratch, (uint32_t*)part);
   if ((e = (int)cudaGetLastError())) return e;
-  finish_kernel<false, 1><<<1, 1024, 0, st>>>(scratch, r, part, grid,
+  finish_kernel<false, 1><<<fk::kBlocks, fk::kThreads, 0, st>>>(
+      scratch, r, part, grid,
                                            (float*)out, sink);
   return (int)cudaGetLastError();
 }
@@ -721,7 +962,26 @@ int run_cumsum_mxu(const void* a512, const void* tri, int r, void* out,
   cumsum_kernel<<<grid, cs::kThreads, cs::kSmem, st>>>(
       map, (const int*)a512, r, scratch, (double*)part);
   if ((e = (int)cudaGetLastError())) return e;
-  finish_kernel<true, 1><<<1, 1024, 0, st>>>(scratch, r, part, grid,
+  finish_kernel<true, 1><<<fk::kBlocks, fk::kThreads, 0, st>>>(
+      scratch, r, part, grid,
+                                          (float*)out, sink);
+  return (int)cudaGetLastError();
+}
+
+// scratch: r x 4 KiB of rows, then grid x 8 bytes of partials; a grid
+// of at least the 8 bands
+int run_cumsum_mxu_lane(const void* a512, const void* triu, int r, void* out,
+                        void* sink, float* scratch, int grid,
+                        cudaStream_t st) {
+  if (grid < cl::kBands) return (int)cudaErrorInvalidValue;
+  void* part = scratch + (size_t)r * 1024;
+  int e;
+  if ((e = shared_bytes(cumsum_lane_kernel, cl::kSmem))) return e;
+  cumsum_lane_kernel<<<grid, cl::kThreads, cl::kSmem, st>>>(
+      (const int*)a512, (const float*)triu, r, scratch, (double*)part);
+  if ((e = (int)cudaGetLastError())) return e;
+  finish_kernel<true, 1><<<fk::kBlocks, fk::kThreads, 0, st>>>(
+      scratch, r, part, grid,
                                           (float*)out, sink);
   return (int)cudaGetLastError();
 }
@@ -730,33 +990,37 @@ int run_cumsum_mxu(const void* a512, const void* tri, int r, void* out,
 // KiB of rows (r x 8 KiB for mxu_f32's two k-halves; grid x 4 KiB of
 // counts for ohbuild), then grid x 8 bytes of partials.
 size_t scratch_need(int body, int r, int grid) {
-  size_t rows = body == 0 ? (size_t)grid : (size_t)r * (body == 1 ? 2 : 1);
+  size_t rows = body == 0 ? (size_t)grid : (size_t)r * (body == 2 ? 2 : 1);
   return rows * 4096 + (size_t)grid * 8;
 }
 
 }  // namespace
 
-// body: 0-3 in the order of the bodies of this source in
+// body: 0-5 in the order of the bodies of this source in
 // lz4_sgori_torch.probes.microbench2.BODIES; in0, in1: the body's inputs
 // (in1 null for ohbuild); out: (8, 128) float32; sink: one int32
 // (ohbuild, gather) or float64; scratch: scratch_bytes bytes, at least
 // scratch_need's, else the launch is refused; grid: the blocks, one an SM
-// (mxu_f32: at least 16). ohbuild refuses r >= 2^24 (see its note above).
+// (mxu_f32: at least 16; mxu_bf16, cumsum_mxu_lane: at least 8). ohbuild
+// refuses r >= 2^24, cumsum_mxu_lane r >= 2^21 (see their notes above).
 extern "C" int lz4t_probe_harness_wg(int body, const void* in0,
                                      const void* in1, int r, void* out,
                                      void* sink, void* scratch,
                                      size_t scratch_bytes, int grid,
                                      void* stream) {
   if (r < 0 || r >= 1 << 26 || grid < 1 || (body == 0 && r >= 1 << 24) ||
+      (body == 5 && r >= 1 << 21) ||
       scratch_bytes < scratch_need(body, r, grid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* sc = (float*)scratch;
   switch (body) {
     case 0: return run_ohbuild(in0, r, out, sink, sc, grid, st);
-    case 1: return run_mxu_f32(in0, in1, r, out, sink, sc, grid, st);
-    case 2: return run_gather(in0, in1, r, out, sink, sc, grid, st);
-    case 3: return run_cumsum_mxu(in0, in1, r, out, sink, sc, grid, st);
+    case 1: return run_mxu_bf16(in0, in1, r, out, sink, sc, grid, st);
+    case 2: return run_mxu_f32(in0, in1, r, out, sink, sc, grid, st);
+    case 3: return run_gather(in0, in1, r, out, sink, sc, grid, st);
+    case 4: return run_cumsum_mxu(in0, in1, r, out, sink, sc, grid, st);
+    case 5: return run_cumsum_mxu_lane(in0, in1, r, out, sink, sc, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,10 @@ does for the TPU.
   little-endian byte extract;
 - ``microbench3`` (T9-T13): the per-lane word gather and scatter, the FIFO
   bitroll, the 30-op state step and the scratch capacity probe;
-- ``microbench2`` (T15): the dependent scalar walk over a 512-word table.
+- ``microbench2`` (T14, T15): the primitive-rate harness's 20 readings
+  and the dependent scalar walk over a 512-word table;
+- ``wg_ab``: T14's whole-card readings kernel by kernel (device time a
+  kernel), and an A/B against another version of their source.
 
 Each wrapper runs its plain PyTorch version on a CPU tensor and launches
 its CUDA kernel (``csrc/probe_*.cu``) on a CUDA tensor, or raises. All

@@ -12,6 +12,12 @@ refuse reads past the tape, where the tool's defaults (idx up to
 the bulk copies' 16-byte granule, a ``w``, a tape row or an ``idx`` that
 is not a multiple of 4 words.
 
+``library_call`` gives the one PyTorch call that computes a round's
+copies: round 0's ``(nl, w)`` words, one ``torch.gather`` on the tape
+with the index precomputed (the rounds do not depend on one another).
+``chip_smoke.py`` times the kernel's round against it; the port never
+calls it.
+
     python -m lz4_sgori_torch.probes.dma_probe [nlanes] [rows_per_dma] \
         [--reps LO HI] [--device cpu]
 """
@@ -106,6 +112,20 @@ def run_plain(idx: torch.Tensor, hbm: torch.Tensor, w: int, nl: int,
         stage[:nl, :w] = torch.gather(hbm[:nl], 1, start + r * ROUND + cols)
         acc = acc + stage[0, 0]
     return wrap32(acc).reshape(1, 1)
+
+
+def library_call(idx: torch.Tensor, hbm: torch.Tensor, w: int, nl: int):
+    """The yardstick of a round: one ``torch.gather`` that copies round
+    0's ``w`` words of each of the first ``nl`` lanes' rows from word
+    ``idx[lane]`` of the tape, its ``(nl, w)`` index precomputed; ``(fn,
+    label)``. ``fn()`` is round 0's staging block ``stage[:nl, :w]``.
+    Only timings call it."""
+    check_run_args(idx, hbm, w, nl, 1)
+    index = idx[0, :nl, None].to(torch.int64) + torch.arange(
+        w, device=idx.device)[None, :]
+    rows = hbm[:nl]
+    return (lambda: torch.gather(rows, 1, index)), \
+        f"torch.gather(hbm[:{nl}], 1, idx) of {nl} x {w} words"
 
 
 def inputs(seed: int = 5):

@@ -53,24 +53,26 @@ held within ``harness_reference``'s bound E of the float64 value, and
 ``Body.exact``) bit for bit. The kernel rounds the float32 operands of a
 product to TF32, exact on the tool's inputs (bf16 values, 0/1
 triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
-below 2^22.
+below 2^22 (``cumsum_mxu_lane`` takes R below 2^21, so that ``a512 + i``
+stays there).
 
 ``harness`` launches ``csrc/probe_harness.cu`` (T14a's bodies but
 ``ohbuild``: one block of 1024 threads, ``acc`` in registers, the loop
-over ``r`` in the kernel), ``csrc/probe_harness_tc.cu`` (``mxu_bf16``
-and ``cumsum_mxu_lane``: one block of 256 threads, mma.sync on the
-tensor cores) or ``csrc/probe_harness_wg.cu`` (``ohbuild``, ``mxu_f32``,
-``gather`` and ``cumsum_mxu``: a persistent grid of one block an SM over
-a static list of work items, read-only operands held in shared memory;
-wgmma for the products, tri through TMA; each iteration's rows 0-7 go to
-a scratch buffer that a second kernel adds into ``acc`` in iteration
-order, ``ohbuild``'s counted in integers, so that it takes R below 2^24)
-on CUDA tensors and runs the body's plain version on CPU tensors;
+over ``r`` in the kernel) or ``csrc/probe_harness_wg.cu`` (``ohbuild``
+and the five tensor-core readings: a persistent grid of one block an SM
+over a static list of work items, read-only operands held in shared
+memory; wgmma for the products, ``mxu_bf16`` and ``mxu_f32`` one kernel
+template, tri through TMA, ``cumsum_mxu_lane``'s A split in registers;
+each iteration's rows 0-7 go to a scratch buffer that a second kernel
+adds into ``acc`` in iteration order, ``ohbuild``'s counted in integers,
+so that it takes R below 2^24) on CUDA tensors and runs the body's
+plain version on CPU tensors;
 without inputs it takes the tool's (``tool_inputs``) on ``device``.
 ``library_call`` gives the one PyTorch call that computes iteration 0's
 whole result of twelve of T14a's bodies (``WHOLE``; all but the chains
 ``vpu``, ``sroll`` and ``lroll``), the yardstick that ``chip_smoke.py``
-times them against.
+times them against, on the card (a CUDA graph of the calls) and eager;
+the port never calls it.
 
 T15, ``walk(tbl, r)``: the dependent scalar walk, from ``x = 1``, ``r``
 steps of ``x = tbl[x & 511] + x + 1`` over a 512-word int32 table in
@@ -78,12 +80,14 @@ wrapping int32 arithmetic; the result is ``(8, 128)`` float32 holding
 ``float32(x)`` in every cell. It launches ``csrc/probe_walk.cu`` (the port
 of ``walk_kernel``: one thread walks, the table staged in shared memory as
 the TPU holds it in SMEM) on a CUDA tensor and runs ``walk_plain`` on a
-CPU tensor.
+CPU tensor. No single PyTorch call computes it (a dependent load and two
+adds a step, each step's index from the last), so no library call prices
+it.
 
 ``main()`` prints the tool's readings in its order, each as ``us/iter``
 and ``ns/item`` by differencing two repeat counts (``Body.card``, chosen
-so that a call of the higher takes 50-200 ms on an H100; the tool's are
-``Body.tool``), then the walk's.
+so that a call of the higher takes 50-200 ms on one SM of an H100, or
+0.3-1 ms on every SM; the tool's are ``Body.tool``), then the walk's.
 
     python -m lz4_sgori_torch.probes.microbench2 [--div D] \
         [--steps LO HI] [--device cpu]
@@ -108,7 +112,7 @@ N = 512 * 128               # the cells of a512
 ACC = 8 * 128
 MXU = 512 * 512 * 128       # the multiply-adds of body_mxu's product
 LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
-VPU, TC, WG = "probe_harness", "probe_harness_tc", "probe_harness_wg"
+VPU, WG = "probe_harness", "probe_harness_wg"
 launches = 0
 
 
@@ -119,15 +123,11 @@ def load_kernel():
 
 def load_harness_kernel(source: str):
     """Build (once) and load a harness source: csrc/probe_harness.cu
-    (``VPU``, 14 of T14a's bodies), csrc/probe_harness_tc.cu (``TC``, two
-    of T14b's readings) or csrc/probe_harness_wg.cu (``WG``, the
-    whole-card ones)."""
+    (``VPU``, 14 of T14a's bodies) or csrc/probe_harness_wg.cu (``WG``,
+    the whole-card ones: ``ohbuild`` and T14b's five)."""
     if source == WG:
         return _build.load("probe_harness_wg",
                            {"lz4t_probe_harness_wg": "ippipppnip"})
-    if source == TC:
-        return _build.load("probe_harness_tc",
-                           {"lz4t_probe_harness_tc": "ippippp"})
     return _build.load("probe_harness", {"lz4t_probe_harness": "ippippp"})
 
 
@@ -473,7 +473,7 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
                  4 * N + 4 * 512, _rows("shiftsel")),
     "mxu_bf16": ("mxu_512x512x128_bf16", 115, ("mA", "mB"), (8192, 524288),
                  (512, 4096), MXU, 2 * MXU, 2 * (512 * 512 + N),
-                 _product("mxu_bf16"), BF16, TC, torch.float64, False),
+                 _product("mxu_bf16"), BF16, WG, torch.float64, False),
     "mxu_f32": ("mxu_512x512x128_f32", 115, ("mA32", "mB32"),
                 (8192, 524288), (256, 2048), MXU, 2 * MXU,
                 4 * (512 * 512 + N), _product("mxu_f32"), TF32, WG,
@@ -485,10 +485,12 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
                    (4096, 131072), (128, 1024), N, 2 * 512 * N,
                    4 * (N + 512 * 512), _product("cumsum_mxu"), TF32, WG,
                    torch.float64),
+    # cumsum_mxu_lane's kernel splits a512 + i (below 2^20 + R) into two
+    # TF32 parts, exact below 2^22
     "cumsum_mxu_lane": ("cumsum_mxu_lane_512x128", 307, ("a512", "triu"),
                         (2048, 65536), (512, 4096), N, 2 * 128 * N,
                         4 * (N + 128 * 128), _product("cumsum_mxu_lane"),
-                        TF32, TC, torch.float64, False),
+                        TF32, WG, torch.float64, False, 1 << 21),
 }.items()}
 # the body's number in its source's switch: its place among the bodies of
 # that source in BODIES

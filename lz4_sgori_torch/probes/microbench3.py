@@ -41,6 +41,15 @@ version on the CPU. The TPU reads and writes a lane's row with a masked
 reduce or where-write over the whole block; the card with one indexed
 load or store.
 
+``library_call`` gives the one PyTorch call that computes a round of T9
+or T10 (the rounds' rows do not depend on the data): round 0's 128
+reads as one ``torch.gather`` on the flat tape, or its 128 writes into
+distinct cells as one ``index_put_``, the indices precomputed.
+``chip_smoke.py`` times the kernels' rounds against them; the port never
+calls them. T11 and T12 carry their state from round to round in several
+operations a round, and T13 is a capacity probe: no single call computes
+them.
+
     python -m lz4_sgori_torch.probes.microbench3 [--div D] [--device cpu]
 """
 
@@ -204,6 +213,33 @@ def scatter_plain(R: int, reps: int, device="cpu", whole: bool = False
     rows = torch.arange(R, device=last.device)[:, None]
     out = torch.where(last >= 0, wrap32(rows + last), 0).to(torch.int32)
     return out if whole else out[:8].clone()
+
+
+def library_call(name: str, tape: torch.Tensor):
+    """The yardstick of a round of T9 (``"gather"``) or T10
+    (``"scatter"``) on an ``(R, 128)`` int32 ``tape``: round 0's rows
+    ``L mod R`` of the 128 lanes, precomputed, and one PyTorch call;
+    ``(fn, label)``. T9's ``fn()`` reads ``tape[L mod R, L]`` (128 int32)
+    by ``torch.gather`` on the flat tape; T10's writes ``idx + 0`` at
+    ``tape[idx, L]`` by ``index_put_`` and returns ``tape``. Only timings
+    call it."""
+    check_int32(tape, "tape", (None, L))
+    R = tape.shape[0]
+    check_rows(R)
+    if name not in ("gather", "scatter"):
+        raise KeyError(f"no single PyTorch call computes a round of "
+                       f"{name!r}")
+    stride = GATHER_STRIDE if name == "gather" else SCATTER_STRIDE
+    rows = walk_rows(R, 0, 1, stride, tape.device)[0][0]
+    lanes = torch.arange(L, device=tape.device)
+    if name == "gather":
+        flat = tape.view(-1)
+        at = rows * L + lanes
+        return (lambda: torch.gather(flat, 0, at)), \
+            f"torch.gather of 128 cells of the flat ({R}, 128) tape"
+    vals = wrap32(rows)
+    return (lambda: tape.index_put_((rows, lanes), vals)), \
+        f"index_put_ of 128 cells of an ({R}, 128) output"
 
 
 # ---- T11 and T12: the register-carried steps ----

@@ -19,7 +19,11 @@ banded_kernel``) on a CUDA tensor. ``extract_bytes`` is the function of
 bytes are column L of the tape, row r holding bytes 4r..4r+3.
 
 Each runs its plain version on a CPU tensor. The TPU scans bands of the
-table or tape with selects; the card loads the indexed words.
+table or tape with selects; the card loads the indexed words. No single
+PyTorch call computes a round of either (T7: K gets, a sum and a mask;
+T8: a 26-word extract and a sum), and each round's positions come from
+the ``acc`` of the round before: ``chip_smoke.py`` prices no library
+call against them.
 
     python -m lz4_sgori_torch.probes.microbench4 [--device cpu]
 """

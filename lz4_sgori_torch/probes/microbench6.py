@@ -13,7 +13,10 @@ Lane L reads and writes only column L. ``rounds`` launches
 ``tools/microbench6.py:timed_kernel`` with the bodies of its ``main()``)
 on a CUDA tensor and runs ``rounds_plain`` on a CPU tensor. The TPU
 answers a get with a band select-scan over the table; the card with one
-indexed load: the same function, not the same mechanism.
+indexed load: the same function, not the same mechanism. No single
+PyTorch call computes a round of ``getk`` (its K gets are XORed, and
+torch has no XOR reduction), and each round's hashes come from the carry
+the round before: ``chip_smoke.py`` prices no library call against T6.
 
     python -m lz4_sgori_torch.probes.microbench6 [K] [R] [--device cpu]
 """

@@ -1,10 +1,9 @@
-"""The kernels of the twenty-eight CUDA sources (K1-K7, K9, K8's gaps,
+"""The kernels of the twenty-seven CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
 T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
-a source each, T14a's 15 bodies and T14b's 5 readings three: 14 bodies
-on ``probe_harness``, ``mxu_bf16`` and ``cumsum_mxu_lane`` on
-``probe_harness_tc``, ``ohbuild``, ``mxu_f32``, ``gather`` and
-``cumsum_mxu`` on ``probe_harness_wg``) against their
+a source each, T14a's 15 bodies and T14b's 5 readings two: 14 bodies
+on ``probe_harness``, ``ohbuild`` and the five tensor-core readings on
+``probe_harness_wg``) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -758,47 +757,26 @@ def test_t14a_probe_harness(dev, name):
         assert sink.shape == () and torch.equal(sink, want_sink), r
 
 
-@pytest.mark.parametrize("name", P15.T14B)
-def test_t14b_probe_harness_tc(dev, name):
-    """Each tensor-core reading (both sources) against its plain version
-    and the float64 reference at R 0, 1, 3 and 300 on the tool's inputs,
-    one launch a call: ``gather``'s out and sink and ``cumsum_mxu``'s out
-    bit for bit, every other out within E of the reference in each cell
-    and every float sink within the summed bound."""
-    ins = P15.body_inputs(name, dev)
-    for r in (0, 1, 3, 300):
-        P15.harness_launches[name] = 0
-        out, sink = P15.harness(name, r, *ins)
-        want_out, want_sink = P15.harness_plain(name, r, *ins)
-        torch.cuda.synchronize()
-        assert P15.harness_launches[name] == 1
-        assert sink.shape == () and sink.dtype == want_sink.dtype
-        if P15.BODIES[name].exact:
-            assert torch.equal(out.view(torch.int32),
-                               want_out.view(torch.int32)), r
-        if P15.BODIES[name].sink == torch.int32:
-            assert torch.equal(sink, want_sink), r
-            continue
-        ref, e_out, ref_sink, e_sink = P15.harness_reference(name, r, *ins)
-        assert bool(((out.double() - ref).abs() <= e_out).all()), r
-        assert abs(float(sink) - ref_sink) <= e_sink, r
-
-
 @pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
                                   if b.source == P15.WG])
 def test_t14b_probe_harness_wg_waves(dev, name):
-    """The whole-card readings over the grid's waves: at R 33 (whole waves
-    of items on 132 SMs) and 301 (a partial last wave) against the plain
-    version (``ohbuild``'s and ``gather``'s out and sink and
-    ``cumsum_mxu``'s out bit for bit; ``mxu_f32``'s out within E of the
-    float64 reference; float sinks within the summed bound), and two calls
-    at each R that give the same out and sink bits."""
+    """The whole-card readings (``ohbuild`` and the five tensor-core
+    readings) at R 0, 1, 3 and 300, and over the grid's waves at R 33
+    (whole waves of items on 132 SMs) and 301 (a partial last wave),
+    against the plain version (``ohbuild``'s and ``gather``'s out and
+    sink and ``cumsum_mxu``'s out bit for bit; every other out within E
+    of the float64 reference in each cell; float sinks within the summed
+    bound), one launch a call, and two calls at each R that give the same
+    out and sink bits."""
     ins = P15.body_inputs(name, dev)
-    for r in (33, 301):
+    for r in (0, 1, 3, 33, 300, 301):
+        P15.harness_launches[name] = 0
         out, sink = P15.harness(name, r, *ins)
         out2, sink2 = P15.harness(name, r, *ins)
         want_out, want_sink = P15.harness_plain(name, r, *ins)
         torch.cuda.synchronize()
+        assert P15.harness_launches[name] == 2
+        assert sink.shape == () and sink.dtype == want_sink.dtype
         assert torch.equal(out.view(torch.int32), out2.view(torch.int32)), r
         assert torch.equal(sink.reshape(1).view(torch.uint8),
                            sink2.reshape(1).view(torch.uint8)), r

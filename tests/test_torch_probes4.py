@@ -148,19 +148,21 @@ def test_t14b_tool_and_plain_within_the_reference(tool, name):
 
 def test_t14b_bodies_are_the_tools():
     """The five readings with the tool's names, lines and repeat counts,
-    each kernel source's switch in the order of its bodies in the table
-    (``probe_harness_tc``: ``mxu_bf16``, ``cumsum_mxu_lane``;
-    ``probe_harness_wg``: T14a's ``ohbuild``, then ``mxu_f32``, ``gather``,
-    ``cumsum_mxu``), the rates an SM, the card counts of ``cumsum_mxu``
-    below 2^20 (its rows 0-7 exact), and the tool's 20 readings named
-    through ``BODIES``."""
+    all in ``probe_harness_wg``, whose switch runs its six bodies in the
+    order of the table (T14a's ``ohbuild``, then ``mxu_bf16``,
+    ``mxu_f32``, ``gather``, ``cumsum_mxu``, ``cumsum_mxu_lane``), as
+    ``probe_harness``'s runs its 14; the rates an SM, the card counts of
+    ``cumsum_mxu`` below 2^20 (its rows 0-7 exact), ``cumsum_mxu_lane``'s
+    R below 2^21 (``a512 + i`` below 2^22, where its split is exact), and
+    the tool's 20 readings named through ``BODIES``."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
     assert T14.T14B == TC
-    assert [n for n in TC if T14.BODIES[n].source == T14.WG] == [
-        "mxu_f32", "gather", "cumsum_mxu"]
-    assert [n for n in TC if T14.BODIES[n].source == T14.TC] == [
-        "mxu_bf16", "cumsum_mxu_lane"]
+    assert [n for n in TC if T14.BODIES[n].source == T14.WG] == list(TC)
+    assert [n for n, b in T14.BODIES.items() if b.source == T14.WG] == [
+        "ohbuild", *TC]
+    assert T14.BODIES["cumsum_mxu_lane"].r_limit == 1 << 21
+    assert T14.BODIES["cumsum_mxu_lane"].card[1] < 1 << 21
     tool_counts = {"mxu_bf16": (8192, 524288), "mxu_f32": (8192, 524288),
                    "gather": (4096, 262144), "cumsum_mxu": (4096, 131072),
                    "cumsum_mxu_lane": (2048, 65536)}
@@ -179,7 +181,7 @@ def test_t14b_bodies_are_the_tools():
     assert [n for n in TC if T14.BODIES[n].sink == torch.int32] == ["gather"]
     assert sorted(T14.ORDER) == sorted(T14.BODIES)
     # each source's switch: case k runs the body whose BODY_ID is k
-    for source, pattern in ((T14.TC, r"case (\d+): return launch<(\w+)>"),
+    for source, pattern in ((T14.VPU, r"case (\d+): return launch<(\w+)>"),
                             (T14.WG, r"case (\d+): return run_(\w+)\(")):
         with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
                                f"{source}.cu")) as f:
@@ -335,9 +337,9 @@ def test_t14b_argument_checks():
 
 
 def test_t14b_failed_build_raises_and_never_falls_back(monkeypatch):
-    """On the card's branch a tensor-core reading builds
-    ``probe_harness_tc``; when the build fails it raises, and no plain
-    result comes back."""
+    """On the card's branch ``mxu_bf16``, on every SM since its redesign,
+    builds ``probe_harness_wg``; when the build fails it raises, and no
+    plain result comes back."""
     built = []
 
     def no_nvcc(name, *_a, **_k):
@@ -350,7 +352,7 @@ def test_t14b_failed_build_raises_and_never_falls_back(monkeypatch):
             for t in T14.body_inputs("mxu_bf16", "cpu")]
     with pytest.raises(RuntimeError, match="nvcc"):
         T14.harness("mxu_bf16", 3, *args)
-    assert built == ["probe_harness_tc"]
+    assert built == ["probe_harness_wg"]
     assert T14.harness_launches["mxu_bf16"] == 0
 
 
