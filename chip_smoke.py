@@ -178,11 +178,12 @@ tools' shapes and seeds, in ``_smoke_probes``:
     and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
     bit, every other out (kernel and plain version) within E of the
     float64 reference (``harness_reference``) and every float sink within
-    the summed bound; the six whole-card readings (``probe_harness_wg``:
-    ``ohbuild`` and the five tensor-core readings; the grid printed)
-    at R 0, 1, 3, 33 (whole waves of items), 300 and 301 (a
-    partial last wave), twice at each R with the same bits, held as
-    above;
+    the summed bound; the eight whole-card readings
+    (``probe_harness_wg``: ``ohbuild``, the five tensor-core readings,
+    ``transpose`` and ``shiftsel``; the grid printed) at R 0, 1, 3, 33
+    (whole waves of items), 300 and 301 (a partial last wave), T14a's
+    three also on int32-wide inputs at each, twice at each R with the
+    same bits, held as above;
 34. the probe path with the counters reset just before: each probe's
     ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14's 20
     readings at the card's counts), which prints ns per iteration by
@@ -2678,27 +2679,35 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
                      f"{e_sink!r} from {ref_sink!r}")
             errs[key] = max(errs[key], float((out - want_out).abs().max()))
     # the whole-card readings: whole and partial waves of the grid's
-    # items, and the same bits from two calls (a static item list)
+    # items, and the same bits from two calls (a static item list); T14a's
+    # also on int32-wide inputs
     grid = P15.wg_grid(dev)
+    waves = (0, 1, 3, 33, PROBE_HARNESS_R, PROBE_HARNESS_R + 1)
     for b in whole_card:
         ins, key, body = harness_ins[b], HARNESS + b, P15.BODIES[b]
-        for r in (0, 1, 3, 33, PROBE_HARNESS_R, PROBE_HARNESS_R + 1):
-            what = f"T14 {b} on {grid} blocks at R {r}"
-            out, sink = P15.harness(b, r, *ins)
-            out2, sink2 = P15.harness(b, r, *ins)
+        cases = [(ins, r, "") for r in waves]
+        if body.rate == P15.LANES:
+            wide = [torch.from_numpy(rng.integers(
+                -(1 << 31), 1 << 31, t.shape).astype(np.int32)).to(dev)
+                for t in ins]
+            cases += [(wide, r, " on int32-wide inputs") for r in waves]
+        for args, r, how in cases:
+            what = f"T14 {b} on {grid} blocks at R {r}{how}"
+            out, sink = P15.harness(b, r, *args)
+            out2, sink2 = P15.harness(b, r, *args)
             same(key, out2.view(torch.int32), out.view(torch.int32),
                  f"{what}: a second call's out")
             same(key, sink2.reshape(1).view(torch.uint8),
                  sink.reshape(1).view(torch.uint8),
                  f"{what}: a second call's sink")
-            want_out, want_sink = P15.harness_plain(b, r, *ins)
+            want_out, want_sink = P15.harness_plain(b, r, *args)
             if body.exact:
                 same(key, out.view(torch.int32), want_out.view(torch.int32),
                      f"{what}: out")
             if body.sink == torch.int32:
                 same(key, sink, want_sink, f"{what}: sink")
                 continue
-            ref, e_out, ref_sink, e_sink = P15.harness_reference(b, r, *ins)
+            ref, e_out, ref_sink, e_sink = P15.harness_reference(b, r, *args)
             units = float(((out.double() - ref).abs()
                            / e_out.clamp_min(1e-300)).max()) if r else 0.
             need(units <= 1.0, f"{what}: out is {units:.4f} E from the "
@@ -2709,9 +2718,10 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
     print(f"T14 whole-card readings on a grid of {grid} blocks (one an "
           f"SM): {', '.join(whole_card)} at R 0, 1, 3, 33, "
           f"{PROBE_HARNESS_R} and {PROBE_HARNESS_R + 1} (33: whole waves; "
-          "301: a partial last wave) against the plain version (out bit "
-          "for bit where exact, else within E of the float64 reference), "
-          "two calls each with the same bits: ok")
+          "301: a partial last wave), T14a's also on int32-wide inputs, "
+          "against the plain version (out bit for bit where exact, else "
+          "within E of the float64 reference), two calls each with the "
+          "same bits: ok")
     print("T14b against the float64 reference (worst cell of the kernel's "
           "out in units of E, up to R "
           f"{PROBE_HARNESS_R}): " + ", ".join(

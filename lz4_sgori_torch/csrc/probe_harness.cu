@@ -9,9 +9,10 @@
 // (int); lcg(x) = x * 1664525 + 1013904223.
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
-// _harness.run at :60) with the bodies of its main() that run on the
-// vector unit (:105-337) but body_ohbuild (:144), which runs on every SM
-// in probe_harness_wg.cu; each body is a template argument of one kernel.
+// _harness.run at :60) with twelve of the bodies of its main() that run
+// on the vector unit (:105-284); body_ohbuild (:144), body_transpose
+// (:318) and body_shiftsel (:327) run on every SM in
+// probe_harness_wg.cu. Each body is a template argument of one kernel.
 //
 // What bounds it on the H100: the bodies' instructions at one SM's issue
 // rate (4 schedulers, 32 lanes each a clock), L2 reads into one SM for
@@ -21,12 +22,12 @@
 // SM, its inputs read through L1 and L2 every iteration: a512 (256 KiB)
 // exceeds a block's 227 KiB of shared memory. The kernel computes the
 // function, not the TPU's mechanism: a lane roll by a runtime amount is
-// one indexed read, a one-hot select or a 32-way shifted select one read,
-// a transpose a transposed read, the log-shift cumsum a prefix sum, eight
-// chained rolls a cascade of eight adds over a sliding window of rows or
-// lanes. Where acc's rows come from other threads than the cell's own,
-// they pass through shared memory, double-buffered by iteration parity so
-// that one barrier an iteration orders its writes and reads.
+// one indexed read, a one-hot select one read, the log-shift cumsum a
+// prefix sum, eight chained rolls a cascade of eight adds over a sliding
+// window of rows or lanes. Where acc's rows come from other threads than
+// the cell's own, they pass through shared memory, double-buffered by
+// iteration parity so that one barrier an iteration orders its writes and
+// reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -291,45 +292,6 @@ struct CumsumShift {
   }
 };
 
-// :318, t = (x128 + i) transposed, (512, 128): t[r, c] = x128[c, r] + i.
-// Thread t takes r = t & 511 of columns c = (t >> 9) + 2k, so that a warp
-// reads 32 neighbouring words of a row of x128.
-struct Transpose {
-  static __device__ float step(int i, int t, const void* p0, const void*,
-                               uint32_t* s, uint32_t& sink) {
-    const int* x = (const int*)p0;
-    const int r = t & 511, c0 = t >> 9;
-#pragma unroll 8
-    for (int k = 0; k < 64; ++k) {
-      const int c = c0 + 2 * k;
-      const uint32_t v = (uint32_t)x[c * 512 + r] + (uint32_t)i;
-      sink += v;
-      if (r < 8) s[r * 128 + c] = v;
-    }
-    __syncthreads();
-    return as_float(s[t]);
-  }
-};
-
-struct Shiftsel {  // :327, row r of a512[(r + (lcg(amt[r] + i) & 31)) % 512]
-  static __device__ float step(int i, int t, const void* p0, const void* p1,
-                               uint32_t*, uint32_t& sink) {
-    const int* a = (const int*)p0;
-    const int* amt = (const int*)p1;
-    const int c = t & 127, r0 = t >> 7;
-    float mine = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < 64; ++k) {
-      const int row = r0 + 8 * k;
-      const uint32_t d = lcg((uint32_t)amt[row] + (uint32_t)i) & 31;
-      const uint32_t x = (uint32_t)a[((row + d) & 511) * 128 + c];
-      sink += x;
-      if (k == 0) mine = as_float(x);
-    }
-    return mine;
-  }
-};
-
 template <class Body>
 __global__ void __launch_bounds__(kThreads)
     harness_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
@@ -361,7 +323,7 @@ int launch(const void* in0, const void* in1, int r, void* out, void* sink,
 
 }  // namespace
 
-// body: 0-13 in the order of this source's bodies in
+// body: 0-11 in the order of this source's bodies in
 // lz4_sgori_torch.probes.microbench2.BODIES;
 // in0, in1: the body's inputs (in1 null for a body of one); out: (8, 128)
 // float32; sink: one int32.
@@ -383,8 +345,6 @@ extern "C" int lz4t_probe_harness(int body, const void* in0, const void* in1,
     case 9: return launch<Dynrow>(in0, in1, r, out, sink, st);
     case 10: return launch<Statrow>(in0, in1, r, out, sink, st);
     case 11: return launch<CumsumShift>(in0, in1, r, out, sink, st);
-    case 12: return launch<Transpose>(in0, in1, r, out, sink, st);
-    case 13: return launch<Shiftsel>(in0, in1, r, out, sink, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,22 +1,24 @@
-// Six readings of the primitive-rate harness written for the whole
+// Eight readings of the primitive-rate harness written for the whole
 // H100: from acc = 0 ((8, 128) float32), each iteration i of 0 .. r-1
 // computes the body's whole result and adds its rows [:8] into acc; sink
 // sums every element of every iteration's whole result (ohbuild: the
 // wrapping 32-bit sum of the flat index 512 row + col of each one;
-// gather: of the float32 bit patterns; the other products: a float64
-// sum of the product).
+// gather: of the float32 bit patterns; transpose, shiftsel: of the int32
+// elements; the other products: a float64 sum of the product).
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
 // _harness.run at :60) around body_ohbuild (:144), body_mxu in bf16 and
-// f32 (:115), body_gather (:130), body_cumsum_mxu (:296) and
-// body_cumsum_mxu_lane (:307). The other vector-unit bodies stay in
-// probe_harness.cu.
+// f32 (:115), body_gather (:130), body_cumsum_mxu (:296),
+// body_cumsum_mxu_lane (:307), body_transpose (:318) and body_shiftsel
+// (:327). The other twelve vector-unit bodies stay in probe_harness.cu.
 //
 // What bounds it on the H100: the integer and half-precision pipes of
 // every SM (ohbuild: a compare of two bf16 columns a word, 128 lanes a
-// clock an SM) and the tensor cores of every SM (2mnk a product at 4096
+// clock an SM), the tensor cores of every SM (2mnk a product at 4096
 // dense bf16 FLOP a clock an SM, 2048 TF32; the split TF32 of the two
-// cumsums doubles their tensor work). The TPU runs the harness
+// cumsums doubles their tensor work) and the shared memory of every SM
+// (transpose, shiftsel: 256 KiB an iteration at 128 bytes a clock an
+// SM). The TPU runs the harness
 // sequentially on one core (grid (1,)) with its inputs in VMEM; here a
 // persistent grid of one block an SM walks a static list of work items,
 // so that a call's bits depend only on its inputs and the grid, and
@@ -83,14 +85,42 @@
 //   time, two chunks in flight, two wgmmas (hi, lo) a k step with the
 //   same B; nothing of A passes through shared memory. The sink takes
 //   each thread's elements summed in float32 pairs, as mxu's.
+// - transpose, (x128 + i) transposed, and shiftsel, row r of
+//   a512[(r + (lcg(amt[r] + i) & 31)) & 511]: 8 bands of 64 rows of the
+//   (512, 128) result, each block holding one band in shared memory for
+//   all its items: x128[:, 64 b .. + 63] (32 KiB, rows padded to 65
+//   words), or the 95 rows (64 b + k) & 511, k = 0 .. 94, of a512 that
+//   the band's selects reach (47.5 KiB; the last band wraps to rows
+//   0-30) with amt[64 b .. + 63]. An item (iteration, band) is 16 warp
+//   tasks: transpose 16 columns of 32 rows of t, a lane a row of t, one
+//   word a column (a warp reads 32 neighbouring words of a row of x128);
+//   shiftsel 4 rows, a warp a row, d = lcg(amt[r] + i) & 31 once a row,
+//   then 16 bytes a lane of the held row r + d. Every element is read
+//   from shared memory in every item (ld.volatile: never hoisted into
+//   registers across items) and added into the thread's wrapping sink;
+//   each block adds its partial atomically into the sink, which the
+//   entry zeroes. acc's 1024 chains run in the same kernel on blocks of
+//   their own: 8 blocks (1, 2 or 4 on grids below 16) that hold band 0
+//   and take no items, 128 cells each (one row of acc), a thread a cell
+//   on 4 warps. Each chain reads its cell of rows 0-7 from the held band
+//   (x128[c, row] + i; or a512[row + d, c], d from amt[row]) and adds
+//   it, converted by __int2float_rn, with __fadd_rn in iteration order,
+//   16 iterations' reads issued before their adds (shiftsel's amounts
+//   before its values: each value waits on its amount, so a read a step
+//   would cost two shared-memory latencies an iteration). A chain runs
+//   at 5-9 ns an iteration alone and the items at 8-10 on the whole
+//   card, but blocks that ran both set a pace of 10-14: so the chain
+//   blocks take no items, the other blocks deal the bands (15 or 16 a
+//   band on 132 SMs), and on a grid of 8 block 0 does both. No scratch
+//   and no second kernel.
 //
-// Across blocks: the band-0 items of iteration i write its rows 0-7 to
-// scratch[i] (8 x 128 float32, one a k-half for mxu_f32; ohbuild: each
-// block its counts); each block writes its sink partial (a float64, or a
-// uint32); a second kernel (32 blocks, a thread a cell) adds
-// scratch[0 .. r-1] into acc in iteration order with __fadd_rn (ohbuild's,
-// of one block: sums the blocks' counts and converts them) and sums the
-// partials in block order. r = 0 gives acc =
+// Across blocks, for the other six: the band-0 items of iteration i
+// write its rows 0-7 to scratch[i] (8 x 128 float32, one a k-half for
+// mxu_f32; ohbuild: each block its counts); each block writes its sink
+// partial (a float64, or a uint32); a second kernel (32 blocks, a thread
+// a cell) adds scratch[0 .. r-1] into acc in iteration order with
+// __fadd_rn (ohbuild's, of one block: sums the blocks' counts and
+// converts them) and sums the partials in block order. r = 0 gives acc =
 // 0 and sink = 0.
 
 #include <cuda.h>
@@ -788,6 +818,195 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
   }
 }
 
+// ---- transpose and shiftsel: a band resident a block, acc's chains ----
+
+namespace rb {
+constexpr int kThreads = 512, kWarps = kThreads / 32;
+constexpr int kBands = 512 / 64;     // 64-row bands of the (512, 128) result
+constexpr int kTasks = 16;           // warp tasks an item
+constexpr int kChainWarps = 4;       // a chain block's warps that run chains
+constexpr int kMaxChains = 8;        // chain blocks, one row of acc each
+constexpr int kPitch = 65;           // transpose: words a held row of x128
+constexpr int kSel = 64 + 31;        // shiftsel: rows a band's selects reach
+constexpr int kBatch = 16;           // iterations a chain reads, then adds
+}  // namespace rb
+
+// A read of shared memory that the compiler may neither hoist out of a
+// loop nor merge with another: every item reads its elements anew.
+__device__ __forceinline__ uint32_t lds(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(smem_u32(p)));
+  return v;
+}
+__device__ __forceinline__ uint4 lds4(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+
+// The block's share of the static list: the band it holds, iterations
+// lo .. hi - 1 of that band, and acc's cells cell0 .. cell0 + cells - 1
+// to chain (cells 0: none). Blocks 0 .. chains - 1 (1, 2, 4 or 8: as
+// many as the grid leaves beside one block a band) chain 1024 / chains
+// cells each and hold band 0; the blocks from first on take the items,
+// band b on blocks first + b, first + b + 8, ..., each a contiguous
+// range of the iterations. first is chains, or 0 on a grid of 8, where
+// block 0 also takes band 0's items.
+struct Deal {
+  int band, lo, hi, cell0, cells;
+};
+
+__device__ __forceinline__ Deal deal(int r) {
+  const int grid = gridDim.x, blk = blockIdx.x;
+  int chains = 1;
+  while (2 * chains <= min(rb::kMaxChains, max(1, grid - rb::kBands)))
+    chains *= 2;
+  const int first = grid - chains >= rb::kBands ? chains : 0;
+  Deal d;
+  d.cells = blk < chains ? 1024 / chains : 0;
+  d.cell0 = blk * d.cells;
+  d.band = blk < first ? 0 : (blk - first) % rb::kBands;
+  d.lo = d.hi = 0;
+  if (blk >= first) {
+    const int k = (blk - first) / rb::kBands;
+    const int blocks = (grid - first - d.band + rb::kBands - 1) / rb::kBands;
+    d.lo = (int)((long long)r * k / blocks);
+    d.hi = (int)((long long)r * (k + 1) / blocks);
+  }
+  return d;
+}
+
+// the block's wrapping sink partial added into *sink (zeroed by the entry)
+__device__ __forceinline__ void add_sink(uint32_t s, uint32_t* red,
+                                         int* sink) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(kFull, s, m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t tot = 0;
+    for (int q = 0; q < rb::kWarps; ++q) tot += red[q];
+    atomicAdd((unsigned*)sink, tot);
+  }
+}
+
+// t = (x128 + i) transposed: t[row, c] = x128[c, row] + i
+__global__ void __launch_bounds__(rb::kThreads, 1)
+    transpose_kernel(const int* __restrict__ x128, int r,
+                     float* __restrict__ out, int* __restrict__ sink) {
+  // x128[c, 64 band + j] at xs[c kPitch + j]: a warp reads 32 neighbouring
+  // j of one c (an item) or one j of 32 neighbouring c (a chain), both
+  // without a bank conflict
+  __shared__ uint32_t xs[128 * rb::kPitch];
+  __shared__ uint32_t red[rb::kWarps];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Deal d = deal(r);
+  for (int e = tid; e < 128 * 64; e += rb::kThreads)
+    xs[(e >> 6) * rb::kPitch + (e & 63)] =
+        (uint32_t)__ldg(x128 + (e >> 6) * 512 + 64 * d.band + (e & 63));
+  __syncthreads();
+  const int chain = d.cells ? rb::kChainWarps : 0;
+  uint32_t sum = 0;
+  if (warp < chain) {
+    // cell q = 128 row + c of acc (band 0: row is t's row)
+    for (int q = d.cell0 + tid; q < d.cell0 + d.cells;
+         q += 32 * rb::kChainWarps) {
+      const uint32_t* p = xs + (q & 127) * rb::kPitch + (q >> 7);
+      float acc = 0.f;
+      for (int i0 = 0; i0 < r; i0 += rb::kBatch) {
+        uint32_t v[rb::kBatch];
+#pragma unroll
+        for (int u = 0; u < rb::kBatch; ++u)
+          v[u] = lds(p) + (uint32_t)(i0 + u);
+#pragma unroll
+        for (int u = 0; u < rb::kBatch; ++u)
+          if (i0 + u < r) acc = __fadd_rn(acc, __int2float_rn((int)v[u]));
+      }
+      out[q] = acc;
+    }
+  } else {
+    // warp task f: item lo + f / 16; task f % 16 takes t's rows 32 (task
+    // & 1) + lane of the band at columns 16 (task >> 1) .. + 15
+    const int n = (d.hi - d.lo) * rb::kTasks, workers = rb::kWarps - chain;
+    for (int f = warp - chain; f < n; f += workers) {
+      const uint32_t i = (uint32_t)(d.lo + f / rb::kTasks);
+      const int task = f % rb::kTasks;
+      const uint32_t* p =
+          xs + 16 * (task >> 1) * rb::kPitch + 32 * (task & 1) + lane;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) sum += lds(p + c * rb::kPitch) + i;
+    }
+  }
+  add_sink(sum, red, sink);
+}
+
+// row r of a512[(r + (lcg(amt[r] + i) & 31)) & 511]
+__global__ void __launch_bounds__(rb::kThreads, 1)
+    shiftsel_kernel(const int* __restrict__ a, const int* __restrict__ amt,
+                    int r, float* __restrict__ out, int* __restrict__ sink) {
+  // a512's row (64 band + k) & 511 at rows[32 k ..], k = 0 .. kSel - 1:
+  // a warp reads one whole row (an item) or 32 neighbouring words of one
+  // (a chain); amt[64 band + j] at sa[j]
+  __shared__ uint4 rows[rb::kSel * 32];
+  __shared__ __align__(16) uint32_t sa[64];
+  __shared__ uint32_t red[rb::kWarps];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Deal d = deal(r);
+  for (int e = tid; e < rb::kSel * 32; e += rb::kThreads) {
+    const int row = (64 * d.band + (e >> 5)) & 511;
+    const int4 v = __ldg((const int4*)(a + row * 128) + (e & 31));
+    rows[e] = make_uint4(v.x, v.y, v.z, v.w);
+  }
+  if (tid < 64) sa[tid] = (uint32_t)__ldg(amt + 64 * d.band + tid);
+  __syncthreads();
+  const int chain = d.cells ? rb::kChainWarps : 0;
+  uint32_t sum = 0;
+  if (warp < chain) {
+    // cell q = 128 row + c of acc (band 0: row is the band's row)
+    for (int q = d.cell0 + tid; q < d.cell0 + d.cells;
+         q += 32 * rb::kChainWarps) {
+      const int row = q >> 7;
+      const uint32_t* col = (const uint32_t*)rows + row * 128 + (q & 127);
+      float acc = 0.f;
+      // a batch's amounts, then its values, then its adds: a value's read
+      // waits for its amount's, and volatile reads keep their order
+      for (int i0 = 0; i0 < r; i0 += rb::kBatch) {
+        uint32_t v[rb::kBatch];
+#pragma unroll
+        for (int u = 0; u < rb::kBatch; ++u)
+          v[u] = lcg(lds(sa + row) + (uint32_t)(i0 + u)) & 31;
+#pragma unroll
+        for (int u = 0; u < rb::kBatch; ++u) v[u] = lds(col + v[u] * 128);
+#pragma unroll
+        for (int u = 0; u < rb::kBatch; ++u)
+          if (i0 + u < r) acc = __fadd_rn(acc, __int2float_rn((int)v[u]));
+      }
+      out[q] = acc;
+    }
+  } else {
+    // warp task f: item lo + f / 16; task f % 16 takes the band's rows
+    // 4 task .. 4 task + 3, their amounts in one broadcast read
+    const int n = (d.hi - d.lo) * rb::kTasks, workers = rb::kWarps - chain;
+    for (int f = warp - chain; f < n; f += workers) {
+      const uint32_t i = (uint32_t)(d.lo + f / rb::kTasks);
+      const int j = 4 * (f % rb::kTasks);
+      const uint4 am = lds4((const uint4*)sa + j / 4);
+      const uint32_t s[4] = {am.x, am.y, am.z, am.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t sh = lcg(s[u] + i) & 31;
+        const uint4 v = lds4(rows + (j + u + sh) * 32 + lane);
+        sum += v.x + v.y + v.z + v.w;
+      }
+    }
+  }
+  add_sink(sum, red, sink);
+}
+
 // acc: scratch[0 .. r-1] added in iteration order, a thread a cell (with
 // kParts 2, iteration i's two k-halves added first), on fk::kBlocks blocks
 // of fk::kThreads cells; each block streams its cells' 128-byte column of
@@ -986,23 +1205,51 @@ int run_cumsum_mxu_lane(const void* a512, const void* triu, int r, void* out,
   return (int)cudaGetLastError();
 }
 
+// transpose and shiftsel: no scratch; a grid of at least the 8 bands;
+// the sink zeroed, then each block's partial added into it
+int zero_sink(void* sink, int grid, cudaStream_t st) {
+  if (grid < rb::kBands) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemsetAsync(sink, 0, sizeof(int), st);
+}
+
+int run_transpose(const void* x128, int r, void* out, void* sink, int grid,
+                  cudaStream_t st) {
+  int e;
+  if ((e = zero_sink(sink, grid, st))) return e;
+  transpose_kernel<<<grid, rb::kThreads, 0, st>>>((const int*)x128, r,
+                                                  (float*)out, (int*)sink);
+  return (int)cudaGetLastError();
+}
+
+int run_shiftsel(const void* a512, const void* amt, int r, void* out,
+                 void* sink, int grid, cudaStream_t st) {
+  int e;
+  if ((e = zero_sink(sink, grid, st))) return e;
+  shiftsel_kernel<<<grid, rb::kThreads, 0, st>>>(
+      (const int*)a512, (const int*)amt, r, (float*)out, (int*)sink);
+  return (int)cudaGetLastError();
+}
+
 // The scratch bytes of body's launch, as each run_ lays it out: r x 4
 // KiB of rows (r x 8 KiB for mxu_f32's two k-halves; grid x 4 KiB of
-// counts for ohbuild), then grid x 8 bytes of partials.
+// counts for ohbuild), then grid x 8 bytes of partials; none for
+// transpose and shiftsel.
 size_t scratch_need(int body, int r, int grid) {
+  if (body == 6 || body == 7) return 0;
   size_t rows = body == 0 ? (size_t)grid : (size_t)r * (body == 2 ? 2 : 1);
   return rows * 4096 + (size_t)grid * 8;
 }
 
 }  // namespace
 
-// body: 0-5 in the order of the bodies of this source in
+// body: 0-7 in the order of the bodies of this source in
 // lz4_sgori_torch.probes.microbench2.BODIES; in0, in1: the body's inputs
-// (in1 null for ohbuild); out: (8, 128) float32; sink: one int32
-// (ohbuild, gather) or float64; scratch: scratch_bytes bytes, at least
-// scratch_need's, else the launch is refused; grid: the blocks, one an SM
-// (mxu_f32: at least 16; mxu_bf16, cumsum_mxu_lane: at least 8). ohbuild
-// refuses r >= 2^24, cumsum_mxu_lane r >= 2^21 (see their notes above).
+// (in1 null for ohbuild and transpose); out: (8, 128) float32; sink: one
+// int32 (ohbuild, gather, transpose, shiftsel) or float64; scratch:
+// scratch_bytes bytes, at least scratch_need's, else the launch is
+// refused; grid: the blocks, one an SM (mxu_f32: at least 16; mxu_bf16,
+// cumsum_mxu_lane, transpose, shiftsel: at least 8). ohbuild refuses r >=
+// 2^24, cumsum_mxu_lane r >= 2^21 (see their notes above).
 extern "C" int lz4t_probe_harness_wg(int body, const void* in0,
                                      const void* in1, int r, void* out,
                                      void* sink, void* scratch,
@@ -1021,6 +1268,8 @@ extern "C" int lz4t_probe_harness_wg(int body, const void* in0,
     case 3: return run_gather(in0, in1, r, out, sink, sc, grid, st);
     case 4: return run_cumsum_mxu(in0, in1, r, out, sink, sc, grid, st);
     case 5: return run_cumsum_mxu_lane(in0, in1, r, out, sink, sc, grid, st);
+    case 6: return run_transpose(in0, r, out, sink, grid, st);
+    case 7: return run_shiftsel(in0, in1, r, out, sink, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

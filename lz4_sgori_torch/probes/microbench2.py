@@ -56,17 +56,20 @@ triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
 below 2^22 (``cumsum_mxu_lane`` takes R below 2^21, so that ``a512 + i``
 stays there).
 
-``harness`` launches ``csrc/probe_harness.cu`` (T14a's bodies but
-``ohbuild``: one block of 1024 threads, ``acc`` in registers, the loop
-over ``r`` in the kernel) or ``csrc/probe_harness_wg.cu`` (``ohbuild``
-and the five tensor-core readings: a persistent grid of one block an SM
-over a static list of work items, read-only operands held in shared
-memory; wgmma for the products, ``mxu_bf16`` and ``mxu_f32`` one kernel
-template, tri through TMA, ``cumsum_mxu_lane``'s A split in registers;
-each iteration's rows 0-7 go to a scratch buffer that a second kernel
-adds into ``acc`` in iteration order, ``ohbuild``'s counted in integers,
-so that it takes R below 2^24) on CUDA tensors and runs the body's
-plain version on CPU tensors;
+``harness`` launches ``csrc/probe_harness.cu`` (twelve of T14a's
+bodies: one block of 1024 threads, ``acc`` in registers, the loop over
+``r`` in the kernel) or ``csrc/probe_harness_wg.cu`` (``ohbuild``, the
+five tensor-core readings, ``transpose`` and ``shiftsel``: a persistent
+grid of one block an SM over a static list of work items, read-only
+operands held in shared memory; wgmma for the products, ``mxu_bf16`` and
+``mxu_f32`` one kernel template, tri through TMA, ``cumsum_mxu_lane``'s A
+split in registers; for those six each iteration's rows 0-7 go to a
+scratch buffer that a second kernel adds into ``acc`` in iteration order,
+``ohbuild``'s counted in integers, so that it takes R below 2^24;
+``transpose`` and ``shiftsel`` (``RESIDENT``) hold a 64-row band of
+their operand a block and run ``acc``'s 1024 chains in the main kernel,
+in iteration order, on 8 blocks of their own that hold band 0) on CUDA
+tensors and runs the body's plain version on CPU tensors;
 without inputs it takes the tool's (``tool_inputs``) on ``device``.
 ``library_call`` gives the one PyTorch call that computes iteration 0's
 whole result of twelve of T14a's bodies (``WHOLE``; all but the chains
@@ -113,6 +116,9 @@ ACC = 8 * 128
 MXU = 512 * 512 * 128       # the multiply-adds of body_mxu's product
 LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
 VPU, WG = "probe_harness", "probe_harness_wg"
+# the WG readings whose band each block holds and whose acc chains run in
+# the main kernel: no scratch, no second kernel
+RESIDENT = ("transpose", "shiftsel")
 launches = 0
 
 
@@ -123,8 +129,9 @@ def load_kernel():
 
 def load_harness_kernel(source: str):
     """Build (once) and load a harness source: csrc/probe_harness.cu
-    (``VPU``, 14 of T14a's bodies) or csrc/probe_harness_wg.cu (``WG``,
-    the whole-card ones: ``ohbuild`` and T14b's five)."""
+    (``VPU``, 12 of T14a's bodies) or csrc/probe_harness_wg.cu (``WG``,
+    the whole-card ones: ``ohbuild``, T14b's five, ``transpose`` and
+    ``shiftsel``)."""
     if source == WG:
         return _build.load("probe_harness_wg",
                            {"lz4t_probe_harness_wg": "ippipppnip"})
@@ -140,8 +147,12 @@ def wg_scratch_bytes(name: str, r: int, grid: int) -> int:
     """The scratch of a ``WG`` launch of body ``name``: each iteration's
     rows 0-7 (4 KiB, two for ``mxu_f32``'s k-halves) or, for ``ohbuild``,
     each block's counts of acc's ones (4 KiB); then a sink partial (8
-    bytes) a block. The C entry is told the size and refuses a launch
-    that needs more (its ``scratch_need``)."""
+    bytes) a block. ``RESIDENT``'s readings need none: their chains run
+    in the main kernel and each block adds its partial into the sink.
+    The C entry is told the size and refuses a launch that needs more
+    (its ``scratch_need``)."""
+    if name in RESIDENT:
+        return 0
     rows = grid if name == "ohbuild" else r * (2 if name == "mxu_f32" else 1)
     return rows * 4 * ACC + 8 * grid
 
@@ -466,11 +477,6 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
     "cumsum_shift": ("cumsum_logshift_rows_512x128", 284, ("a512",),
                      (2048, 65536), (2048, 16384), 512 * 128, N + 2 * ACC,
                      8 * N, _rows("cumsum_shift")),
-    "transpose": ("transpose_128x512", 318, ("x128",), (2048, 65536),
-                  (4096, 32768), 1, N + 2 * ACC, 4 * N, _rows("transpose")),
-    "shiftsel": ("shiftsel32_rows_512x128", 327, ("a512", "amt"),
-                 (2048, 65536), (2048, 16384), 512 * 128, 2 * 512 + 2 * ACC,
-                 4 * N + 4 * 512, _rows("shiftsel")),
     "mxu_bf16": ("mxu_512x512x128_bf16", 115, ("mA", "mB"), (8192, 524288),
                  (512, 4096), MXU, 2 * MXU, 2 * (512 * 512 + N),
                  _product("mxu_bf16"), BF16, WG, torch.float64, False),
@@ -491,6 +497,16 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
                         (2048, 65536), (512, 4096), N, 2 * 128 * N,
                         4 * (N + 128 * 128), _product("cumsum_mxu_lane"),
                         TF32, WG, torch.float64, False, 1 << 21),
+    # T14a's two readings on every SM with a resident band, after T14b's
+    # so that their numbers in probe_harness_wg.cu follow its first six;
+    # at about 9 and 11 ns an iteration on an H100 their card counts
+    # doubled to keep a call above 0.3 ms
+    "transpose": ("transpose_128x512", 318, ("x128",), (2048, 65536),
+                  (8192, 65536), 1, N + 2 * ACC, 4 * N, _rows("transpose"),
+                  LANES, WG),
+    "shiftsel": ("shiftsel32_rows_512x128", 327, ("a512", "amt"),
+                 (2048, 65536), (4096, 32768), 512 * 128, 2 * 512 + 2 * ACC,
+                 4 * N + 4 * 512, _rows("shiftsel"), LANES, WG),
 }.items()}
 # the body's number in its source's switch: its place among the bodies of
 # that source in BODIES

@@ -1,13 +1,15 @@
 """The whole-card harness readings (``csrc/probe_harness_wg.cu``) on the
-card, kernel by kernel: each reading's device time in each of its two
-kernels (the main kernel and the one that adds rows 0-7 in iteration
-order), from ``torch.profiler`` over three calls at the card's count
-(``Body.card``). With ``--against OTHER.cu``, another version of the
-source (an earlier commit's, say) is built beside this one and loaded in
-the same process; each reading the two share is timed in turns (other,
-this, this, other; ten calls a timing, CUDA events) and their ``out`` and
-``sink`` bits compared (the exit code is 1 where any differ). The other
-source's body numbers are read from its switch.
+card, kernel by kernel: each reading's device time in each of its
+kernels (the main kernel and, but for ``transpose`` and ``shiftsel``,
+whose chains run in the main kernel, the one that adds rows 0-7 in
+iteration order), from ``torch.profiler`` over three calls at the card's
+count (``Body.card``). With ``--against OTHER.cu``, another version of
+the source (an earlier commit's, say) is built beside this one and
+loaded in the same process; each reading the two share is timed in
+turns (other, this, this, other; ten calls a timing, CUDA events) and
+their ``out`` and ``sink`` bits compared (the exit code is 1 where any
+differ), and each reading the other lacks is named on a line of its
+own. The other source's body numbers are read from its switch.
 
     python -m lz4_sgori_torch.probes.wg_ab [--against OTHER.cu]
 """
@@ -36,6 +38,11 @@ def body_ids(source: str) -> dict[str, int]:
     run_<name>(``."""
     return {name: int(k) for k, name in
             re.findall(r"case (\d+): return run_(\w+)\(", source)}
+
+
+def lacking(name: str, path: str) -> str:
+    """The line that names a reading the other source has no body for."""
+    return f"{name}: not in {path}, so not timed against it"
 
 
 def load_source(path: str) -> ctypes.CDLL:
@@ -122,7 +129,10 @@ def main(argv=None) -> int:
     entry = load_source(a.against).lz4t_probe_harness_wg
     this = getattr(P15.load_harness_kernel(P15.WG), "lz4t_probe_harness_wg")
     differ = []
-    for name in (n for n in names if n in other):
+    for name in names:
+        if name not in other:
+            print(lacking(name, a.against), flush=True)
+            continue
         ins = P15.body_inputs(name, dev)
         r = P15.BODIES[name].card[1]
         go_o, out_o, sink_o = launcher(entry, other[name], name, r, ins, dev)

@@ -1,9 +1,9 @@
 """The kernels of the twenty-seven CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
 T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
-a source each, T14a's 15 bodies and T14b's 5 readings two: 14 bodies
-on ``probe_harness``, ``ohbuild`` and the five tensor-core readings on
-``probe_harness_wg``) against their
+a source each, T14a's 15 bodies and T14b's 5 readings two: 12 bodies
+on ``probe_harness``; ``ohbuild``, the five tensor-core readings,
+``transpose`` and ``shiftsel`` on ``probe_harness_wg``) against their
 plain PyTorch versions and their golden oracles, on the card. Marked
 ``cuda``; each
 test skips itself when no card is present. Run on a CUDA machine with
@@ -760,20 +760,27 @@ def test_t14a_probe_harness(dev, name):
 @pytest.mark.parametrize("name", [n for n, b in P15.BODIES.items()
                                   if b.source == P15.WG])
 def test_t14b_probe_harness_wg_waves(dev, name):
-    """The whole-card readings (``ohbuild`` and the five tensor-core
-    readings) at R 0, 1, 3 and 300, and over the grid's waves at R 33
-    (whole waves of items on 132 SMs) and 301 (a partial last wave),
-    against the plain version (``ohbuild``'s and ``gather``'s out and
-    sink and ``cumsum_mxu``'s out bit for bit; every other out within E
-    of the float64 reference in each cell; float sinks within the summed
-    bound), one launch a call, and two calls at each R that give the same
-    out and sink bits."""
+    """The whole-card readings (``ohbuild``, the five tensor-core
+    readings, ``transpose`` and ``shiftsel``) at R 0, 1, 3 and 300, and
+    over the grid's waves at R 33 (whole waves of items on 132 SMs) and
+    301 (a partial last wave), against the plain version (the three T14a
+    bodies', ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
+    bit; every other out within E of the float64 reference in each cell;
+    float sinks within the summed bound), one launch a call, and two
+    calls at each R that give the same out and sink bits; the T14a bodies
+    also on inputs drawn over all of int32 at each R."""
     ins = P15.body_inputs(name, dev)
-    for r in (0, 1, 3, 33, 300, 301):
+    cases = [(ins, r) for r in (0, 1, 3, 33, 300, 301)]
+    if P15.BODIES[name].rate == P15.LANES:
+        rng = np.random.default_rng(14)
+        wide = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, t.shape)
+                                 .astype(np.int32)).to(dev) for t in ins]
+        cases += [(wide, r) for r in (0, 1, 3, 33, 300, 301)]
+    for args, r in cases:
         P15.harness_launches[name] = 0
-        out, sink = P15.harness(name, r, *ins)
-        out2, sink2 = P15.harness(name, r, *ins)
-        want_out, want_sink = P15.harness_plain(name, r, *ins)
+        out, sink = P15.harness(name, r, *args)
+        out2, sink2 = P15.harness(name, r, *args)
+        want_out, want_sink = P15.harness_plain(name, r, *args)
         torch.cuda.synchronize()
         assert P15.harness_launches[name] == 2
         assert sink.shape == () and sink.dtype == want_sink.dtype
@@ -787,7 +794,7 @@ def test_t14b_probe_harness_wg_waves(dev, name):
             assert torch.equal(sink, want_sink), r
         else:
             ref, e_out, ref_sink, e_sink = P15.harness_reference(name, r,
-                                                                 *ins)
+                                                                 *args)
             assert bool(((out.double() - ref).abs() <= e_out).all()), r
             assert abs(float(sink) - ref_sink) <= e_sink, r
 

@@ -212,15 +212,18 @@ def test_t14a_equals_the_tool(tool, name):
 
 def test_t14a_bodies_are_the_tools():
     """The table lists the tool's 15 vector-unit readings, with its repeat
-    counts, every line it cites opens a body of that name, ``ohbuild``
-    runs on every SM (``probe_harness_wg``) and ``probe_harness.cu``'s
-    switch takes the other 14 in the table's order."""
+    counts, every line it cites opens a body of that name, ``ohbuild``,
+    ``transpose`` and ``shiftsel`` run on every SM (``probe_harness_wg``)
+    and ``probe_harness.cu``'s switch takes the other 12 in the table's
+    order."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
     t14a = {n: T14.BODIES[n] for n in T14.T14A}
     assert set(t14a) == set(TOOL_BODIES)
-    assert [n for n, b in t14a.items() if b.source != T14.VPU] == ["ohbuild"]
-    assert t14a["ohbuild"].source == T14.WG
+    assert [n for n, b in t14a.items() if b.source != T14.VPU] == [
+        "ohbuild", "transpose", "shiftsel"]
+    assert all(t14a[n].source == T14.WG
+               for n in ("ohbuild", "transpose", "shiftsel"))
     assert [n for n in T14.ORDER if n in t14a] == list(t14a)
     for name, body in t14a.items():
         assert lines[body.line - 1].strip().startswith(f"def body_{name}(")

@@ -175,10 +175,11 @@ def test_cumsum_lane_refuses_r_from_2_21():
     assert T14.BODIES["cumsum_mxu_lane"].card[1] < 1 << 21
 
 
-@pytest.mark.parametrize("name", REDESIGNED)
+@pytest.mark.parametrize("name", REDESIGNED + T14.RESIDENT)
 def test_redesigned_failed_build_raises_and_never_falls_back(monkeypatch,
                                                              name):
-    """On the card's branch each redesigned reading builds
+    """On the card's branch each redesigned reading (``mxu_bf16``,
+    ``cumsum_mxu_lane``, ``transpose``, ``shiftsel``) builds
     ``probe_harness_wg``; when the build fails it raises, and no plain
     result comes back."""
     built = []
@@ -199,11 +200,11 @@ def test_redesigned_failed_build_raises_and_never_falls_back(monkeypatch,
 def test_scratch_bytes_and_scratch_need():
     """``wg_scratch_bytes``: 4 KiB of rows an iteration for both redesigned
     readings (one k-part), then 8 bytes a block; the C entry's
-    ``scratch_need`` lays out the same bytes for each of the six bodies
-    by its number (two rows an iteration for ``mxu_f32`` alone, a
-    block's counts for ``ohbuild``), refuses R from 2^21 for
-    ``cumsum_mxu_lane``, and each kernel refuses a grid below its
-    tiles."""
+    ``scratch_need`` lays out the same bytes for each of the eight
+    bodies by its number (two rows an iteration for ``mxu_f32`` alone, a
+    block's counts for ``ohbuild``, none for ``transpose`` and
+    ``shiftsel``), refuses R from 2^21 for ``cumsum_mxu_lane``, and each
+    kernel refuses a grid below its tiles."""
     g = 132
     for name in REDESIGNED:
         assert T14.wg_scratch_bytes(name, 300, g) == 300 * 4096 + 8 * g
@@ -211,6 +212,10 @@ def test_scratch_bytes_and_scratch_need():
     with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
                            "probe_harness_wg.cu")) as f:
         src = f.read()
+    none = re.search(r"if \(body == (\d+) \|\| body == (\d+)\) return 0;",
+                     src)
+    assert none and [int(none[1]), int(none[2])] == [
+        T14.BODY_ID[n] for n in T14.RESIDENT]
     need = re.search(r"size_t rows = body == (\d+) \? \(size_t\)grid : "
                      r"\(size_t\)r \* \(body == (\d+) \? 2 : 1\);", src)
     assert need and int(need[1]) == T14.BODY_ID["ohbuild"]
@@ -220,23 +225,29 @@ def test_scratch_bytes_and_scratch_need():
     for name in T14.BODIES:
         if T14.BODIES[name].source != T14.WG:
             continue
+        if name in T14.RESIDENT:
+            assert T14.wg_scratch_bytes(name, 300, g) == 0
+            continue
         rows = (g if name == "ohbuild"
                 else 300 * (2 if name == "mxu_f32" else 1))
         assert T14.wg_scratch_bytes(name, 300, g) == rows * 4096 + 8 * g
     assert "if (grid < 8 * E::kParts)" in src
     assert "if (grid < cl::kBands)" in src
+    assert "if (grid < rb::kBands)" in src
 
 
 def test_wg_ab_reads_a_sources_body_numbers():
     """``wg_ab`` reads a harness source's body numbers from its switch:
-    this source's are ``BODY_ID``'s, and a source of four bodies (the
-    order before ``mxu_bf16`` and ``cumsum_mxu_lane`` joined) keeps its
-    own; without a card it refuses to time."""
+    this source's are ``BODY_ID``'s, ``transpose`` and ``shiftsel`` its
+    bodies 6 and 7, and a source of four bodies (the order before
+    ``mxu_bf16`` and ``cumsum_mxu_lane`` joined) keeps its own; without a
+    card it refuses to time."""
     with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
                            "probe_harness_wg.cu")) as f:
         got = wg_ab.body_ids(f.read())
     assert got == {n: T14.BODY_ID[n] for n, b in T14.BODIES.items()
                    if b.source == T14.WG}
+    assert (got["transpose"], got["shiftsel"]) == (6, 7)
     four = "\n".join(f"    case {k}: return run_{n}(in0, in1, r);" for k, n
                      in enumerate(("ohbuild", "mxu_f32", "gather",
                                    "cumsum_mxu")))
