@@ -163,27 +163,29 @@ probe_table, probe_banded, probe_lane, probe_step, probe_smem,
 probe_harness, probe_harness_wg and probe_walk) at the
 tools' shapes and seeds, in ``_smoke_probes``:
 
-33. each probe against its plain version exactly: T4 at logN 10 and 16
-    (and against ``torch.sort``), T5 at 1, 32 and 128 lanes of 128 and
-    512 words for 16 and 48 rounds (and its refusal of 64 rounds, which
-    read past the tape), T6's three bodies at R 8192 and K 8, T7's seven
-    cases, T8's five spans at the tool's mask and at unaligned positions,
-    T9 and T10 at each R of the tool (T10's whole output), T11 and T12 at
-    3000 rounds, T13's refusal of every size of the tool with no launch
-    and its fit at the card's limit (one row more refused), T15 on the
-    tool's table and on one whose walk wraps within a few steps; each
-    of T14a's 15 bodies on the tool's inputs at R 0, 1, 3 and 300 and on
-    inputs drawn over all of int32 at R 3 (every sum wraps), ``out`` bit
-    for bit and ``sink`` exactly; each of T14b's 5 readings at R 0, 1, 3
-    and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
-    bit, every other out (kernel and plain version) within E of the
+33. each probe against its plain version exactly: T4 at logN 1, 4, 10,
+    12, 13, 16 and 17 on the tool's keys and on random int32 with
+    negatives (and against ``torch.sort``), one launch a call, and the
+    kernel's count of its passes (``sort_probe.passes``) equal to
+    ``sort_probe.plan``'s at logN 0-24 (9 at 16), T5 at 1, 32 and 128
+    lanes of 128 and 512 words for 16 and 48 rounds (and its refusal of
+    64 rounds, which read past the tape), T6's three bodies at R 8192 and
+    K 8, T7's seven cases, T8's five spans at the tool's mask and at
+    unaligned positions, T9 and T10 at each R of the tool (T10's whole
+    output), T11 and T12 at 3000 rounds, T13's refusal of every size of the
+    tool with no launch and its fit at the card's limit (one row more
+    refused), T15 on the tool's table and on one whose walk wraps within a
+    few steps; each of T14a's 15 bodies on the tool's inputs at R 0, 1, 3
+    and 300 and on inputs drawn over all of int32 at R 3 (every sum wraps),
+    ``out`` bit for bit and ``sink`` exactly; each of T14b's 5 readings at R
+    0, 1, 3 and 300, ``gather``'s out and sink and ``cumsum_mxu``'s out bit
+    for bit, every other out (kernel and plain version) within E of the
     float64 reference (``harness_reference``) and every float sink within
-    the summed bound; the eight whole-card readings
-    (``probe_harness_wg``: ``ohbuild``, the five tensor-core readings,
-    ``transpose`` and ``shiftsel``; the grid printed) at R 0, 1, 3, 33
-    (whole waves of items), 300 and 301 (a partial last wave), T14a's
-    three also on int32-wide inputs at each, twice at each R with the
-    same bits, held as above;
+    the summed bound; the nine whole-card readings (``probe_harness_wg``:
+    ``ohbuild``, the five tensor-core readings, ``transpose``, ``shiftsel``
+    and ``red1``; the grid printed) at R 0, 1, 3, 33 (whole waves of items),
+    300 and 301 (a partial last wave), T14a's four also on int32-wide inputs
+    at each, twice at each R with the same bits, held as above;
 34. the probe path with the counters reset just before: each probe's
     ``main()`` at the tool's defaults (T5 at 16 and 48 rounds; T14's 20
     readings at the card's counts), which prints ns per iteration by
@@ -216,8 +218,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     the kernel's iterations or rounds, its ``library_eager_ms`` the
     eager one, and both factors (the kernel's time an iteration over the
     call's);
-36. T4 in turns with ``torch.sort`` (both ways), then the ranking of
-    every priced row by its device factor, the eager one beside it. No
+36. T4 at logN 16 in turns with ``torch.sort`` (both ways), with its
+    launches a sort, then the ranking of every priced row by its device
+    factor, the eager one beside it. No
     single PyTorch call computes the looped functions of T6 (``getk``:
     its K gets XORed), T7 (K gets, a sum and a mask), T8 (a 26-word
     extract and a sum), T11 (three selects and an add), T12 (30 ops) or
@@ -296,7 +299,10 @@ RETIRED_SUBSET = 8          # 64 KiB blocks of check 29 (and SUBSET4 at 4 KiB)
 RETIRED_ACC = 8
 RETIRED_MUTANTS = (248, 1024)   # at 64 KiB and at 4 KiB
 
-PROBE_SORT_LOGN = (10, 16)
+# T4's checks (the tool's keys and random int32 with negatives, against
+# its plain version and torch.sort) and the logN of its timings
+PROBE_SORT_LOGN = (1, 4, 10, 12, 13, 16, 17)
+PROBE_SORT_TIMED = 16
 PROBE_DMA_LANES = (1, 32, 128)
 PROBE_DMA_WORDS = (128, 512)
 # rounds of T5's checks: its tape reads past the end after 63 at w = 512
@@ -2536,13 +2542,27 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
     # ---- phase 33: each probe against its plain version ----
     t0 = time.perf_counter()
     sorts = {}
+    sort_rng = np.random.default_rng(4)
     for logn in PROBE_SORT_LOGN:
         x = torch.from_numpy(P4.keys(logn)).to(dev)
         sorts[logn] = x
-        got = P4.device_sort(x)
-        same("probe_sort", got, P4.device_sort_plain(x), f"T4 at logN {logn}")
-        need(torch.equal(got, torch.sort(x, dim=0).values),
-             f"T4 at logN {logn} differs from torch.sort")
+        wide = torch.from_numpy(sort_rng.integers(
+            -(1 << 31), 1 << 31, (1 << logn, P4.LANES)).astype(np.int32)
+        ).to(dev)
+        for t, what in ((x, "the tool's keys"), (wide, "random int32")):
+            before = P4.launches
+            got = P4.device_sort(t)
+            need(P4.launches == before + 1, f"T4 at logN {logn}: "
+                 f"{P4.launches - before} calls counted for one")
+            same("probe_sort", got, P4.device_sort_plain(t),
+                 f"T4 at logN {logn} on {what}")
+            need(torch.equal(got, torch.sort(t, dim=0).values),
+                 f"T4 at logN {logn} on {what} differs from torch.sort")
+    # the kernel's own count of its passes against the Python plan
+    plans = {logn: (P4.passes(1 << logn), len(P4.plan(logn)))
+             for logn in range(P4.MAX_LOGN + 1)}
+    need(all(a == b for a, b in plans.values()),
+         f"T4's passes (kernel, plan) differ: {plans}")
     idx, hbm = (torch.from_numpy(a).to(dev) for a in P5.inputs())
     for nl in PROBE_DMA_LANES:
         for w in PROBE_DMA_WORDS:
@@ -2729,8 +2749,11 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
               if not P15.BODIES[b].exact) + "; exact: " + ", ".join(
               f"{b} {errs[HARNESS + b]}" for b in t14b
               if P15.BODIES[b].exact))
-    print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} (and "
-          f"torch.sort), T5 at {PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
+    print(f"phase probes == plain: T4 at logN {PROBE_SORT_LOGN} on the "
+          f"tool's keys and random int32 (and torch.sort; its passes as the "
+          f"plan's at logN 0-{P4.MAX_LOGN}, "
+          f"{plans[PROBE_SORT_TIMED][0]} at {PROBE_SORT_TIMED}), T5 at "
+          f"{PROBE_DMA_LANES} lanes x {PROBE_DMA_WORDS} "
           f"words x {PROBE_DMA_REPS} rounds (64 rounds of 512 words refused), "
           f"T6 {P6.BODIES}, T7 {len(P78.KGET_CASES)} cases, T8 "
           f"{len(P78.BANDED_SPANS)} spans aligned and not, T9 at R "
@@ -2764,7 +2787,7 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
           + str({k: counts[k] for k in probes}))
 
     # ---- phase 35: times per call at each row's shape ----
-    logn, span = PROBE_SORT_LOGN[-1], P78.BANDED_SPANS[-1]
+    logn, span = PROBE_SORT_TIMED, P78.BANDED_SPANS[-1]
     x = sorts[logn]
     nl, w, reps5 = 128, 512, PROBE_DMA_REPS[1]
     n6 = P6.ITERS[1]
@@ -2961,7 +2984,8 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
         lambda: torch.sort(x, dim=0), "torch.sort(dim=0)",
         "the same column sort", 1, calls=10)
     print(f"[{card}] T4 at logN {logn} in turns (T4, graph, eager, eager, "
-          f"graph, T4): T4 {ker:.4f} ms, torch.sort {dev_ms:.4f} ms on the "
+          f"graph, T4): T4 {ker:.4f} ms ({plans[logn][0]} launches), "
+          f"torch.sort {dev_ms:.4f} ms on the "
           f"card ({factor['probe_sort']:.4f}x), {eager:.4f} ms eager "
           f"({eager_factor['probe_sort']:.4f}x); no single PyTorch call "
           "computes the looped function of T6 (getk: its K gets XORed), "

@@ -9,9 +9,9 @@
 // (int); lcg(x) = x * 1664525 + 1013904223.
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
-// _harness.run at :60) with twelve of the bodies of its main() that run
-// on the vector unit (:105-284); body_ohbuild (:144), body_transpose
-// (:318) and body_shiftsel (:327) run on every SM in
+// _harness.run at :60) with eleven of the bodies of its main() that run
+// on the vector unit (:105-284); body_ohbuild (:144), body_red1 (:168),
+// body_transpose (:318) and body_shiftsel (:327) run on every SM in
 // probe_harness_wg.cu. Each body is a template argument of one kernel.
 //
 // What bounds it on the H100: the bodies' instructions at one SM's issue
@@ -93,28 +93,6 @@ struct Extract {  // :155, g2048[r, lcg(ids[r] + i) & 127] for 2048 rows
     }
     __syncthreads();
     return __uint_as_float(s[t >> 7]);
-  }
-};
-
-struct Red1 {  // :168, the 512 row sums of a512 + i: a warp a row
-  static __device__ float step(int i, int t, const void* p0, const void*,
-                               uint32_t* s, uint32_t& sink) {
-    const int4* a = (const int4*)p0;
-    const int lane = t & 31, w = t >> 5;
-    const uint32_t ui = (uint32_t)i;
-    for (int k = 0; k < 16; ++k) {
-      const int row = w + 32 * k;
-      const int4 v = a[row * 32 + lane];
-      uint32_t x = ((uint32_t)v.x + ui) + ((uint32_t)v.y + ui) +
-                   ((uint32_t)v.z + ui) + ((uint32_t)v.w + ui);
-      x = warp_sum(x);
-      if (lane == 0) {
-        sink += x;
-        if (row < 8) s[row] = x;
-      }
-    }
-    __syncthreads();
-    return as_float(s[t >> 7]);
   }
 };
 
@@ -323,7 +301,7 @@ int launch(const void* in0, const void* in1, int r, void* out, void* sink,
 
 }  // namespace
 
-// body: 0-11 in the order of this source's bodies in
+// body: 0-10 in the order of this source's bodies in
 // lz4_sgori_torch.probes.microbench2.BODIES;
 // in0, in1: the body's inputs (in1 null for a body of one); out: (8, 128)
 // float32; sink: one int32.
@@ -335,16 +313,15 @@ extern "C" int lz4t_probe_harness(int body, const void* in0, const void* in1,
   switch (body) {
     case 0: return launch<Vpu>(in0, in1, r, out, sink, st);
     case 1: return launch<Extract>(in0, in1, r, out, sink, st);
-    case 2: return launch<Red1>(in0, in1, r, out, sink, st);
-    case 3: return launch<Red0>(in0, in1, r, out, sink, st);
-    case 4: return launch<Bitroll>(in0, in1, r, out, sink, st);
-    case 5: return launch<Sroll>(in0, in1, r, out, sink, st);
-    case 6: return launch<Lroll>(in0, in1, r, out, sink, st);
-    case 7: return launch<Vlookup>(in0, in1, r, out, sink, st);
-    case 8: return launch<Fori>(in0, in1, r, out, sink, st);
-    case 9: return launch<Dynrow>(in0, in1, r, out, sink, st);
-    case 10: return launch<Statrow>(in0, in1, r, out, sink, st);
-    case 11: return launch<CumsumShift>(in0, in1, r, out, sink, st);
+    case 2: return launch<Red0>(in0, in1, r, out, sink, st);
+    case 3: return launch<Bitroll>(in0, in1, r, out, sink, st);
+    case 4: return launch<Sroll>(in0, in1, r, out, sink, st);
+    case 5: return launch<Lroll>(in0, in1, r, out, sink, st);
+    case 6: return launch<Vlookup>(in0, in1, r, out, sink, st);
+    case 7: return launch<Fori>(in0, in1, r, out, sink, st);
+    case 8: return launch<Dynrow>(in0, in1, r, out, sink, st);
+    case 9: return launch<Statrow>(in0, in1, r, out, sink, st);
+    case 10: return launch<CumsumShift>(in0, in1, r, out, sink, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

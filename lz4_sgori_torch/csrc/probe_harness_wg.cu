@@ -1,24 +1,25 @@
-// Eight readings of the primitive-rate harness written for the whole
+// Nine readings of the primitive-rate harness written for the whole
 // H100: from acc = 0 ((8, 128) float32), each iteration i of 0 .. r-1
 // computes the body's whole result and adds its rows [:8] into acc; sink
 // sums every element of every iteration's whole result (ohbuild: the
 // wrapping 32-bit sum of the flat index 512 row + col of each one;
-// gather: of the float32 bit patterns; transpose, shiftsel: of the int32
-// elements; the other products: a float64 sum of the product).
+// gather: of the float32 bit patterns; transpose, shiftsel, red1: of the
+// int32 elements; the other products: a float64 sum of the product).
 //
 // Replaces tools/microbench2.py:_harness.kernel (:40, the pallas_call of
 // _harness.run at :60) around body_ohbuild (:144), body_mxu in bf16 and
 // f32 (:115), body_gather (:130), body_cumsum_mxu (:296),
-// body_cumsum_mxu_lane (:307), body_transpose (:318) and body_shiftsel
-// (:327). The other twelve vector-unit bodies stay in probe_harness.cu.
+// body_cumsum_mxu_lane (:307), body_transpose (:318), body_shiftsel
+// (:327) and body_red1 (:168). The other eleven vector-unit bodies stay
+// in probe_harness.cu, on one SM.
 //
 // What bounds it on the H100: the integer and half-precision pipes of
 // every SM (ohbuild: a compare of two bf16 columns a word, 128 lanes a
 // clock an SM), the tensor cores of every SM (2mnk a product at 4096
 // dense bf16 FLOP a clock an SM, 2048 TF32; the split TF32 of the two
 // cumsums doubles their tensor work) and the shared memory of every SM
-// (transpose, shiftsel: 256 KiB an iteration at 128 bytes a clock an
-// SM). The TPU runs the harness
+// (transpose, shiftsel, red1: 256 KiB an iteration at 128 bytes a clock
+// an SM). The TPU runs the harness
 // sequentially on one core (grid (1,)) with its inputs in VMEM; here a
 // persistent grid of one block an SM walks a static list of work items,
 // so that a call's bits depend only on its inputs and the grid, and
@@ -113,6 +114,21 @@
 //   blocks take no items, the other blocks deal the bands (15 or 16 a
 //   band on 132 SMs), and on a grid of 8 block 0 does both. No scratch
 //   and no second kernel.
+// - red1, the 512 row sums of a512 + i, in the same form (Deal, the same
+//   chain blocks): a block holds a 64-row band of a512 (33 KiB: rows of
+//   32 chunks of 16 bytes padded to 33, so that 8 neighbouring rows at
+//   one chunk, or 8 neighbouring chunks of a row, fall in distinct
+//   banks). An item (iteration, band) is 2 warp tasks of 32 rows, a lane
+//   a row: its 128 words read anew (ld.volatile) and summed in the lane,
+//   no shuffle, plus 128 i (the same wrapping value as the sum of a + i),
+//   then added into the block's sink partial. acc's rows are the row
+//   sums of rows 0-7, so acc has 8 chains, a warp a row on the chain
+//   blocks (one row a block on 8 of them), which also hold those rows
+//   twice over in a line: lane u reads the row's 128 words for
+//   iteration i0 + u (its 32 chunks from chunk u on, so that no read
+//   serves two iterations) and forms its sum; the warp adds the 32 sums,
+//   passed through shared memory, in iteration order, reading the next
+//   batch's chunks between the adds, and writes the row's 128 cells.
 //
 // Across blocks, for the other six: the band-0 items of iteration i
 // write its rows 0-7 to scratch[i] (8 x 128 float32, one a k-half for
@@ -818,7 +834,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
   }
 }
 
-// ---- transpose and shiftsel: a band resident a block, acc's chains ----
+// ---- transpose, shiftsel, red1: a band resident a block, acc's chains ----
 
 namespace rb {
 constexpr int kThreads = 512, kWarps = kThreads / 32;
@@ -829,6 +845,8 @@ constexpr int kMaxChains = 8;        // chain blocks, one row of acc each
 constexpr int kPitch = 65;           // transpose: words a held row of x128
 constexpr int kSel = 64 + 31;        // shiftsel: rows a band's selects reach
 constexpr int kBatch = 16;           // iterations a chain reads, then adds
+constexpr int kRowTasks = 2;         // red1: warp tasks (32 rows) an item
+constexpr int kRowPitch = 33;        // red1: 16-byte chunks a held row
 }  // namespace rb
 
 // A read of shared memory that the compiler may neither hoist out of a
@@ -1002,6 +1020,98 @@ __global__ void __launch_bounds__(rb::kThreads, 1)
         const uint4 v = lds4(rows + (j + u + sh) * 32 + lane);
         sum += v.x + v.y + v.z + v.w;
       }
+    }
+  }
+  add_sink(sum, red, sink);
+}
+
+// the 512 row sums of a512 + i, each formed as the sum of the row's 128
+// words plus 128 i (the same wrapping value)
+__global__ void __launch_bounds__(rb::kThreads, 1)
+    red1_kernel(const int* __restrict__ a, int r, float* __restrict__ out,
+                int* __restrict__ sink) {
+  // a512's row 64 band + k at rows[kRowPitch k ..], 32 chunks of 16
+  // bytes and one of padding: 8 neighbouring rows at one chunk (an item's
+  // quarter warp) fall in distinct banks. A chain block also holds acc's
+  // rows (rows 0-7 of band 0) twice over, 64 chunks a row, so that a
+  // lane's 32 chunks from chunk lane on lie in a line
+  __shared__ uint4 rows[64 * rb::kRowPitch];
+  __shared__ uint4 twice[8 * 64];
+  __shared__ __align__(16) float sums[rb::kChainWarps][32];
+  __shared__ uint32_t red[rb::kWarps];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Deal d = deal(r);
+  const int4* band = (const int4*)(a + 64 * d.band * 128);
+  for (int e = tid; e < 64 * 32; e += rb::kThreads) {
+    const int4 v = __ldg(band + e);
+    rows[(e >> 5) * rb::kRowPitch + (e & 31)] = make_uint4(v.x, v.y, v.z, v.w);
+  }
+  if (d.cells)
+    for (int e = tid; e < 8 * 64; e += rb::kThreads) {
+      const int4 v = __ldg(band + (e >> 6) * 32 + (e & 31));
+      twice[e] = make_uint4(v.x, v.y, v.z, v.w);
+    }
+  __syncthreads();
+  const int chain = d.cells ? rb::kChainWarps : 0;
+  uint32_t sum = 0;
+  if (warp < chain) {
+    // row q of acc, a warp a row: lane u forms the row sum of iteration
+    // i0 + u from the row's 32 chunks, read from chunk u on (32 different
+    // chunks a step: no read serves two lanes), in 4 parts; the warp adds
+    // the 32 sums, passed through shared memory, in iteration order,
+    // while it reads the next batch's chunks
+    float* f = sums[warp];
+    for (int q = d.cell0 / 128 + warp; q < (d.cell0 + d.cells) / 128;
+         q += rb::kChainWarps) {
+      const uint4* row = twice + q * 64 + lane;
+      float acc = 0.f;
+      uint32_t s[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const uint4 v = lds4(row + k);
+        s[k & 3] += (v.x + v.y + v.z) + v.w;
+      }
+      for (int i0 = 0; i0 < r; i0 += 32) {
+        const uint32_t all = (s[0] + s[1]) + (s[2] + s[3]);
+        f[lane] = __int2float_rn((int)(all + 128u * (uint32_t)(i0 + lane)));
+        __syncwarp();
+        const float4* g = (const float4*)f;
+        const int n = min(32, r - i0);
+        s[0] = s[1] = s[2] = s[3] = 0;
+        if (n == 32) {
+#pragma unroll
+          for (int u = 0; u < 32; u += 4) {
+            const float4 h = g[u / 4];
+            const float hs[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const uint4 v = lds4(row + u + w);
+              s[w] += (v.x + v.y + v.z) + v.w;
+              acc = __fadd_rn(acc, hs[w]);
+            }
+          }
+        } else {
+          for (int u = 0; u < n; ++u) acc = __fadd_rn(acc, f[u]);
+        }
+        __syncwarp();
+      }
+      for (int c = lane; c < 128; c += 32) out[q * 128 + c] = acc;
+    }
+  } else {
+    // warp task f: item lo + f / 2; task f % 2 takes the band's rows
+    // 32 (f % 2) .. + 31, a lane a row: its 128 words summed, plus 128 i
+    const int n = (d.hi - d.lo) * rb::kRowTasks, workers = rb::kWarps - chain;
+    for (int f = warp - chain; f < n; f += workers) {
+      const uint32_t i = (uint32_t)(d.lo + f / rb::kRowTasks);
+      const uint4* row =
+          rows + (32 * (f % rb::kRowTasks) + lane) * rb::kRowPitch;
+      uint32_t s = 0;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const uint4 v = lds4(row + k);
+        s += v.x + v.y + v.z + v.w;
+      }
+      sum += s + 128u * i;
     }
   }
   add_sink(sum, red, sink);
@@ -1205,7 +1315,7 @@ int run_cumsum_mxu_lane(const void* a512, const void* triu, int r, void* out,
   return (int)cudaGetLastError();
 }
 
-// transpose and shiftsel: no scratch; a grid of at least the 8 bands;
+// transpose, shiftsel and red1: no scratch; a grid of at least the 8 bands;
 // the sink zeroed, then each block's partial added into it
 int zero_sink(void* sink, int grid, cudaStream_t st) {
   if (grid < rb::kBands) return (int)cudaErrorInvalidValue;
@@ -1230,26 +1340,36 @@ int run_shiftsel(const void* a512, const void* amt, int r, void* out,
   return (int)cudaGetLastError();
 }
 
+int run_red1(const void* a512, int r, void* out, void* sink, int grid,
+             cudaStream_t st) {
+  int e;
+  if ((e = zero_sink(sink, grid, st))) return e;
+  red1_kernel<<<grid, rb::kThreads, 0, st>>>((const int*)a512, r,
+                                             (float*)out, (int*)sink);
+  return (int)cudaGetLastError();
+}
+
 // The scratch bytes of body's launch, as each run_ lays it out: r x 4
 // KiB of rows (r x 8 KiB for mxu_f32's two k-halves; grid x 4 KiB of
 // counts for ohbuild), then grid x 8 bytes of partials; none for
-// transpose and shiftsel.
+// transpose, shiftsel and red1.
 size_t scratch_need(int body, int r, int grid) {
-  if (body == 6 || body == 7) return 0;
+  if (body == 6 || body == 7 || body == 8) return 0;
   size_t rows = body == 0 ? (size_t)grid : (size_t)r * (body == 2 ? 2 : 1);
   return rows * 4096 + (size_t)grid * 8;
 }
 
 }  // namespace
 
-// body: 0-7 in the order of the bodies of this source in
+// body: 0-8 in the order of the bodies of this source in
 // lz4_sgori_torch.probes.microbench2.BODIES; in0, in1: the body's inputs
-// (in1 null for ohbuild and transpose); out: (8, 128) float32; sink: one
-// int32 (ohbuild, gather, transpose, shiftsel) or float64; scratch:
-// scratch_bytes bytes, at least scratch_need's, else the launch is
-// refused; grid: the blocks, one an SM (mxu_f32: at least 16; mxu_bf16,
-// cumsum_mxu_lane, transpose, shiftsel: at least 8). ohbuild refuses r >=
-// 2^24, cumsum_mxu_lane r >= 2^21 (see their notes above).
+// (in1 null for ohbuild, transpose and red1); out: (8, 128) float32;
+// sink: one int32 (ohbuild, gather, transpose, shiftsel, red1) or
+// float64; scratch: scratch_bytes bytes, at least scratch_need's, else
+// the launch is refused; grid: the blocks, one an SM (mxu_f32: at least
+// 16; mxu_bf16, cumsum_mxu_lane, transpose, shiftsel, red1: at least 8).
+// ohbuild refuses r >= 2^24, cumsum_mxu_lane r >= 2^21 (see their notes
+// above).
 extern "C" int lz4t_probe_harness_wg(int body, const void* in0,
                                      const void* in1, int r, void* out,
                                      void* sink, void* scratch,
@@ -1270,6 +1390,7 @@ extern "C" int lz4t_probe_harness_wg(int body, const void* in0,
     case 5: return run_cumsum_mxu_lane(in0, in1, r, out, sink, sc, grid, st);
     case 6: return run_transpose(in0, r, out, sink, grid, st);
     case 7: return run_shiftsel(in0, in1, r, out, sink, grid, st);
+    case 8: return run_red1(in0, r, out, sink, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

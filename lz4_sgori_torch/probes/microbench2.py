@@ -56,21 +56,22 @@ triangles), and splits ``float32(a512 + i)`` into two TF32 parts, exact
 below 2^22 (``cumsum_mxu_lane`` takes R below 2^21, so that ``a512 + i``
 stays there).
 
-``harness`` launches ``csrc/probe_harness.cu`` (twelve of T14a's
-bodies: one block of 1024 threads, ``acc`` in registers, the loop over
-``r`` in the kernel) or ``csrc/probe_harness_wg.cu`` (``ohbuild``, the
-five tensor-core readings, ``transpose`` and ``shiftsel``: a persistent
-grid of one block an SM over a static list of work items, read-only
-operands held in shared memory; wgmma for the products, ``mxu_bf16`` and
-``mxu_f32`` one kernel template, tri through TMA, ``cumsum_mxu_lane``'s A
-split in registers; for those six each iteration's rows 0-7 go to a
-scratch buffer that a second kernel adds into ``acc`` in iteration order,
-``ohbuild``'s counted in integers, so that it takes R below 2^24;
-``transpose`` and ``shiftsel`` (``RESIDENT``) hold a 64-row band of
-their operand a block and run ``acc``'s 1024 chains in the main kernel,
-in iteration order, on 8 blocks of their own that hold band 0) on CUDA
-tensors and runs the body's plain version on CPU tensors;
-without inputs it takes the tool's (``tool_inputs``) on ``device``.
+``harness`` launches ``csrc/probe_harness.cu`` (eleven of T14a's
+bodies: one block of 1024 threads on one SM, ``acc`` in registers, the
+loop over ``r`` in the kernel) or ``csrc/probe_harness_wg.cu``
+(``ohbuild``, the five tensor-core readings, ``transpose``, ``shiftsel``
+and ``red1``: a persistent grid of one block an SM over a static list of
+work items, read-only operands held in shared memory; wgmma for the
+products, ``mxu_bf16`` and ``mxu_f32`` one kernel template, tri through
+TMA, ``cumsum_mxu_lane``'s A split in registers; for those six each
+iteration's rows 0-7 go to a scratch buffer that a second kernel adds
+into ``acc`` in iteration order, ``ohbuild``'s counted in integers, so
+that it takes R below 2^24; ``transpose``, ``shiftsel`` and ``red1``
+(``RESIDENT``) hold a 64-row band of their operand a block and run
+``acc``'s chains in the main kernel, in iteration order, on 8 blocks of
+their own that hold band 0) on CUDA tensors and runs the body's plain
+version on CPU tensors; without inputs it takes the tool's
+(``tool_inputs``) on ``device``.
 ``library_call`` gives the one PyTorch call that computes iteration 0's
 whole result of twelve of T14a's bodies (``WHOLE``; all but the chains
 ``vpu``, ``sroll`` and ``lroll``), the yardstick that ``chip_smoke.py``
@@ -118,7 +119,7 @@ LANES, BF16, TF32 = 128, 4096, 2048     # ops an SM a clock (Body.rate)
 VPU, WG = "probe_harness", "probe_harness_wg"
 # the WG readings whose band each block holds and whose acc chains run in
 # the main kernel: no scratch, no second kernel
-RESIDENT = ("transpose", "shiftsel")
+RESIDENT = ("transpose", "shiftsel", "red1")
 launches = 0
 
 
@@ -129,9 +130,9 @@ def load_kernel():
 
 def load_harness_kernel(source: str):
     """Build (once) and load a harness source: csrc/probe_harness.cu
-    (``VPU``, 12 of T14a's bodies) or csrc/probe_harness_wg.cu (``WG``,
-    the whole-card ones: ``ohbuild``, T14b's five, ``transpose`` and
-    ``shiftsel``)."""
+    (``VPU``, 11 of T14a's bodies) or csrc/probe_harness_wg.cu (``WG``,
+    the whole-card ones: ``ohbuild``, T14b's five, ``transpose``,
+    ``shiftsel`` and ``red1``)."""
     if source == WG:
         return _build.load("probe_harness_wg",
                            {"lz4t_probe_harness_wg": "ippipppnip"})
@@ -450,8 +451,6 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
     "extract": ("lane_extract_2048x128", 155, ("g2048", "ids"),
                 (4096, 262144), (8192, 65536), 2048, 2 * 2048 + ACC,
                 8 * 2048, _extract),
-    "red1": ("reduce_lanes_512x128", 168, ("a512",), (16384, 1048576),
-             (4096, 32768), 1, N // 2 + 8 + ACC, 4 * N, _rows("red1")),
     "red0": ("reduce_sublanes_512x128", 175, ("a512",), (16384, 1048576),
              (8192, 65536), 1, N // 2 + 128 + ACC, 4 * N, _rows("red0")),
     "bitroll": ("bitroll7_lanes_512x128", 183, ("a512", "amt"),
@@ -507,6 +506,11 @@ BODIES = {b_name: Body(*fields) for b_name, fields in {
     "shiftsel": ("shiftsel32_rows_512x128", 327, ("a512", "amt"),
                  (2048, 65536), (4096, 32768), 512 * 128, 2 * 512 + 2 * ACC,
                  4 * N + 4 * 512, _rows("shiftsel"), LANES, WG),
+    # red1 in the same form after them (its number 8 there); at about 9 ns
+    # an iteration its card counts doubled as transpose's were
+    "red1": ("reduce_lanes_512x128", 168, ("a512",), (16384, 1048576),
+             (8192, 65536), 1, N // 2 + 8 + ACC, 4 * N, _rows("red1"),
+             LANES, WG),
 }.items()}
 # the body's number in its source's switch: its place among the bodies of
 # that source in BODIES

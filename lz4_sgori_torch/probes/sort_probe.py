@@ -4,9 +4,13 @@ int32 array sorted on its own (``np.sort(x, axis=0)``).
 ``device_sort`` launches ``csrc/probe_sort.cu`` (the port of
 ``tools/sort_probe.py:_sort_kernel``) on a CUDA tensor and runs
 ``device_sort_plain``, the tool's network of compare-exchange stages
-with ``torch.roll`` and ``torch.where``, on a CPU tensor. The enc3
-pass-1 design question it sizes: whether one sort by ``hash13 << 16 |
-pos16`` answers "previous same-hash position" cheaper than a table walk.
+with ``torch.roll`` and ``torch.where``, on a CPU tensor. The kernel
+runs the network in the passes of ``plan`` (its launches, which
+``passes`` reads from the kernel's own host code): tile passes on
+4096-row tiles in shared memory, global passes of up to four stages in
+registers, the first pass out of place. The enc3 pass-1 design question
+it sizes: whether one sort by ``hash13 << 16 | pos16`` answers
+"previous same-hash position" cheaper than a table walk.
 
     python -m lz4_sgori_torch.probes.sort_probe [logN] [reps] [--device cpu]
 """
@@ -22,18 +26,46 @@ from . import check_device, check_int32, device_name, parser, per_iter
 
 LANES = 128
 MAX_LOGN = 24
+TILE_LOG = 12           # log2 of a tile's rows (csrc/probe_sort.cu kTileLog)
+GLOBAL_STAGES = 4       # the most stages of a global pass
 launches = 0
 
 
 def load_kernel():
     """Build (once) and load csrc/probe_sort.cu."""
-    return _build.load("probe_sort", {"lz4t_probe_sort": "pip"})
+    return _build.load("probe_sort", {"lz4t_probe_sort": "ppip",
+                                      "lz4t_probe_sort_passes": "i"})
 
 
 def bitonic_stages(n: int):
     """(j, k) stage list for a full ascending bitonic sort of n = 2^m."""
     logn = n.bit_length() - 1
     return [(j, k) for j in range(logn) for k in range(j, -1, -1)]
+
+
+def plan(logn: int, tile_log: int = TILE_LOG) -> list[tuple]:
+    """The kernel's passes for ``2^logn`` rows, in order: ``("tile", j0,
+    j1)`` runs, for j = j0 .. j1, the stages (j, k) with k below the
+    tile's ``t = min(logn, tile_log)``; ``("global", j, khi, klo)`` the
+    stages (j, khi) .. (j, klo), all at k >= t. A tile pass over j = 0 ..
+    t - 1 first, then for each j >= t its global passes, four stages at
+    most each from the top, and a tile pass over j alone."""
+    t = min(logn, tile_log)
+    out: list[tuple] = [("tile", 0, t - 1)]
+    for j in range(t, logn):
+        for khi in range(j, t - 1, -GLOBAL_STAGES):
+            out.append(("global", j, khi, max(t, khi - GLOBAL_STAGES + 1)))
+        out.append(("tile", j, j))
+    return out
+
+
+def passes(n: int) -> int:
+    """The launches of the kernel's sort of ``n`` rows, as its host code
+    counts them (``lz4t_probe_sort_passes``); needs the built kernel."""
+    got = load_kernel().lz4t_probe_sort_passes(n)
+    if got < 0:
+        raise ValueError(f"the kernel refuses N {n}")
+    return got
 
 
 def sort_stage(x: torch.Tensor, j: int, k: int, iota: torch.Tensor):
@@ -68,9 +100,11 @@ def device_sort(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return device_sort_plain(x)
     lib = load_kernel()
-    out = x.contiguous().clone()
-    _build.check(lib.lz4t_probe_sort(out.data_ptr(), out.shape[0],
-                                     _build.stream(out.device)), "probe_sort")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _build.check(lib.lz4t_probe_sort(x.data_ptr(), out.data_ptr(),
+                                     x.shape[0], _build.stream(x.device)),
+                 "probe_sort")
     launches += 1
     return out
 
@@ -119,8 +153,8 @@ def main(argv=None) -> int:
     best = per_iter(run_n, 1, a.reps + 1, dev)
     stages = len(bitonic_stages(n))
     print(f"[sort] best {best * 1e3:.4f} ms for {n * LANES * 4 / 1e6:.0f} MB "
-          f"({stages} stages, {best * 1e6 / max(stages, 1):.3f} us/stage)",
-          flush=True)
+          f"({stages} stages, {best * 1e6 / max(stages, 1):.3f} us/stage, "
+          f"{len(plan(a.logn))} passes)", flush=True)
     return 0
 
 

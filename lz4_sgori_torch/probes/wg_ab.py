@@ -1,8 +1,8 @@
 """The whole-card harness readings (``csrc/probe_harness_wg.cu``) on the
 card, kernel by kernel: each reading's device time in each of its
-kernels (the main kernel and, but for ``transpose`` and ``shiftsel``,
-whose chains run in the main kernel, the one that adds rows 0-7 in
-iteration order), from ``torch.profiler`` over three calls at the card's
+kernels (the main kernel and, but for ``microbench2.RESIDENT``'s
+readings, whose chains run in the main kernel, the one that adds rows
+0-7 in iteration order), from ``torch.profiler`` over three calls at the card's
 count (``Body.card``). With ``--against OTHER.cu``, another version of
 the source (an earlier commit's, say) is built beside this one and
 loaded in the same process; each reading the two share is timed in

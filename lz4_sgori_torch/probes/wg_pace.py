@@ -1,6 +1,6 @@
 """What sets the pace of the whole-card readings whose acc chains run in
-the main kernel (``microbench2.RESIDENT``: ``transpose``, ``shiftsel``):
-variants of ``csrc/probe_harness_wg.cu``, each built beside it
+the main kernel (``microbench2.RESIDENT``: ``transpose``, ``shiftsel``,
+``red1``): variants of ``csrc/probe_harness_wg.cu``, each built beside it
 (``wg_ab.load_source``) and timed in turns with it (this, variant,
 variant, this; ten calls a timing, CUDA events) at the card's count and
 twice it, with their ``out`` and ``sink`` bits compared:
@@ -9,7 +9,8 @@ twice it, with their ``out`` and ``sink`` bits compared:
   unwritten): the items alone;
 - ``chains``: no block takes an item: the chains alone;
 - ``batch8``, ``batch32``: the chains' reads issued 8 or 32 iterations
-  ahead of their adds, not 16;
+  ahead of their adds, not 16 (``transpose``, ``shiftsel``; ``red1``'s
+  chains take 32, a lane each);
 - ``shared``: the chains on band 0's first 8 blocks, which also take 3
   items for every 4 of the band's other blocks (the bands dealt over all
   blocks), in place of chain blocks of their own.
@@ -62,8 +63,8 @@ VARIANTS = {
                "d.cells = 0;"),
               (r"const int first = grid - chains >= rb::kBands \? chains : 0;",
                "const int first = 0;")],
-    "chains": [(r"const int n = \(d\.hi - d\.lo\) \* rb::kTasks",
-                "const int n = 0 * (d.hi - d.lo) * rb::kTasks")],
+    "chains": [(r"const int n = \(d\.hi - d\.lo\)",
+                "const int n = 0 * (d.hi - d.lo)")],
     "batch8": [(r"constexpr int kBatch = 16;", "constexpr int kBatch = 8;")],
     "batch32": [(r"constexpr int kBatch = 16;",
                  "constexpr int kBatch = 32;")],

@@ -1,12 +1,12 @@
 """The kernels of the twenty-seven CUDA sources (K1-K7, K9, K8's gaps,
 K8-seg and K8-enc3, K10's mcode, K10b and K10c, the retired engines
 T1-T3, and the probes T4-T15, T6 and T7, T9 and T10, T11 and T12 sharing
-a source each, T14a's 15 bodies and T14b's 5 readings two: 12 bodies
+a source each, T14a's 15 bodies and T14b's 5 readings two: 11 bodies
 on ``probe_harness``; ``ohbuild``, the five tensor-core readings,
-``transpose`` and ``shiftsel`` on ``probe_harness_wg``) against their
-plain PyTorch versions and their golden oracles, on the card. Marked
-``cuda``; each
-test skips itself when no card is present. Run on a CUDA machine with
+``transpose``, ``shiftsel`` and ``red1`` on ``probe_harness_wg``)
+against their plain PyTorch versions and their golden oracles, on the
+card. Marked ``cuda``; each test skips itself when no card is present.
+Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 """
@@ -575,10 +575,12 @@ def test_t3_chained_decode(dev, chain):
             assert torch.equal(a, b) and torch.equal(a.cpu(), c), sort
 
 
-@pytest.mark.parametrize("logn", [1, 4, 10, 16])
+@pytest.mark.parametrize("logn", [1, 4, 10, 12, 13, 16, 17])
 def test_t4_probe_sort(dev, logn):
     """The tool's keys and random int32 with negatives, each column
-    sorted: equal to torch.sort and to the plain network."""
+    sorted: equal to torch.sort and to the plain network, one launch a
+    call, in as many passes as ``plan`` lists (the kernel's own count)."""
+    assert P4.passes(1 << logn) == len(P4.plan(logn))
     rng = np.random.default_rng(logn)
     for x_np in (P4.keys(logn), rng.integers(-(1 << 31), 1 << 31, (
             1 << logn, 128)).astype(np.int32)):
@@ -761,14 +763,14 @@ def test_t14a_probe_harness(dev, name):
                                   if b.source == P15.WG])
 def test_t14b_probe_harness_wg_waves(dev, name):
     """The whole-card readings (``ohbuild``, the five tensor-core
-    readings, ``transpose`` and ``shiftsel``) at R 0, 1, 3 and 300, and
-    over the grid's waves at R 33 (whole waves of items on 132 SMs) and
-    301 (a partial last wave), against the plain version (the three T14a
-    bodies', ``gather``'s out and sink and ``cumsum_mxu``'s out bit for
-    bit; every other out within E of the float64 reference in each cell;
-    float sinks within the summed bound), one launch a call, and two
-    calls at each R that give the same out and sink bits; the T14a bodies
-    also on inputs drawn over all of int32 at each R."""
+    readings, ``transpose``, ``shiftsel`` and ``red1``) at R 0, 1, 3 and
+    300, and over the grid's waves at R 33 (whole waves of items on 132
+    SMs) and 301 (a partial last wave), against the plain version (the
+    four T14a bodies', ``gather``'s out and sink and ``cumsum_mxu``'s out
+    bit for bit; every other out within E of the float64 reference in
+    each cell; float sinks within the summed bound), one launch a call,
+    and two calls at each R that give the same out and sink bits; the
+    T14a bodies also on inputs drawn over all of int32 at each R."""
     ins = P15.body_inputs(name, dev)
     cases = [(ins, r) for r in (0, 1, 3, 33, 300, 301)]
     if P15.BODIES[name].rate == P15.LANES:

@@ -213,18 +213,20 @@ def test_t14a_equals_the_tool(tool, name):
 def test_t14a_bodies_are_the_tools():
     """The table lists the tool's 15 vector-unit readings, with its repeat
     counts, every line it cites opens a body of that name, ``ohbuild``,
-    ``transpose`` and ``shiftsel`` run on every SM (``probe_harness_wg``)
-    and ``probe_harness.cu``'s switch takes the other 12 in the table's
-    order."""
+    ``transpose``, ``shiftsel`` and ``red1`` run on every SM
+    (``probe_harness_wg``), and ``probe_harness.cu``'s switch takes the
+    other 11 in the table's order, which is the tool's."""
     with open(os.path.join(ROOT, "tools", "microbench2.py")) as f:
         lines = f.read().splitlines()
     t14a = {n: T14.BODIES[n] for n in T14.T14A}
     assert set(t14a) == set(TOOL_BODIES)
     assert [n for n, b in t14a.items() if b.source != T14.VPU] == [
-        "ohbuild", "transpose", "shiftsel"]
+        "ohbuild", "transpose", "shiftsel", "red1"]
     assert all(t14a[n].source == T14.WG
-               for n in ("ohbuild", "transpose", "shiftsel"))
-    assert [n for n in T14.ORDER if n in t14a] == list(t14a)
+               for n in ("ohbuild", "transpose", "shiftsel", "red1"))
+    one_sm = [n for n, b in t14a.items() if b.source == T14.VPU]
+    assert [n for n in T14.ORDER if n in one_sm] == one_sm
+    assert sorted(T14.ORDER) == sorted(T14.BODIES)
     for name, body in t14a.items():
         assert lines[body.line - 1].strip().startswith(f"def body_{name}(")
         assert f'"{body.reading}"' in "\n".join(lines[body.line:body.line + 15])

@@ -148,11 +148,11 @@ def test_t14b_tool_and_plain_within_the_reference(tool, name):
 
 def test_t14b_bodies_are_the_tools():
     """The five readings with the tool's names, lines and repeat counts,
-    all in ``probe_harness_wg``, whose switch runs its eight bodies in the
+    all in ``probe_harness_wg``, whose switch runs its nine bodies in the
     order of the table (T14a's ``ohbuild``, then ``mxu_bf16``,
     ``mxu_f32``, ``gather``, ``cumsum_mxu``, ``cumsum_mxu_lane``, then
-    T14a's ``transpose`` and ``shiftsel``), as ``probe_harness``'s runs
-    its 12; the rates an SM, the card counts of
+    T14a's ``transpose``, ``shiftsel`` and ``red1``), as
+    ``probe_harness``'s runs its 11; the rates an SM, the card counts of
     ``cumsum_mxu`` below 2^20 (its rows 0-7 exact), ``cumsum_mxu_lane``'s
     R below 2^21 (``a512 + i`` below 2^22, where its split is exact), and
     the tool's 20 readings named through ``BODIES``."""
@@ -161,7 +161,7 @@ def test_t14b_bodies_are_the_tools():
     assert T14.T14B == TC
     assert [n for n in TC if T14.BODIES[n].source == T14.WG] == list(TC)
     assert [n for n, b in T14.BODIES.items() if b.source == T14.WG] == [
-        "ohbuild", *TC, "transpose", "shiftsel"]
+        "ohbuild", *TC, "transpose", "shiftsel", "red1"]
     assert T14.BODIES["cumsum_mxu_lane"].r_limit == 1 << 21
     assert T14.BODIES["cumsum_mxu_lane"].card[1] < 1 << 21
     tool_counts = {"mxu_bf16": (8192, 524288), "mxu_f32": (8192, 524288),

@@ -250,9 +250,9 @@ def test_mxu_f32_wg_reduction_contract():
 
 def test_wg_scratch_bytes():
     """Rows of 4 KiB an iteration (two for mxu_f32's k-halves), ohbuild's
-    counts 4 KiB a block, then 8 bytes a block; none for transpose and
-    shiftsel; the whole-card source runs ohbuild, the five tensor-core
-    readings, transpose and shiftsel."""
+    counts 4 KiB a block, then 8 bytes a block; none for transpose,
+    shiftsel and red1; the whole-card source runs ohbuild, the five
+    tensor-core readings, transpose, shiftsel and red1."""
     g = 132
     assert T14.wg_scratch_bytes("gather", 300, g) == 300 * 4096 + 8 * g
     assert T14.wg_scratch_bytes("cumsum_mxu", 0, g) == 8 * g
@@ -260,9 +260,10 @@ def test_wg_scratch_bytes():
     assert T14.wg_scratch_bytes("ohbuild", 300, g) == g * 4096 + 8 * g
     assert T14.wg_scratch_bytes("transpose", 300, g) == 0
     assert T14.wg_scratch_bytes("shiftsel", 300, g) == 0
+    assert T14.wg_scratch_bytes("red1", 300, g) == 0
     assert [n for n, b in T14.BODIES.items() if b.source == T14.WG] == [
         "ohbuild", "mxu_bf16", "mxu_f32", "gather", "cumsum_mxu",
-        "cumsum_mxu_lane", "transpose", "shiftsel"]
+        "cumsum_mxu_lane", "transpose", "shiftsel", "red1"]
 
 
 @pytest.mark.parametrize("name", ["ohbuild", "mxu_f32"])

@@ -179,7 +179,7 @@ def test_cumsum_lane_refuses_r_from_2_21():
 def test_redesigned_failed_build_raises_and_never_falls_back(monkeypatch,
                                                              name):
     """On the card's branch each redesigned reading (``mxu_bf16``,
-    ``cumsum_mxu_lane``, ``transpose``, ``shiftsel``) builds
+    ``cumsum_mxu_lane``, ``transpose``, ``shiftsel``, ``red1``) builds
     ``probe_harness_wg``; when the build fails it raises, and no plain
     result comes back."""
     built = []
@@ -200,10 +200,10 @@ def test_redesigned_failed_build_raises_and_never_falls_back(monkeypatch,
 def test_scratch_bytes_and_scratch_need():
     """``wg_scratch_bytes``: 4 KiB of rows an iteration for both redesigned
     readings (one k-part), then 8 bytes a block; the C entry's
-    ``scratch_need`` lays out the same bytes for each of the eight
+    ``scratch_need`` lays out the same bytes for each of the nine
     bodies by its number (two rows an iteration for ``mxu_f32`` alone, a
-    block's counts for ``ohbuild``, none for ``transpose`` and
-    ``shiftsel``), refuses R from 2^21 for ``cumsum_mxu_lane``, and each
+    block's counts for ``ohbuild``, none for ``transpose``, ``shiftsel``
+    and ``red1``), refuses R from 2^21 for ``cumsum_mxu_lane``, and each
     kernel refuses a grid below its tiles."""
     g = 132
     for name in REDESIGNED:
@@ -212,9 +212,9 @@ def test_scratch_bytes_and_scratch_need():
     with open(os.path.join(ROOT, "lz4_sgori_torch", "csrc",
                            "probe_harness_wg.cu")) as f:
         src = f.read()
-    none = re.search(r"if \(body == (\d+) \|\| body == (\d+)\) return 0;",
-                     src)
-    assert none and [int(none[1]), int(none[2])] == [
+    none = re.search(r"if \(body == (\d+) \|\| body == (\d+) \|\| "
+                     r"body == (\d+)\) return 0;", src)
+    assert none and [int(none[k]) for k in (1, 2, 3)] == [
         T14.BODY_ID[n] for n in T14.RESIDENT]
     need = re.search(r"size_t rows = body == (\d+) \? \(size_t\)grid : "
                      r"\(size_t\)r \* \(body == (\d+) \? 2 : 1\);", src)

@@ -91,11 +91,11 @@ def test_source_holds_the_emulated_constants():
                     r"cudaErrorInvalidValue;"):
         assert re.search(pattern, src), pattern
     assert (T14.BODY_ID["transpose"], T14.BODY_ID["shiftsel"]) == (6, 7)
-    assert "if (body == 6 || body == 7) return 0;" in src
+    assert "if (body == 6 || body == 7 || body == 8) return 0;" in src
     for name in ("transpose", "shiftsel"):
         assert re.search(rf"int run_{name}\([^{{]*\{{\n  int e;\n  if \(\(e = "
                          r"zero_sink\(sink, grid, st\)\)\) return e;", src)
-    assert T14.RESIDENT == ("transpose", "shiftsel")
+    assert T14.RESIDENT == ("transpose", "shiftsel", "red1")
 
 
 @pytest.mark.parametrize("grid", [8, 9, 132])
@@ -280,12 +280,13 @@ def test_wg_pace_variants_apply_to_the_source():
 
 def test_wg_ab_names_a_reading_the_other_source_lacks():
     """Against a source of the six earlier bodies, ``wg_ab`` times the six
-    and names each of the two new readings on a line of its own."""
+    and names each of the three later readings on a line of its own."""
     six = "\n".join(f"    case {k}: return run_{n}(in0, in1, r);" for k, n
                     in enumerate(("ohbuild", "mxu_bf16", "mxu_f32", "gather",
                                   "cumsum_mxu", "cumsum_mxu_lane")))
     other = wg_ab.body_ids(six)
     names = [n for n, b in T14.BODIES.items() if b.source == T14.WG]
-    assert [n for n in names if n not in other] == ["transpose", "shiftsel"]
+    assert [n for n in names if n not in other] == ["transpose", "shiftsel",
+                                                    "red1"]
     line = wg_ab.lacking("shiftsel", "old.cu")
     assert "shiftsel" in line and "old.cu" in line and "\n" not in line
