@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the twenty-seven CUDA sources of the port from
 ``lz4_sgori_torch/csrc`` (one nvcc each, all started together; 48
@@ -62,7 +62,10 @@ blocks run in a pool of worker processes:
 
 13. K9 and K6 against their plain versions exactly (K9 on 4 blocks of
     1 MiB and one of 4 MiB, and against golden.dense_candidates_piecewise
-    on 2; K6 at 512 KiB, 1 MiB and 4 MiB on blocks of ``native.compress``);
+    on 2; K6 at 512 KiB, 1 MiB and 4 MiB on blocks of ``native.compress``
+    and on the eleven ``crafted_streams`` of each size: the rings' wraps
+    and stage bounds, each error of the safe decoder late in a long
+    stream, a stream of exactly ``slot`` bytes);
 14. the golden contract: ``compress_blocks_device`` at 128 KiB, 256 KiB,
     512 KiB, 1 MiB and 4 MiB (a full and a short block each) and at
     acceleration 8 at 1 MiB equals golden.compress_dense_seg_big, and
@@ -75,7 +78,8 @@ blocks run in a pool of worker processes:
     bytes;
 16. two ProxyStores over 32 MiB backing files, shaped as fio's
     ``test_1m.fio`` and ``test_4m.fio`` (32 sequential 1 MiB writes, 8 of
-    4 MiB), read back under sha256;
+    4 MiB), read back under sha256, their write latency's median, p99
+    and max;
 17. the CLI's default ``verify`` sweep (4 KiB-4 MiB, eleven sizes) over
     8 MiB, which launches all eight depth-1 kernels and none of K8's,
     K10's or the retired engines';
@@ -83,17 +87,20 @@ blocks run in a pool of worker processes:
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
     K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
-    both at 4 MiB.
+    both at 4 MiB; K6 on one block of 1 MiB, one of 4 MiB and over config
+    6, each in turns with the parent tree's K6 when ``--parent`` names
+    one (its outputs equal first).
 
 The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
 64 KiB blocks; depth 3 on seg, depth 5 on enc3 over the first 8 MiB;
 kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
 
 20. the gaps kernel (K2's tape at links 2 and 4, K9's tape with its
-    floor), K8-seg and K8-enc3 (64 blocks of 4 KiB, and 2 of the 8 blocks
-    of 64 KiB the kernel parses, at depth 3 and 5) against their plain
-    versions exactly, and the tapes against golden; the plain K8 parses
-    are timed here, once;
+    floor), K8-seg and K8-enc3 (64 blocks of 4 KiB, and 4 of the 10
+    blocks of 64 KiB the kernel parses: the first, the short last one, a
+    random and an all-zero block, at depth 3 and 5)
+    against their plain versions exactly, and the tapes against golden;
+    the plain K8 parses are timed here, once;
 21. the golden contract of each deep row of the routing table: seg at
     depth 2-3, seg_big at depth 3, enc3 at depth 3 (acceleration 1 and 8)
     and 5, and seg_splice capped at depth 1 with its warning;
@@ -108,7 +115,9 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
 24. times with CUDA events: the deep encode paths, the gaps kernel and
     K8-seg over the corpus beside K3, K8-enc3 over the depth-5 slice, and
     each deep kernel beside its plain version (the K8 parses' from phase
-    20).
+    20); K8-enc3 at depth 5 on the first 1, 32 and 128 blocks and at
+    depth 3 on the 64 blocks of 4 KiB, each in turns with the parent
+    tree's K8-enc3 when ``--parent`` names one.
 
 The mlen mode (K10: ``LZ4J_ENC_MLEN=1`` at depth 1 and 64 KiB and below;
 kernels K2, mcode, K10b and K4 on ``seg``, K2, mcode and K10c through the
@@ -228,6 +237,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     the next, nor T13 (a capacity probe), nor three of T14a's bodies:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
+``--parent DIR`` names a tree of an earlier commit (``git archive``);
+without it phases 19 and 24 time this tree's kernels alone.
+
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
 package, whose backend-neutral modules the port copies. It prints its
@@ -248,6 +260,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 DEVICE = "cuda"
+# ``--parent DIR``: a tree of the commit before (``git archive``), whose
+# K6 and K8-enc3 sources phases 19 and 24 build and time in turns with
+# this tree's; None times this tree's kernels alone
+PARENT = None
 BLOCK = 65536
 CORPUS_BYTES = 32 << 20
 SUBSET = 32
@@ -450,6 +466,228 @@ def make_mutants(bases, rng, count: int, slot: int) -> list[bytes]:
     return muts
 
 
+class _Seqs:
+    """An LZ4 block written sequence by sequence, with the bytes it
+    decodes to."""
+
+    def __init__(self):
+        self.stream, self.out = bytearray(), bytearray()
+
+    def _lsic(self, rem: int) -> None:
+        self.stream += b"\xff" * (rem // 255) + bytes([rem % 255])
+
+    def seq(self, lit: bytes, off: int = 1, ml: int = 4,
+            last: bool = False) -> None:
+        self.stream.append(min(len(lit), 15) << 4
+                           | (0 if last else min(ml - 4, 15)))
+        if len(lit) >= 15:
+            self._lsic(len(lit) - 15)
+        self.stream += lit
+        self.out += lit
+        if last:
+            return
+        self.stream += off.to_bytes(2, "little")
+        if ml - 4 >= 15:
+            self._lsic(ml - 4 - 15)
+        if 0 < off <= len(self.out):
+            period = self.out[len(self.out) - off:]
+            self.out += (period * (ml // off + 1))[:ml]
+
+    def pad_to(self, size: int, rng) -> None:
+        """Short sequences (literals, then a 4-byte match at offset 1)
+        until the stream is exactly ``size`` bytes long."""
+        while len(self.stream) < size:
+            k = min(size - len(self.stream) - 3, 14)
+            if 0 < size - len(self.stream) - 3 - k < 3:
+                k -= 3
+            self.seq(rng.integers(0, 256, max(k, 0),
+                                  dtype=np.uint8).tobytes())
+
+
+def crafted_streams(out_size: int,
+                    seed: int = 17) -> list[tuple[str, bytes]]:
+    """Named LZ4 streams for a decoder of ``out_size``-byte blocks (a few
+    hundred KiB and up), each fitting the slot ``compress_bound(out_size)
+    + 8``: valid ones with an offset of exactly 65,535, offsets 1-4,
+    matches across every 128 KiB of output (the history ring's wrap) and
+    from sources across it, LSIC runs over each 8 KiB of stream (the
+    stage boundaries, whatever the row's alignment); and one of each
+    error of the safe decoder (missing token, truncated literal and match
+    LSIC, literals past the input, literals and a match past capacity,
+    truncated offset, offset 0, offset past the output) placed near the
+    end of a long stream, and a stream of exactly ``slot`` bytes."""
+    from lz4_sgori_torch import format as F
+    rng = np.random.default_rng(seed)
+    slot = F.compress_bound(out_size) + 8
+    ring, stage = 1 << 17, 8192
+
+    def rand(k):
+        return rng.integers(0, 256, k, dtype=np.uint8).tobytes()
+
+    def body(w: _Seqs, target: int) -> None:
+        """Mixed sequences until the output reaches ``target``."""
+        w.seq(rand(64), 1, 40)
+        while len(w.out) < target:
+            op = len(w.out)
+            nxt = (op // ring + 1) * ring
+            if nxt - 40 <= op < nxt:                # across the ring's wrap
+                w.seq(b"", int(rng.choice([3, 31, 32, 65535 if op > 65535
+                                           else 33])), 120)
+                continue
+            r = rng.integers(0, 10)
+            lit = rand(int(rng.integers(0, 20)))
+            if r == 0 and op + len(lit) >= 65535:
+                w.seq(lit, 65535, int(rng.integers(4, 80)))
+            elif r == 1:
+                w.seq(lit, int(rng.integers(1, 5)),
+                      int(rng.integers(4, 300)))
+            elif r == 2 and op > ring and (op + len(lit)) % ring < 65000:
+                # a source that starts 17 bytes before the last wrap
+                w.seq(lit, (op + len(lit)) % ring + 17, 50)
+            elif r == 3:
+                w.seq(rand(int(rng.integers(15, 700))),
+                      int(rng.integers(1, min(op, 65535) + 1)),
+                      int(rng.integers(19, 600)))
+            else:
+                w.seq(lit, int(rng.integers(1, min(op + len(lit), 65535)
+                                             + 1)),
+                      int(rng.integers(4, 40)))
+
+    streams = []
+    w = _Seqs()
+    body(w, out_size // 2)
+    for k in range(2):                           # LSIC over stage bounds
+        bound = (len(w.stream) // stage + 2) * stage
+        w.pad_to(bound - 20, rng)
+        if k == 0:
+            w.seq(rand(15 + 255 * 40 + 7), 2, 4)
+        else:
+            w.seq(b"", 3, 4 + 15 + 255 * 40 + 7)
+    body(w, out_size - 2000)
+    w.seq(rand(50), last=True)
+    streams.append(("mixed", bytes(w.stream)))
+
+    pre = _Seqs()
+    body(pre, out_size * 3 // 4)
+
+    def faulty(tail) -> bytes:
+        v = _Seqs()
+        v.stream, v.out = bytearray(pre.stream), bytearray(pre.out)
+        tail(v, out_size - len(v.out))
+        return bytes(v.stream)
+
+    def lit_lsic(v, room):
+        v.stream += b"\xf0" + b"\xff" * 5
+
+    def lit_past_input(v, room):
+        v.stream += b"\xa0" + rand(5)
+
+    def lit_past_cap(v, room):
+        v.seq(rand(room + 1), last=True)
+
+    def cut_offset(v, room):
+        v.stream += b"\x35" + rand(3) + b"\x01"
+
+    def offset0(v, room):
+        v.seq(rand(3), 0, 4)
+        v.seq(rand(9), last=True)
+
+    def match_lsic(v, room):
+        v.stream += b"\x3f" + rand(3) + b"\x05\x00" + b"\xff" * 3
+
+    def match_past_cap(v, room):
+        v.seq(rand(3), 7, room - 3 + 1)
+        v.seq(rand(9), last=True)
+
+    for name, tail in (("missing token", lambda v, room: v.seq(rand(4))),
+                       ("truncated literal LSIC", lit_lsic),
+                       ("literals past input", lit_past_input),
+                       ("literals past capacity", lit_past_cap),
+                       ("truncated offset", cut_offset),
+                       ("offset 0", offset0),
+                       ("truncated match LSIC", match_lsic),
+                       ("match past capacity", match_past_cap)):
+        streams.append((name, faulty(tail)))
+    v = _Seqs()                                  # offsets reach 65,535 back
+    body(v, 60000)
+    v.seq(rand(3), len(v.out) + 4, 4)
+    v.seq(rand(9), last=True)
+    streams.append(("offset past output", bytes(v.stream)))
+    for pre in (1, 2):                           # a literal run to the end
+        v = _Seqs()
+        v.seq(rand(pre))
+        room = slot - len(v.stream)
+        lit = next((k for k in range(room - 2, 15, -1)
+                    if k + 2 + (k - 15) // 255 <= room), None)
+        if lit + 2 + (lit - 15) // 255 != room:
+            lit = None
+        if lit is not None:
+            v.seq(rand(lit), last=True)
+            streams.append(("clen == slot", bytes(v.stream)))
+            break
+    for name, s in streams:
+        assert 0 < len(s) <= slot, (name, len(s), slot)
+    return streams
+
+
+def load_parent(mod, name: str):
+    """The parent tree's build of ``csrc/<name>.cu`` (``--parent``), with
+    the port's nvcc flags and its own headers, its C entries those of
+    ``mod.ENTRIES``; None without a parent tree."""
+    if PARENT is None:
+        return None
+    import ctypes
+
+    from lz4_sgori_torch.ops.kernels import _build
+    src = os.path.join(PARENT, "lz4_sgori_torch", "csrc", f"{name}.cu")
+    so = os.path.join(_build.BUILD_DIR, f"lib{name}_parent.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+                           src], capture_output=True, text=True,
+                          timeout=600)
+    need(proc.returncode == 0, f"nvcc failed for the parent's {src}:\n"
+                               f"{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    for fn, sig in mod.ENTRIES.items():
+        f = getattr(lib, fn)
+        f.argtypes = [ctypes.c_int if c == "i" else ctypes.c_void_p
+                      for c in sig]
+        f.restype = ctypes.c_int
+    return lib
+
+
+def with_kernel(mod, lib, fn):
+    """``fn`` run with ``mod``'s kernel taken from ``lib`` (the parent's
+    build): its wrapper, checks and launch count stay this tree's."""
+    def call():
+        own = mod.load_kernel
+        mod.load_kernel = lambda: lib
+        try:
+            return fn()
+        finally:
+            mod.load_kernel = own
+    return call
+
+
+def against_parent(time_ms, mod, lib, fn, reps: int, what: str,
+                   card: str) -> float:
+    """The time of ``fn`` (ms a call), and with a parent tree the
+    parent's kernel in turns with it (this, parent, parent, this), both
+    printed; the parent's outputs must equal this tree's."""
+    if lib is None:
+        ms = time_ms(fn, reps)
+        print(f"[{card}] {what}: {ms:.4f} ms (no parent tree given)")
+        return ms
+    old = with_kernel(mod, lib, fn)
+    for a, b in zip(fn(), old()):
+        need(a is None and b is None or bool((a == b).all()),
+             f"{what}: the parent's kernel gives other outputs")
+    ms, ms_old = in_turns(time_ms, fn, old, reps)
+    print(f"[{card}] {what}: {ms:.4f} ms, the parent's kernel "
+          f"{ms_old:.4f} ms in turns ({ms_old / ms:.2f}x)")
+    return ms
+
+
 def _run(cmd) -> str:
     try:
         p = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
@@ -610,7 +848,14 @@ def check_launches(counts: dict, path: str, used, idle) -> None:
 
 
 def main() -> int:
+    global PARENT
     start = time.perf_counter()
+    args = sys.argv[1:]
+    if args[:1] == ["--parent"] and len(args) == 2:
+        PARENT = os.path.abspath(args[1])
+    elif args:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1402,11 +1647,23 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                 d6, K1.decompress_blocks_plain(c, n, dbs))))
             decodes_to(d6, blocks, f"K6 at {dbs}")
             k6_in[dbs] = (c, n)
+            # the crafted streams: the rings' wraps and stage bounds, each
+            # error of the safe decoder late in a long stream
+            named = crafted_streams(dbs)
+            c, n = to_dev(*_pack_streams([b for _, b in named],
+                                         F.compress_bound(dbs) + 8))
+            d6 = K6.decompress_blocks_v8(c, n, dbs)
+            for j, (x, y) in enumerate(zip(
+                    d6, K1.decompress_blocks_plain(c, n, dbs))):
+                e6.append(maxdiff(x, y))
+            need(not bool(d6[2][0]) and bool(d6[2][1:].all()),
+                 f"K6 at {dbs}: the crafted streams' verdicts are wrong")
         err6 = max(e6)
         need(err6 == 0, f"K6 differs from its plain version by {err6}")
         print(f"phase K9/K6 == plain: ok; K9 on {BIG_SUBSET} blocks of {bs} "
               f"and one of {top}, == golden on {len(psel)}; K6 at 524288, "
-              f"{bs} and {top} on native.compress streams "
+              f"{bs} and {top} on native.compress streams and on "
+              f"{len(named)} crafted streams each "
               f"({time.perf_counter() - t0:.1f} s)")
 
         # ---- phase 14: the golden contract of seg_big ----
@@ -1522,7 +1779,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                      f"{st.stats.encode_fallbacks}")
                 st.close()
                 print(f"[{card}] ProxyStore.write of {chunk} bytes: median "
-                      f"{1e3 * float(np.median(lat)):.4f} ms, max "
+                      f"{1e3 * float(np.median(lat)):.4f} ms, p99 "
+                      f"{1e3 * float(np.percentile(lat, 99)):.4f} ms, max "
                       f"{1e3 * max(lat):.4f} ms over {nreq} sequential "
                       "requests; sha256 read-back ok, 0 failed, 0 fallbacks")
             path = os.path.join(tmp, "sweep.bin")
@@ -1604,6 +1862,18 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f" ms, K6 on two blocks "
           f"{time_ms(lambda: K6.decompress_blocks_v8(c4, n4, top), 3):.4f}"
           " ms")
+    # K6 on one block and over config 6, in turns with the parent's
+    old6 = load_parent(K6, "decode_v8")
+    for what, (c, n), size, reps in (
+            (f"one block of {bs}", k6_in[bs], bs, 5),
+            (f"one block of {top}", k6_in[top], top, 3),
+            (f"config 6 ({fc.shape[0]} blocks of {bs})", (fc, fl), bs, 3)):
+        c, n = c[:1 if "one" in what else None].contiguous(), \
+            n[:1 if "one" in what else None].contiguous()
+        against_parent(time_ms, K6, old6,
+                       lambda c=c, n=n, size=size:
+                       K6.decompress_blocks_v8(c, n, size), reps,
+                       f"K6 on {what}", card)
     return {"errs": {"cand_piecewise": err9, "decode_v8": err6},
             "counts": counts, "sub_times": sub_times}
 
@@ -1701,14 +1971,20 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
             torch, lambda: K8S.parse_segments_deep_plain(rs, cs, g3k, ls))
         err8s = segment_diff(torch, maxdiff, pk, pp, "K8-seg")
 
-        # K8-enc3 on 64 blocks of 4 KiB and 8 of 64 KiB; its plain version
-        # on all 64 and on 2 of the 8 (the first and the short last one):
-        # at 64 KiB it steps for tens of seconds a call, so it runs once
+        # K8-enc3 on 64 blocks of 4 KiB and on 8 of 64 KiB with a random
+        # and an all-zero block; its plain version on all 64 and on 4 of
+        # the 10 (the first, the short last one, the random and the zero
+        # block): at 64 KiB it steps for tens of seconds a call, so it
+        # runs once (acceleration 8: the card tests)
         err8e = 0
         enc3_in = {}
         enc3_plain_ms = {}
-        for ebs, nblk, rows in ((4096, 64, range(64)), (bs, 8, (0, 7))):
+        noise = np.random.default_rng(20).integers(0, 256, bs, np.uint8)
+        for ebs, nblk, rows in ((4096, 64, range(64)),
+                                (bs, 8, (0, 7, 8, 9))):
             blocks = spread(nblk, ebs)
+            if ebs == bs:
+                blocks += [noise.tobytes(), bytes(bs)]
             r, l = to_dev(*_batch(blocks, ebs))
             c = K2.dense_candidates(r, l)
             sel = torch.tensor(list(rows), device=dev)
@@ -1732,8 +2008,9 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
               f"{DEEP_SUBSET} blocks of {bs} and == golden on 2, over K9's "
               f"tape on 4 blocks of 1 MiB and == golden on 1; K8-seg on "
               f"{DEEP_SUBSET} blocks; K8-enc3 at 4096 (64 blocks) and {bs} "
-              f"(8 blocks, 2 against the plain version), depth 3 and 5; the "
-              f"plain parses once each, ms: K8-seg {seg_plain_ms:.1f}, "
+              f"(8 blocks, a random and a zero block, 4 against the plain "
+              f"version), depth 3 and 5; the plain parses once each, ms: "
+              f"K8-seg {seg_plain_ms:.1f}, "
               "K8-enc3 "
               + ", ".join(f"{b} depth {d} {v:.1f}"
                           for (b, d), v in enc3_plain_ms.items())
@@ -1958,18 +2235,18 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                                            rlen[:n5], depth=5), 3)
     print(f"[{card}] kernels over config 5 (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
-    # K8-enc3 runs 32-thread CTAs, one thread a block: 1 and 32 blocks are
-    # one CTA (one warp), the slice's 128 four, so t(32)/t(1) reads the
-    # warp's divergence and t(128)/t(32) how far the extra SMs help
-    scale = {k: time_ms(lambda k=k: K8E.parse_blocks_enc3_deep(
-        raw[:k], f5c[:k], f5g[:k], f5g2[:k], rlen[:k], depth=5), 3)
-        for k in (1, 32)}
-    scale[n5] = full["parse_enc3_deep (depth 5, 8 MiB)"]
+    # K8-enc3 runs a CTA of one warp a 64 KiB block: k blocks take k SMs,
+    # so t(k) stays one walk up to the card's SMs; the parent's kernel
+    # (one thread a block, 32-thread CTAs) in turns with it
+    old8 = load_parent(K8E, "parse_enc3_deep")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[{card}] K8-enc3 at depth 5 on the first k blocks of 64 KiB "
-          f"(32-thread CTAs; k=1 and 32 one CTA, {n5} on "
-          f"{-(-n5 // 32)} of {sms} SMs), ms: " + ", ".join(
-              f"k={k} {v:.4f}" for k, v in scale.items()))
+    for k in (1, 32, n5):
+        against_parent(time_ms, K8E, old8,
+                       lambda k=k: K8E.parse_blocks_enc3_deep(
+                           raw[:k], f5c[:k], f5g[:k], f5g2[:k], rlen[:k],
+                           depth=5), 3,
+                       f"K8-enc3 at depth 5 on the first {k} blocks of {bs} "
+                       f"({sms} SMs)", card)
     r, c, g, g2, l, k = enc3_in[bs, 5]
     sub_times = {
         "gaps": (time_ms(lambda: G.chain_gaps(cs), 10),
@@ -1986,12 +2263,13 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     for key, (a, b, _) in sub_times.items():
         print(f"[{card}] {key} on its subset: kernel {a:.4f} ms, plain "
               f"{b:.4f} ms")
-    print(f"(K8-enc3's subset: 2 blocks of {bs} at depth 5; both K8 "
-          "parses' plain times are phase 20's calls)")
+    print(f"(K8-enc3's subset: 4 blocks of {bs} at depth 5, two of the "
+          "corpus, a random and a zero block; both K8 parses' plain times "
+          "are phase 20's calls)")
     r4, c4, g4, _, l4, _ = enc3_in[4096, 3]
-    ms4 = time_ms(lambda: K8E.parse_blocks_enc3_deep(r4, c4, g4, None, l4),
-                  10)
-    print(f"[{card}] K8-enc3 at depth 3 on 64 blocks of 4 KiB: {ms4:.4f} ms")
+    against_parent(time_ms, K8E, old8,
+                   lambda: K8E.parse_blocks_enc3_deep(r4, c4, g4, None, l4),
+                   10, "K8-enc3 at depth 3 on 64 blocks of 4 KiB", card)
     counts = {k: counts3[k] + counts5[k] for k in mods}
     return {"errs": {"gaps": errg, "parse_seg_deep": err8s,
                      "parse_enc3_deep": err8e},

@@ -1,5 +1,6 @@
-// The scalar parse shared by K3 and K8-seg (parse_seg.cuh, one segment
-// per thread) and K7 and K8-enc3 (parse_enc3.cuh, one block per thread).
+// The scalar parse shared by K3, K8-seg and K10b (parse_seg.cuh, one
+// segment per thread) and K7 and K10c (parse_enc3.cuh, one block per
+// thread). K8-enc3's deep parse is a warp a block (parse_enc3_warp.cuh).
 //
 // It is the sequence loop of golden.compress_dense
 // (lz4_sgori_tpu/golden.py:1054-1129) over precomputed dense candidates,
@@ -15,12 +16,12 @@
 //   with frag set, the first sequence is emitted headerless (its literal
 //   run belongs to the previous segment's owner header) and its match
 //   start and code are returned as p1 and m1.
-// N = 3 or 5 is the deep parse (golden.compress_deep, golden.py:873-1025,
-// and compress_dense_seg_parts at depth > 1, golden.py:455-518):
+// N = 3 is the deep parse of K8-seg (compress_dense_seg_parts at depth
+// > 1, golden.py:455-518; golden.compress_deep, golden.py:873-1025, the
+// same probe):
 //   a probe at p weighs d1 = cand[p] and the chain d1 + g2, + g3 (from
-//   the gaps tape, g2 | g3 << 8) and, for N = 5, + g4, + g5 (gaps2); each
-//   link only while the previous ones exist; no candidate when d1 is 0 or
-//   past wlim;
+//   the gaps tape, g2 | g3 << 8); each link only while the previous ones
+//   exist; no candidate when d1 is 0 or past wlim;
 //   a candidate d is checked with m = p - d >= 0, d <= wlim and read32,
 //   then scored by a forward preview capped at min(mlim - p - 4, 64); the
 //   longest wins and the nearest wins ties (strict >). The matchlimit cap
@@ -67,8 +68,7 @@ struct ParseState {
 template <int N>
 __device__ __forceinline__ int best_of(const uint8_t* __restrict__ src,
                                        const int* __restrict__ cd,
-                                       const int* __restrict__ gp,
-                                       const int* __restrict__ gp2, int p,
+                                       const int* __restrict__ gp, int p,
                                        int mlim, int wlim, int* mpos) {
   const int d1 = cd[p];
   if (d1 == 0 || d1 > wlim) return -1;
@@ -82,17 +82,6 @@ __device__ __forceinline__ int best_of(const uint8_t* __restrict__ src,
     if (g >> 8) {
       ds[k] = ds[k - 1] + (g >> 8);
       k++;
-      if constexpr (N > 3) {
-        const int g2 = gp2[p];
-        if (g2 & 255) {
-          ds[k] = ds[k - 1] + (g2 & 255);
-          k++;
-          if (g2 >> 8) {
-            ds[k] = ds[k - 1] + (g2 >> 8);
-            k++;
-          }
-        }
-      }
     }
   }
   const uint32_t v = rd32(src, p);
@@ -114,10 +103,10 @@ __device__ __forceinline__ int best_of(const uint8_t* __restrict__ src,
 template <int N, bool MLEN = false>
 __device__ __forceinline__ ParseState greedy_parse(
     const uint8_t* __restrict__ src, const int* __restrict__ cd,
-    const int* __restrict__ gp, const int* __restrict__ gp2,
-    const int* __restrict__ mcd, uint8_t* __restrict__ dst, int cap,
-    int s0, int mfl, int mlim, bool frag, int wlim, int accel) {
-  static_assert(N == 1 || N == 3 || N == 5, "1, 3 or 5 candidates");
+    const int* __restrict__ gp, const int* __restrict__ mcd,
+    uint8_t* __restrict__ dst, int cap, int s0, int mfl, int mlim, bool frag,
+    int wlim, int accel) {
+  static_assert(N == 1 || N == 3, "1 or 3 candidates");
   static_assert(N == 1 || !MLEN, "the mlen mode is greedy only");
   ParseState st = {0, s0, 0, 0, 0, false, false};
   int pos = max(s0, 1);
@@ -146,11 +135,11 @@ __device__ __forceinline__ ParseState greedy_parse(
           break;
         }
       } else {
-        const int mca = best_of<N>(src, cd, gp, gp2, pos, mlim, wlim, &mpos);
+        const int mca = best_of<N>(src, cd, gp, pos, mlim, wlim, &mpos);
         if (mca < 0) continue;
         int mb = 0;
         if (pos + 1 <= mfl &&
-            best_of<N>(src, cd, gp, gp2, pos + 1, mlim, wlim, &mb) > mca) {
+            best_of<N>(src, cd, gp, pos + 1, mlim, wlim, &mb) > mca) {
           pos++;
           mpos = mb;
         }

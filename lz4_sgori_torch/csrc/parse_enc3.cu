@@ -41,7 +41,6 @@ extern "C" int lz4t_parse_enc3(const void* raw, const void* cand,
                                void* err, void* tails, void* nseq, int nb,
                                int bs, int slot, int cap, int accel,
                                void* stream) {
-  return launch_parse_enc3<1>(raw, cand, nullptr, nullptr, nullptr,
-                              raw_len, out, out_len, err, tails, nseq, nb, bs,
-                              slot, cap, accel, stream);
+  return launch_parse_enc3(raw, cand, nullptr, raw_len, out, out_len, err,
+                           tails, nseq, nb, bs, slot, cap, accel, stream);
 }

@@ -1,8 +1,8 @@
-// The whole-block parse kernel of the enc3 engine, one thread per block,
-// for N candidates a probe (greedy_parse.cuh): K7 (parse_enc3.cu)
-// launches N = 1, K8-enc3 (parse_enc3_deep.cu) N = 3 with the gaps tape
-// and N = 5 with gaps and gaps2, K10c (parse_enc3_mlen.cu) N = 1 in the
-// mlen mode with the mcode tape. See parse_enc3.cu for the contract.
+// The whole-block greedy parse kernel of the enc3 engine, one thread per
+// block (greedy_parse.cuh at one candidate a probe): K7 (parse_enc3.cu),
+// and K10c (parse_enc3_mlen.cu) in the mlen mode with the mcode tape. See
+// parse_enc3.cu for the contract. K8-enc3's deep parse is a warp a block
+// (parse_enc3_warp.cuh).
 
 #pragma once
 
@@ -11,11 +11,9 @@
 
 #include "greedy_parse.cuh"
 
-template <int N, bool MLEN>
+template <bool MLEN>
 __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
                                   const int* __restrict__ cand,
-                                  const int* __restrict__ gaps,
-                                  const int* __restrict__ gaps2,
                                   const int* __restrict__ mcode,
                                   const int* __restrict__ raw_len,
                                   uint8_t* __restrict__ out,
@@ -29,9 +27,8 @@ __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
   const uint8_t* src = raw + (size_t)t * bs;
   uint8_t* dst = out + (size_t)t * slot;
   const int n = min(max(raw_len[t], 0), bs);
-  const ParseState st = greedy_parse<N, MLEN>(
-      src, cand + (size_t)t * bs, N > 1 ? gaps + (size_t)t * bs : nullptr,
-      N > 3 ? gaps2 + (size_t)t * bs : nullptr,
+  const ParseState st = greedy_parse<1, MLEN>(
+      src, cand + (size_t)t * bs, nullptr,
       MLEN ? mcode + (size_t)t * bs : nullptr, dst, cap, 0, n - 12, n - 5,
       false, 65535, accel);
   int o = st.o;
@@ -61,20 +58,18 @@ __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
   nseq[t] = bad ? 0 : st.nseq;
 }
 
-template <int N, bool MLEN = false>
-int launch_parse_enc3(const void* raw, const void* cand, const void* gaps,
-                      const void* gaps2, const void* mcode,
+template <bool MLEN = false>
+int launch_parse_enc3(const void* raw, const void* cand, const void* mcode,
                       const void* raw_len, void* out, void* out_len,
                       void* err, void* tails, void* nseq, int nb, int bs,
                       int slot, int cap, int accel, void* stream) {
   if (nb > 0) {
     const int threads = 32;
-    parse_enc3_kernel<N, MLEN><<<(nb + threads - 1) / threads, threads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const uint8_t*)raw, (const int*)cand, (const int*)gaps,
-        (const int*)gaps2, (const int*)mcode, (const int*)raw_len,
-        (uint8_t*)out, (int*)out_len, (uint8_t*)err, (int*)tails, (int*)nseq,
-        nb, bs, slot, cap, accel);
+    parse_enc3_kernel<MLEN><<<(nb + threads - 1) / threads, threads, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint8_t*)raw, (const int*)cand, (const int*)mcode,
+        (const int*)raw_len, (uint8_t*)out, (int*)out_len, (uint8_t*)err,
+        (int*)tails, (int*)nseq, nb, bs, slot, cap, accel);
   }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ extern "C" int lz4t_parse_enc3_mlen(const void* raw, const void* cand_v,
                                     void* tails, void* nseq, int nb, int bs,
                                     int slot, int cap, int accel,
                                     void* stream) {
-  return launch_parse_enc3<1, true>(raw, cand_v, nullptr, nullptr, mcode,
-                                    raw_len, out, out_len, err, tails, nseq,
-                                    nb, bs, slot, cap, accel, stream);
+  return launch_parse_enc3<true>(raw, cand_v, mcode, raw_len, out, out_len,
+                                 err, tails, nseq, nb, bs, slot, cap, accel,
+                                 stream);
 }

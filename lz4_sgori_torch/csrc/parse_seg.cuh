@@ -31,7 +31,7 @@ __global__ void parse_seg_kernel(
   const int s1 = s0 + min(max(n - s0, 0), seg);
   const ParseState st = greedy_parse<N, MLEN>(
       raw + (size_t)blk * bs, cand + (size_t)blk * bs,
-      N > 1 ? gaps + (size_t)blk * bs : nullptr, nullptr,
+      N > 1 ? gaps + (size_t)blk * bs : nullptr,
       MLEN ? mcode + (size_t)blk * bs : nullptr, streams + (size_t)t * scap,
       scap, s0, min(s1 - 4, n - 12), min(s1, n - 5), k > 0, wlim, accel);
   slen[t] = st.o;

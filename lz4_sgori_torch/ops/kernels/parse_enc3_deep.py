@@ -10,6 +10,17 @@ Contract: per block, ``golden.compress_deep(block, accel, hashlog=16,
 depth)`` (``lz4_sgori_tpu/golden.py:873-1025``) over K2's candidates and
 ``gaps.chain_gaps``'s tapes (``gaps2`` at depth 5 only), with K7's
 outputs (``parse_enc3.py``): out, out_len, err, tails, nseq.
+
+The CUDA kernel (``csrc/parse_enc3_warp.cuh``) parses a block with one
+warp, the block resident in shared memory (one ``cp.async.bulk``), the
+tapes streamed through a ring of ``cp.async`` chunks and the stream
+staged on chip and stored once. The lanes split each step of the walk:
+32 probes of the skip schedule a round (the first hit by ballot), the
+previews of the hit probe's candidates and of the lazy step's together
+(two lanes a candidate, 4-byte words), 32 bytes of catch-up and 128 of
+extension a step. A 64 KiB block takes a CTA of its own (about 150 KiB
+of shared memory); small blocks share a CTA, up to 8 a CTA. A card that
+refuses the shared memory fails the launch, which raises.
 """
 
 from __future__ import annotations
@@ -23,12 +34,12 @@ from .parse_enc3 import (block_outputs, check_block_size,
 from .parse_seg import check_parse_args
 
 launches = 0
+ENTRIES = {"lz4t_parse_enc3_deep": "ppppppppppiiiiiip"}  # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_enc3_deep.cu."""
-    return _build.load("parse_enc3_deep",
-                       {"lz4t_parse_enc3_deep": "ppppppppppiiiiiip"})
+    return _build.load("parse_enc3_deep", ENTRIES)
 
 
 def _check_depth(depth: int, gaps2) -> None:
@@ -59,8 +70,8 @@ def parse_blocks_enc3_deep(raw: torch.Tensor, cand: torch.Tensor,
         gaps2 = gaps2.contiguous()
     nb, bs = raw.shape
     cap = F.compress_bound(bs)
-    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     lib = load_kernel()
+    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     _build.check(lib.lz4t_parse_enc3_deep(
         raw.data_ptr(), cand.data_ptr(), gaps.data_ptr(),
         gaps2.data_ptr() if gaps2 is not None else None, raw_len.data_ptr(),

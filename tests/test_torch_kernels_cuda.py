@@ -5,7 +5,9 @@ a source each, T14a's 15 bodies and T14b's 5 readings two: 11 bodies
 on ``probe_harness``; ``ohbuild``, the five tensor-core readings,
 ``transpose``, ``shiftsel`` and ``red1`` on ``probe_harness_wg``)
 against their plain PyTorch versions and their golden oracles, on the
-card. Marked ``cuda``; each test skips itself when no card is present.
+card; K6's rings on ``chip_smoke.crafted_streams`` and K8-enc3's warp
+parse on the blocks of ``test_torch_warp_parse`` (``-k "ring or warp"``).
+Marked ``cuda``; each test skips itself when no card is present.
 Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_mutants
+from chip_smoke import crafted_streams, make_mutants
 from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
@@ -44,6 +46,7 @@ from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden, native
 from lz4_sgori_tpu.utils import oracle
 from test_torch_seg_big import big_blocks
+from test_torch_warp_parse import _inputs as warp_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -297,6 +300,43 @@ def test_k6_decode_and_mutants(dev, bs, nmut):
             assert out[j, :out_len[j]].tobytes() == want, j
 
 
+@pytest.mark.parametrize("bs", [524288, 1 << 20, 4 << 20])
+def test_k6_ring_on_crafted_streams(dev, bs):
+    """The ring decode on the crafted streams (the rings' wraps, stage
+    bounds, each error late in a long stream, clen == slot) and on clen
+    0, past slot and negative, against the plain decoder and golden's
+    verdicts; the rows start at every alignment when slot % 16 != 0."""
+    named = crafted_streams(bs)
+    slot = F.compress_bound(bs) + 8
+    payloads = [b for _, b in named]
+    comp = np.zeros((len(payloads) + 3, slot), np.uint8)
+    clen = np.zeros(len(comp), np.int32)
+    for j, c in enumerate(payloads):
+        comp[j, :len(c)] = np.frombuffer(c, np.uint8)
+        clen[j] = len(c)
+    comp[-3:] = comp[0]
+    clen[-3:] = (0, slot + 1, -5)
+    for off in (0, 3):            # a view whose rows start 3 bytes on
+        flat = torch.zeros(comp.size + off, dtype=torch.uint8, device=dev)
+        flat[off:] = torch.from_numpy(comp.reshape(-1)).to(dev)
+        ct = flat[off:].view(comp.shape)
+        lt = torch.from_numpy(clen).to(dev)
+        got = K6.decompress_blocks_v8(ct, lt, bs)
+        want = K1.decompress_blocks_plain(ct, lt, bs)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    err = got[2].cpu().numpy()
+    for j, c in enumerate(payloads):
+        try:
+            golden.decompress(c, bs)
+            ok = True
+        except golden.DecodeError:
+            ok = False
+        assert bool(err[j]) != ok, named[j][0]
+    assert err[-3:].all()
+
+
 def test_big_block_path_runs_k9_k3_k4_k6(dev):
     import lz4_sgori_torch
     from lz4_sgori_torch.utils.stats import Stats
@@ -382,6 +422,25 @@ def test_k8_enc3_parse(dev, bs, depth):
         w = golden.compress_deep(b, depth=depth)
         assert out[j, :out_len[j]].tobytes() == w, j
         assert int(tails[j]) == golden.tail_offset(w), j
+
+
+@pytest.mark.parametrize("bs,depth,accel", [
+    (4096, 3, 8), (4096, 5, 1), (4096, 5, 8), (65536, 3, 1), (65536, 3, 8),
+    (65536, 5, 8)])
+def test_k8_enc3_warp_parse(dev, bs, depth, accel):
+    """The warp parse on the emulation's blocks (corpus text, chains with
+    long gaps, a motif, zeros, random bytes, a short block, the preview
+    cap's block) against its plain version, all five outputs."""
+    raw, cand, gaps, gaps2, rlen = (t.to(dev) if t is not None else None
+                                    for t in warp_inputs(bs, depth))
+    got = K8E.parse_blocks_enc3_deep(raw, cand, gaps, gaps2, rlen,
+                                     accel=accel, depth=depth)
+    want = K8E.parse_blocks_enc3_deep_plain(raw, cand, gaps, gaps2, rlen,
+                                            accel=accel, depth=depth)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not got[2].any()
 
 
 def test_deep_paths_run_gaps_and_k8(dev):
