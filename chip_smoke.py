@@ -20,7 +20,8 @@ The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
 
 1. compares each kernel with its plain PyTorch version on the same
-   inputs (a 32-block subset, exactly: the outputs are bytes);
+   inputs (a 32-block subset, exactly: the outputs are bytes; K2 and K3
+   also on a random, an all-zero and a 5,000-byte block);
 2. compares the port's bytes with the golden seg contract and its
    decode with golden.decompress on 16 blocks;
 3. drives ``lz4_sgori_torch.compress`` / ``decompress`` over the corpus
@@ -30,14 +31,18 @@ seg and v7, kernels K1-K4):
 4. decodes about 1024 corrupted blocks through the decode kernel and
    requires golden.decompress's verdict for each;
 5. times the kernel path and each kernel against its plain version with
-   CUDA events.
+   CUDA events; K2 and K3 over the corpus and on one block, each in turns
+   with the parent tree's when ``--parent`` names one (its outputs equal
+   first).
 
 The 4 KiB block-device path (8192 blocks; engines enc3 and v6, kernels
 K2, K7 and K5), in ``_smoke_4k``:
 
-6. K7 and K5 against their plain versions exactly (K7 on all five outputs
-   of a 64-block subset, and against K3 then K4 at seg = block size; K5 at
-   4 KiB, 8 KiB, and 256 KiB on blocks of ``native.compress``);
+6. K2, K7 and K5 against their plain versions exactly (K2 on every 4 KiB
+   block of the corpus, a CTA taking some 62 in turn, and on 64 blocks of
+   8 KiB; K7 on all five outputs of a 64-block subset, and against K3
+   then K4 at seg = block size; K5 at 4 KiB, 8 KiB, and 256 KiB on blocks
+   of ``native.compress``);
 7. the golden contract: 64 blocks at 4 KiB and their tails, acceleration 8,
    the non-aligned enc3 sizes 5,000 and 60,000 with edge blocks, and
    seg_splice at 96 and 196 KiB, each decoded through its routed engine;
@@ -54,15 +59,19 @@ K2, K7 and K5), in ``_smoke_4k``:
 11. 1024 corrupted 4 KiB streams through the v6 route against
     golden.decompress's verdict;
 12. times with CUDA events: the 4 KiB kernel path, K2, K7 and K5 beside
-    their plain versions, and the ProxyStore's write latency.
+    their plain versions (K2 over the corpus and on one block in turns
+    with the parent tree's, and with it the median of 1024 4 KiB
+    ProxyStore writes), and the ProxyStore's write latency.
 
 The big-block path (128 KiB-4 MiB; engines seg_big and v8, kernels K9,
 K3, K4 and K6), in ``_smoke_big``; the pure-Python golden oracles of its
 blocks run in a pool of worker processes:
 
-13. K9 and K6 against their plain versions exactly (K9 on 4 blocks of
-    1 MiB and one of 4 MiB, and against golden.dense_candidates_piecewise
-    on 2; K6 at 512 KiB, 1 MiB and 4 MiB on blocks of ``native.compress``
+13. K9, K3 and K6 against their plain versions exactly (K9 on 4 blocks
+    of 1 MiB and one of 4 MiB, and against
+    golden.dense_candidates_piecewise on 2; K3 on 2 blocks of 1 MiB at
+    seg 8192, acceleration 1 and 8; K6 at 512 KiB, 1 MiB and 4 MiB on
+    blocks of ``native.compress``
     and on the eleven ``crafted_streams`` of each size: the rings' wraps
     and stage bounds, each error of the safe decoder late in a long
     stream, a stream of exactly ``slot`` bytes);
@@ -87,9 +96,9 @@ blocks run in a pool of worker processes:
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
     K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
-    both at 4 MiB; K6 on one block of 1 MiB, one of 4 MiB and over config
-    6, each in turns with the parent tree's K6 when ``--parent`` names
-    one (its outputs equal first).
+    both at 4 MiB; K3 over config 6, and K6 on one block of 1 MiB, one of
+    4 MiB and over config 6, each in turns with the parent tree's when
+    ``--parent`` names one (its outputs equal first).
 
 The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
 64 KiB blocks; depth 3 on seg, depth 5 on enc3 over the first 8 MiB;
@@ -112,8 +121,9 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     ratio and sizes against the TPU record of the same bytes;
 23. a ProxyStore at depth 3, a CompressedStore at depth 5 and
     ``lz4j compress --match-depth 3`` and ``5`` round trips;
-24. times with CUDA events: the deep encode paths, the gaps kernel and
-    K8-seg over the corpus beside K3, K8-enc3 over the depth-5 slice, and
+24. times with CUDA events: the deep encode paths, K2 over the corpus (in
+    turns with the parent tree's), the gaps kernel and K8-seg over the
+    corpus beside K3, K8-enc3 over the depth-5 slice, and
     each deep kernel beside its plain version (the K8 parses' from phase
     20); K8-enc3 at depth 5 on the first 1, 32 and 128 blocks and at
     depth 3 on the 64 blocks of 4 KiB, each in turns with the parent
@@ -264,6 +274,7 @@ DEVICE = "cuda"
 # K6 and K8-enc3 sources phases 19 and 24 build and time in turns with
 # this tree's; None times this tree's kernels alone
 PARENT = None
+_PARENT_LIBS = {}       # the parent tree's builds, by source name
 BLOCK = 65536
 CORPUS_BYTES = 32 << 20
 SUBSET = 32
@@ -281,6 +292,7 @@ MIX_CHUNKS = 4096
 # bdev_4k_mix_ratio, engine enc3): the same bytes, so the same ratio
 TPU_MIX_RATIO = 1.9376
 STORE_CHUNKS_COMPRESSED = 1024
+STORE_TURNS = 1024      # 4 KiB writes a turn, this tree's K2 or the parent's
 
 BIG_BLOCK = 1 << 20
 BIG_CORPUS_BYTES = 128 << 20
@@ -633,9 +645,11 @@ def crafted_streams(out_size: int,
 def load_parent(mod, name: str):
     """The parent tree's build of ``csrc/<name>.cu`` (``--parent``), with
     the port's nvcc flags and its own headers, its C entries those of
-    ``mod.ENTRIES``; None without a parent tree."""
+    ``mod.ENTRIES``, built once; None without a parent tree."""
     if PARENT is None:
         return None
+    if name in _PARENT_LIBS:
+        return _PARENT_LIBS[name]
     import ctypes
 
     from lz4_sgori_torch.ops.kernels import _build
@@ -653,6 +667,7 @@ def load_parent(mod, name: str):
         f.argtypes = [ctypes.c_int if c == "i" else ctypes.c_void_p
                       for c in sig]
         f.restype = ctypes.c_int
+    _PARENT_LIBS[name] = lib
     return lib
 
 
@@ -670,18 +685,25 @@ def with_kernel(mod, lib, fn):
 
 
 def against_parent(time_ms, mod, lib, fn, reps: int, what: str,
-                   card: str) -> float:
+                   card: str, same=None) -> float:
     """The time of ``fn`` (ms a call), and with a parent tree the
     parent's kernel in turns with it (this, parent, parent, this), both
-    printed; the parent's outputs must equal this tree's."""
+    printed; the parent's outputs must equal this tree's (``same(got,
+    want)`` where only part of them is defined, as a segment parse's
+    stream rows past their lengths)."""
     if lib is None:
         ms = time_ms(fn, reps)
         print(f"[{card}] {what}: {ms:.4f} ms (no parent tree given)")
         return ms
     old = with_kernel(mod, lib, fn)
-    for a, b in zip(fn(), old()):
-        need(a is None and b is None or bool((a == b).all()),
-             f"{what}: the parent's kernel gives other outputs")
+    got, want = fn(), old()
+    if same is not None:
+        need(same(got, want), f"{what}: the parent's kernel gives other "
+                              "outputs")
+    else:
+        for a, b in zip(got, want):
+            need(a is None and b is None or bool((a == b).all()),
+                 f"{what}: the parent's kernel gives other outputs")
     ms, ms_old = in_turns(time_ms, fn, old, reps)
     print(f"[{card}] {what}: {ms:.4f} ms, the parent's kernel "
           f"{ms_old:.4f} ms in turns ({ms_old / ms:.2f}x)")
@@ -819,6 +841,14 @@ def decode_bytes(comp_len, res) -> int:
     out, out_len, err = res
     return int(comp_len.sum()) + int(out_len.sum()) + tensor_bytes(
         comp_len, out_len, err)
+
+
+def same_parse(torch, maxdiff):
+    """``against_parent``'s comparison of two segment parses (K3's):
+    ``segment_diff``, which raises where they differ."""
+    return lambda got, want: segment_diff(
+        torch, maxdiff, got, want,
+        "K3 (the parent's kernel standing for the plain version)") == 0
 
 
 def segment_diff(torch, maxdiff, got, want, what: str) -> int:
@@ -1036,6 +1066,18 @@ def _smoke(torch, start: float) -> int:
     pk = K3.parse_segments(rs, c_k, ls)
     pp = K3.parse_segments_plain(rs, c_k, ls)
     err3 = segment_diff(torch, maxdiff, pk, pp, "K3")
+    # K2 and K3 also on a random, an all-zero and a short block (n 5,000)
+    noise = np.random.default_rng(41).integers(0, 256, BLOCK, np.uint8)
+    xr, xl = (torch.from_numpy(a).to(dev) for a in _batch(
+        [noise.tobytes(), bytes(BLOCK), data[:5000]], BLOCK))
+    xc = K2.dense_candidates(xr, xl)
+    err2 = max(err2, maxdiff(xc, K2.dense_candidates_plain(xr, xl)))
+    need(err2 == 0, f"K2 differs from its plain version by {err2} on the "
+                    "random, zero or short block")
+    err3 = max(err3, segment_diff(
+        torch, maxdiff, K3.parse_segments(xr, xc, xl),
+        K3.parse_segments_plain(xr, xc, xl),
+        "K3 on the random, zero and short blocks"))
 
     nseg = BLOCK // 4096
     shp = (SUBSET, nseg)
@@ -1055,8 +1097,9 @@ def _smoke(torch, start: float) -> int:
     err1 = max(maxdiff(x, y) for x, y in zip(d_k, d_p))
     need(err1 == 0, f"K1 differs from its plain version by {err1}")
     need(not bool(d_k[2].any()), "K1 rejected a subset block")
-    print(f"phase kernels == plain: ok on {SUBSET} blocks, plain versions "
-          f"on the card ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase kernels == plain: ok on {SUBSET} blocks (K2 and K3 also "
+          "on a random, a zero and a 5,000-byte block), plain versions on "
+          f"the card ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 2: golden contract on 16 blocks ----
     t0 = time.perf_counter()
@@ -1160,13 +1203,30 @@ def _smoke(torch, start: float) -> int:
           f"({len(data) / ms_enc / 1e6:.4f} GB/s), decode {ms_dec:.3f} ms "
           f"({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fc = K2.dense_candidates(raw, rlen)
+    # K2 and K3 over the corpus and on one block, in turns with the
+    # parent's kernels
+    old2, old3 = load_parent(K2, "cand"), load_parent(K3, "parse_seg")
     full = {
-        "cand": time_ms(lambda: K2.dense_candidates(raw, rlen), 5),
-        "parse_seg": time_ms(lambda: K3.parse_segments(raw, fc, rlen), 5),
+        "cand": against_parent(time_ms, K2, old2,
+                               lambda: K2.dense_candidates(raw, rlen), 5,
+                               f"K2 over config 1 ({nb} blocks of {BLOCK})",
+                               card),
+        "parse_seg": against_parent(
+            time_ms, K3, old3, lambda: K3.parse_segments(raw, fc, rlen), 5,
+            f"K3 over config 1 ({nb} blocks of {BLOCK}, seg 4096)", card,
+            same_parse(torch, maxdiff)),
         "decode_v7": ms_dec,
     }
     print(f"[{card}] kernels over the corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
+    r1, l1, c1 = raw[:1].contiguous(), rlen[:1].contiguous(), \
+        fc[:1].contiguous()
+    against_parent(time_ms, K2, old2, lambda: K2.dense_candidates(r1, l1),
+                   20, f"K2 on one block of {BLOCK}", card)
+    against_parent(time_ms, K3, old3,
+                   lambda: K3.parse_segments(r1, c1, l1), 20,
+                   f"K3 on one block of {BLOCK}", card,
+                   same_parse(torch, maxdiff))
     # (kernel ms, plain ms, bytes the call must move) on the subset
     sub_times = {
         "cand": (time_ms(lambda: K2.dense_candidates(rs, ls), 10),
@@ -1304,6 +1364,10 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     sub_blocks = [raw_np[j, :rlen_np[j]].tobytes() for j in sub.tolist()]
     cs = K2.dense_candidates(rs, ls)
     err2 = maxdiff(cs, K2.dense_candidates_plain(rs, ls))
+    # and over every block of the corpus: a CTA takes some 62 blocks in
+    # turn, clearing only the buckets of the last one between them
+    err2 = max(err2, maxdiff(K2.dense_candidates(raw, rlen),
+                             K2.dense_candidates_plain(raw, rlen)))
     need(err2 == 0, f"K2 differs from its plain version at 4 KiB by {err2}")
     k7 = K7.parse_blocks_enc3(rs, cs, ls)
     p7 = K7.parse_blocks_enc3_plain(rs, cs, ls)
@@ -1322,6 +1386,9 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     decodes_to(d5, sub_blocks, "K5 at 4 KiB")
     b8 = [data[j * 8192:(j + 1) * 8192] for j in range(SUBSET4)]
     r8, l8 = to_dev(*_batch(b8, 8192))
+    err2 = max(err2, maxdiff(K2.dense_candidates(r8, l8),
+                             K2.dense_candidates_plain(r8, l8)))
+    need(err2 == 0, f"K2 differs from its plain version at 8 KiB by {err2}")
     c8, n8 = compress_blocks_device(r8, l8, 8192)
     d5 = K5.decompress_blocks_v6(c8, n8, 8192)
     e5.append(max(maxdiff(x, y) for x, y in zip(
@@ -1338,7 +1405,8 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     decodes_to(d5, b256, "K5 at 256 KiB")
     err5 = max(e5)
     need(err5 == 0, f"K5 differs from its plain version by {err5}")
-    print(f"phase K7/K5 == plain: ok; K7 on {SUBSET4} blocks of 4 KiB (all "
+    print(f"phase K7/K5 == plain: ok; K2 on all {nb} blocks of 4 KiB and on "
+          f"{SUBSET4} of 8 KiB; K7 on {SUBSET4} blocks of 4 KiB (all "
           f"five outputs) and == K3 then K4 at seg 4096; K5 at 4 KiB, 8 KiB "
           f"and 256 KiB ({time.perf_counter() - t0:.1f} s)")
 
@@ -1541,10 +1609,36 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
           f"{ms_enc:.3f} ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode "
           f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fcand = K2.dense_candidates(raw, rlen)
-    full = {"cand": time_ms(lambda: K2.dense_candidates(raw, rlen), 5),
+    old2 = load_parent(K2, "cand")
+    full = {"cand": against_parent(
+                time_ms, K2, old2, lambda: K2.dense_candidates(raw, rlen), 5,
+                f"K2 over config 3 ({nb} blocks of 4 KiB)", card),
             "parse_enc3": time_ms(
                 lambda: K7.parse_blocks_enc3(raw, fcand, rlen), 5),
             "decode_v6": ms_dec}
+    r1, l1 = raw[:1].contiguous(), rlen[:1].contiguous()
+    against_parent(time_ms, K2, old2, lambda: K2.dense_candidates(r1, l1),
+                   20, "K2 on one block of 4 KiB", card)
+    if old2 is not None:
+        # a 4 KiB write's latency with this tree's K2 and the parent's
+        def store_median():
+            with tempfile.TemporaryDirectory() as tmp:
+                st = ST.ProxyStore(os.path.join(tmp, "turns.img"),
+                                   chunk_size=BLOCK4,
+                                   capacity=STORE_TURNS * BLOCK4,
+                                   device=DEVICE)
+                lat = []
+                for i in range(STORE_TURNS):
+                    t1 = time.perf_counter()
+                    st.write(i * BLOCK4, data[i * BLOCK4:(i + 1) * BLOCK4])
+                    lat.append(time.perf_counter() - t1)
+                st.close()
+            return 1e3 * float(np.median(lat))
+        own, parent = turns(store_median,
+                            with_kernel(K2, old2, store_median))
+        print(f"[{card}] ProxyStore.write of 4 KiB, the median of "
+              f"{STORE_TURNS} requests in turns (this, parent, parent, "
+              f"this): {own:.4f} ms, with the parent's K2 {parent:.4f} ms")
     print(f"[{card}] kernels over the 4 KiB corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
     sub_times = {
@@ -1627,6 +1721,14 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                    maxdiff(K9.dense_candidates_piecewise(r4m, l4m),
                            K9.dense_candidates_piecewise_plain(r4m, l4m)))
         need(err9 == 0, f"K9 differs from its plain version by {err9}")
+        # K3 on two of the blocks at seg 8192 (a CTA a segment, reading
+        # older match sources from the row), acceleration 1 and 8
+        r2, l2, c2 = rs[:2].contiguous(), ls[:2].contiguous(), \
+            c9[:2].contiguous()
+        err3 = max(segment_diff(
+            torch, maxdiff, K3.parse_segments(r2, c2, l2, seg=seg, accel=a),
+            K3.parse_segments_plain(r2, c2, l2, seg=seg, accel=a),
+            f"K3 at {bs}, seg {seg}, acceleration {a}") for a in (1, 8))
         c9n = c9.cpu().numpy()
         for i, f in enumerate(gpw):
             w = np.asarray(f.result(), np.int64)
@@ -1661,7 +1763,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
         err6 = max(e6)
         need(err6 == 0, f"K6 differs from its plain version by {err6}")
         print(f"phase K9/K6 == plain: ok; K9 on {BIG_SUBSET} blocks of {bs} "
-              f"and one of {top}, == golden on {len(psel)}; K6 at 524288, "
+              f"and one of {top}, == golden on {len(psel)}; K3 on 2 blocks "
+              f"of {bs} at seg {seg}, acceleration 1 and 8; K6 at 524288, "
               f"{bs} and {top} on native.compress streams and on "
               f"{len(named)} crafted streams each "
               f"({time.perf_counter() - t0:.1f} s)")
@@ -1836,8 +1939,11 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     fcand = K9.dense_candidates_piecewise(raw, rlen)
     full = {"cand_piecewise": time_ms(
                 lambda: K9.dense_candidates_piecewise(raw, rlen), 3),
-            "parse_seg": time_ms(
-                lambda: K3.parse_segments(raw, fcand, rlen, seg=seg), 3),
+            "parse_seg": against_parent(
+                time_ms, K3, load_parent(K3, "parse_seg"),
+                lambda: K3.parse_segments(raw, fcand, rlen, seg=seg), 3,
+                f"K3 over config 6 ({nb} blocks of {bs}, seg {seg})", card,
+                same_parse(torch, maxdiff)),
             "decode_v8": ms_dec}
     print(f"[{card}] kernels over config 6 (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
@@ -1874,7 +1980,8 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                        lambda c=c, n=n, size=size:
                        K6.decompress_blocks_v8(c, n, size), reps,
                        f"K6 on {what}", card)
-    return {"errs": {"cand_piecewise": err9, "decode_v8": err6},
+    return {"errs": {"cand_piecewise": err9, "decode_v8": err6,
+                     "parse_seg": err3},
             "counts": counts, "sub_times": sub_times}
 
 
@@ -2221,7 +2328,10 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"({DEEP5_BYTES / ms_d5 / 1e6:.4f} GB/s)")
     fc = K2.dense_candidates(raw, rlen)
     fg, _ = G.chain_gaps(fc)
-    full = {"cand": time_ms(lambda: K2.dense_candidates(raw, rlen), 3),
+    full = {"cand": against_parent(
+                time_ms, K2, load_parent(K2, "cand"),
+                lambda: K2.dense_candidates(raw, rlen), 3,
+                f"K2 over config 5 ({nb} blocks of {bs})", card),
             "gaps": time_ms(lambda: G.chain_gaps(fc), 3),
             "parse_seg_deep": time_ms(
                 lambda: K8S.parse_segments_deep(raw, fc, fg, rlen), 3),

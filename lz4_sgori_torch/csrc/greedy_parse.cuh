@@ -1,13 +1,14 @@
-// The scalar parse shared by K3, K8-seg and K10b (parse_seg.cuh, one
-// segment per thread) and K7 and K10c (parse_enc3.cuh, one block per
-// thread). K8-enc3's deep parse is a warp a block (parse_enc3_warp.cuh).
+// The scalar parse shared by K8-seg and K10b (parse_seg.cuh, one segment
+// per thread) and K7 and K10c (parse_enc3.cuh, one block per thread).
+// K8-enc3's deep parse is a warp a block (parse_enc3_warp.cuh), K3's
+// greedy parse a warp a segment (parse_seg_warp.cuh).
 //
 // It is the sequence loop of golden.compress_dense
 // (lz4_sgori_tpu/golden.py:1054-1129) over precomputed dense candidates,
 // restricted to one range of the block as golden.compress_dense_seg_parts
 // (golden.py:481-583) does. N is the number of candidates a probe weighs:
-// N = 1 is the greedy parse of K3 and K7, and its loop is the one they ran
-// before the deep modes existed:
+// N = 1 is the greedy parse of K7 (and of K3's first design), and its
+// loop is the one they ran before the deep modes existed:
 //   the search starts at max(s0, 1) with a fresh skip schedule per
 //   sequence and stops once a probe would pass mfl;
 //   a candidate d is used when 0 < d <= wlim, d <= pos and read32 agrees;

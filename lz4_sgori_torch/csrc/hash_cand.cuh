@@ -1,5 +1,6 @@
-// The warp step of pass-1 dense candidates, shared by K2 (cand.cu, one
-// block per CTA) and K9 (cand_piecewise.cu, one half-piece per CTA).
+// The warp step of pass-1 dense candidates of K9 (cand_piecewise.cu, one
+// half-piece per CTA). K2 (cand.cu) splits the table over the CTA's warps
+// (cand_part.cuh).
 //
 // One call takes the 32 positions p = base + lane of a warp. Positions
 // p < npos (those with a full read32) are active. The table in shared

@@ -514,9 +514,11 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
 
 // One warp a block; blocks a CTA as shared memory allows (one at 64 KiB,
 // up to kMaxWarps for small blocks). A shared-memory size the card
-// refuses is returned as the launch's error.
+// refuses is returned as the launch's error. Internal linkage: the
+// static below must be this library's own, not one that another build of
+// this header loaded in the same process (a parent tree's) would share.
 template <int N>
-int launch_parse_warp(const void* raw, const void* cand, const void* gaps,
+static int launch_parse_warp(const void* raw, const void* cand, const void* gaps,
                       const void* gaps2, const void* raw_len, void* out,
                       void* out_len, void* err, void* tails, void* nseq,
                       int nb, int bs, int slot, int cap, int accel,

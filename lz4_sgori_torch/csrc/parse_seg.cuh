@@ -1,8 +1,8 @@
 // The segment-parallel parse kernel, one thread per segment, for N
-// candidates a probe (greedy_parse.cuh): K3 (parse_seg.cu) launches N = 1,
-// K8-seg (parse_seg_deep.cu) N = 3 with the gaps tape, K10b
-// (parse_seg_mlen.cu) N = 1 in the mlen mode with the mcode tape. See
-// parse_seg.cu for the contract.
+// candidates a probe (greedy_parse.cuh): K8-seg (parse_seg_deep.cu)
+// launches N = 3 with the gaps tape, K10b (parse_seg_mlen.cu) N = 1 in the
+// mlen mode with the mcode tape. K3 (parse_seg.cu) walks a segment with a
+// warp (parse_seg_warp.cuh). See parse_seg.cu for the contract.
 
 #pragma once
 

@@ -8,6 +8,17 @@ Contract: ``golden.dense_candidates(block, hashlog=16,
 val16_filter=False)`` for every row, as plain int32 offsets
 ``cand [B, block_size]`` (the TPU packs ``p << 16 | d16``; positions are
 implicit here). Blocks are at most 64 KiB.
+
+The CUDA kernel (``csrc/cand_part.cuh``) copies a block into shared
+memory with one ``cp.async.bulk`` and splits the 2^16-entry table (128
+KiB of shared memory) by bucket over a CTA of 8 warps: every warp hashes
+the whole block, queues the positions of its own buckets in order and
+steps the table 32 of them at a time, so a position's candidate still
+comes from the latest earlier position of its bucket. One CTA an SM takes
+blocks in turn, the next block's copy in flight for blocks of 32 KiB and
+less, and clears between blocks only the buckets the last one used (16
+KiB and less) or the whole table. A card that refuses the shared memory
+fails the launch, which raises.
 """
 
 from __future__ import annotations
@@ -19,11 +30,12 @@ from . import _build
 
 launches = 0
 MAX_BLOCK = 65536
+ENTRIES = {"lz4t_cand": "pppiip"}   # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/cand.cu."""
-    return _build.load("cand", {"lz4t_cand": "pppiip"})
+    return _build.load("cand", ENTRIES)
 
 
 def check_cand_args(raw: torch.Tensor, raw_len: torch.Tensor) -> None:

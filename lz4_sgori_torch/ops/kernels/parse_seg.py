@@ -16,6 +16,17 @@ return, for the ``nb * nseg`` segments in block-major order:
 A segment whose stream would pass ``compress_bound(seg)`` sets ``err``;
 its other outputs are then unspecified. Segments at or past ``raw_len``
 parse nothing.
+
+The CUDA kernel (``csrc/parse_seg_warp.cuh``) walks a segment with one
+warp, CTAs of 2 consecutive segments of 4 KiB, one of 8 KiB (or of
+whole small blocks), over
+bytes copied into shared memory once per CTA (one ``cp.async.bulk`` a
+block: the CTA's segments; an older match
+source is read from the row), the cand tape read from global memory. The
+lanes split each step of the walk: 32 probes of the skip schedule a
+round (the first hit by ballot), 32 bytes of catch-up and 128 of
+extension a step, the literals a byte a lane. A card that refuses the
+shared memory fails the launch, which raises.
 """
 
 from __future__ import annotations
@@ -26,11 +37,12 @@ from ... import format as F
 from . import _build
 
 launches = 0
+ENTRIES = {"lz4t_parse_seg": "ppppppppppiiiiiip"}  # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_seg.cu."""
-    return _build.load("parse_seg", {"lz4t_parse_seg": "ppppppppppiiiiiip"})
+    return _build.load("parse_seg", ENTRIES)
 
 
 def check_parse_args(raw: torch.Tensor, cand: torch.Tensor,

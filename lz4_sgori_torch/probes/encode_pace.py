@@ -1,0 +1,575 @@
+"""What sets the pace of K2's candidates (``csrc/cand.cu``) and K3's
+segment parse (``csrc/parse_seg.cu``) on the card, on the main paths'
+cells (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks,
+seed 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of
+64 KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55,
+K9's tape, seg 8192; and one block of each size):
+
+- each kernel's time a call (CUDA events), the sequences K3 finds a
+  segment (its ``nseq``) and each cell's encode kernel path;
+- ``--profile``: clock64 breakdowns from instrumented copies of this
+  tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
+  in the table steps, its steps a warp, the wait for the bytes and the
+  clear; K3's cycles a sequence in the search, the catch-up, the
+  extension and the emission, its rounds a sequence, and its busiest
+  warp), and of the first K2 design's one-warp step (``FIRST_STEP``:
+  cycles a 32-position step in the loads and hash, the match, the table
+  read, the table write and the store);
+- ``--variants NAME ...``: builds of the two sources with other settings
+  (``VARIANTS``: other warps or tiles a round in ``cand_part.cuh``, other
+  segments a CTA or bytes held before them in ``parse_seg_warp.cuh``), each
+  timed in turns with this tree's build (this, variant, variant, this)
+  and its outputs held equal to it;
+- ``--parent DIR``: the same for DIR's ``cand.cu`` and ``parse_seg.cu``
+  (a ``git archive`` of an earlier commit);
+- ``--store ROUNDS`` (with ``--parent``): the median latency of
+  ``STORE_REQUESTS`` sequential 4 KiB ``ProxyStore`` writes of config 1's
+  bytes with this tree's K2 and with DIR's, in turns (this, parent,
+  parent, this) ROUNDS times.
+
+    python -m lz4_sgori_torch.probes.encode_pace [--profile]
+        [--variants NAME ...] [--parent DIR [--store ROUNDS]]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import subprocess
+
+import torch
+
+from .. import format as F
+from ..blocks import resolve_device, split_blocks
+from ..ops.encode import compress_blocks_device
+from ..ops.kernels import _build
+from ..ops.kernels import cand as K2
+from ..ops.kernels import cand_piecewise as K9
+from ..ops.kernels import parse_seg as K3
+from . import device_name, parser, seconds
+
+CALLS = 5             # calls in a timing
+STORE_REQUESTS = 1024  # 4 KiB writes a store timing
+MODS = {"cand": K2, "parse_seg": K3}
+
+# variants: the source they build, the header they change and its
+# (text, replacement) pairs, each text found in the header
+_CAND = ("cand", "cand_part.cuh")
+_SEG = ("parse_seg", "parse_seg_warp.cuh")
+_W = "constexpr int kWarps = 8;"
+_U = "constexpr int kUnroll = 16;"
+_G = "constexpr int kGroup = 2;"
+_B = "constexpr int kBack = 0;"
+VARIANTS = {
+    "cand_w1": (*_CAND, [(_W, _W.replace("8", "1"))]),
+    "cand_w4": (*_CAND, [(_W, _W.replace("8", "4"))]),
+    "cand_w16_u8": (*_CAND, [(_W, _W.replace("8", "16")),  # fits 227 KiB
+                             (_U, _U.replace("16", "8"))]),
+    "cand_u4": (*_CAND, [(_U, _U.replace("16", "4"))]),
+    "cand_u8": (*_CAND, [(_U, _U.replace("16", "8"))]),
+    "seg_g1": (*_SEG, [(_G, _G.replace("2", "1"))]),
+    "seg_g4": (*_SEG, [(_G, _G.replace("2", "4"))]),
+    "seg_g16_b65536": (*_SEG, [(_G, _G.replace("2", "16")),
+                               (_B, _B.replace("0", "65536"))]),
+    "seg_b4096": (*_SEG, [(_B, _B.replace("0", "4096"))]),
+    "seg_b8192": (*_SEG, [(_B, _B.replace("0", "8192"))]),
+}
+
+CLK = """
+__device__ __forceinline__ long long clk(long long dep) {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "l"(dep) : "memory");
+  return t;
+}
+"""
+
+# instrumented copies: file -> (anchor, replacement) pairs, each anchor
+# found in the source; acc[] a warp, written to prof at the end
+PROFILE = {
+    "cand_part.cuh": [
+        ("namespace cand_part {", "namespace cand_part {\n" + CLK),
+        ("int* out, int warp, int lane) {",
+         "int* out, int warp, int lane, long long* acc) {"),
+        ("      match_step(queue[(head + lane) & (kQueue - 1)], true, "
+         "table, out,\n                 lane);",
+         "      const long long t0 = clk(tail);\n"
+         "      match_step(queue[(head + lane) & (kQueue - 1)], true, "
+         "table, out,\n                 lane);\n"
+         "      acc[1] += clk(head) - t0;\n      acc[2]++;"),
+        ("int* __restrict__ cand, int nb, int bs) {",
+         "int* __restrict__ cand, int nb, int bs, long long* prof) {\n"
+         "  long long acc[6] = {0, 0, 0, 0, 0, 0};"),
+        ("    warp_parse::bar_wait(&bar[b], parity);\n\n"
+         "    scan_block(s, npos, queue, table, out, warp, lane);",
+         "    long long tw = clk(npos);\n"
+         "    warp_parse::bar_wait(&bar[b], parity);\n"
+         "    long long ts = clk(tw);\n    acc[3] += ts - tw;\n"
+         "    scan_block(s, npos, queue, table, out, warp, lane, acc);\n"
+         "    acc[0] += clk(acc[1]) - ts;\n    acc[4]++;"),
+        ("    if (next >= nb) break;",
+         "    if (next >= nb) break;\n    long long tc = clk(next);"),
+        ("    if (tid == 0 && L.nbuf == 1)\n"
+         "      issue(raw, raw_len, next, bs, buf0, &bar[0]);\n  }",
+         "    acc[5] += clk(tc) - tc;\n"
+         "    if (tid == 0 && L.nbuf == 1)\n"
+         "      issue(raw, raw_len, next, bs, buf0, &bar[0]);\n  }\n"
+         "  if (lane == 0)\n    for (int i = 0; i < 6; i++)\n"
+         "      prof[((size_t)blockIdx.x * kWarps + warp) * 6 + i] = "
+         "acc[i];"),
+    ],
+    "cand.cu": [
+        ('#include "cand_part.cuh"', '#include "cand_part_prof.cuh"'),
+        ("lz4t_cand(", "lz4t_cand_prof("),
+        ("int nb, int bs, void* stream) {",
+         "int nb, int bs, void* prof, void* stream) {"),
+        ("(int*)cand, nb, bs);", "(int*)cand, nb, bs, (long long*)prof);"),
+    ],
+    "parse_seg_warp.cuh": [
+        ("namespace seg_warp {", "namespace seg_warp {\n" + CLK),
+        ("int* m1h_out) const {", "int* m1h_out, long long* acc) const {"),
+        ("      // ---- the search, 32 probes a round ----\n"
+         "      const int start = pos;",
+         "      // ---- the search, 32 probes a round ----\n"
+         "      long long t0 = clk(pos);\n      const int start = pos;"),
+        ("        const bool hit = valid && probe_hits((int)pk, dd);",
+         "        acc[6]++;\n"
+         "        const bool hit = valid && probe_hits((int)pk, dd);"),
+        ("      if (hp < 0) break;\n      int pos1 = hp,",
+         "      long long t1 = clk(hp);\n      acc[0] += t1 - t0;\n"
+         "      if (hp < 0) break;\n      int pos1 = hp,"),
+        ("      // ---- forward extension, 128 bytes a step, capped at "
+         "mlim ----",
+         "      long long t2 = clk(pos1 + mpos);\n      acc[1] += t2 - t1;\n"
+         "      // ---- forward extension, 128 bytes a step, capped at "
+         "mlim ----"),
+        ("      mc = min(mc, lim);\n",
+         "      mc = min(mc, lim);\n      long long t3 = clk(mc);\n"
+         "      acc[2] += t3 - t2;\n"),
+        ("      has_match = true;\n      nseq++;",
+         "      acc[3] += clk(o) - t3;\n      acc[4]++;\n"
+         "      has_match = true;\n      nseq++;"),
+        ("int seg, int scap, int wlim, int accel) {",
+         "int seg, int scap, int wlim, int accel, long long* prof) {\n"
+         "  long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};"),
+        ("  if (R.bytes) warp_parse::bar_wait(bar, 0);",
+         "  long long tw = clk(R.bytes);\n"
+         "  if (R.bytes) warp_parse::bar_wait(bar, 0);\n"
+         "  acc[5] = clk(tw) - tw;"),
+        ("&ns, &p1, &m1h);",
+         "&ns, &p1, &m1h, acc);\n  if (lane == 0)\n"
+         "    for (int i = 0; i < 8; i++)\n"
+         "      prof[(size_t)(R.b * nseg + k) * 8 + i] = acc[i];"),
+        ("(int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap, wlim, "
+         "accel);",
+         "(int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap, wlim, "
+         "accel,\n        (long long*)prof);"),
+        ("int accel, void* stream) {\n  using namespace seg_warp;",
+         "int accel, void* prof, void* stream) {\n"
+         "  using namespace seg_warp;"),
+    ],
+    "parse_seg.cu": [
+        ('#include "parse_seg_warp.cuh"',
+         '#include "parse_seg_warp_prof.cuh"'),
+        ("lz4t_parse_seg(", "lz4t_parse_seg_prof("),
+        ("int wlim, int accel, void* stream) {",
+         "int wlim, int accel, void* prof, void* stream) {"),
+        ("wlim, accel, stream);", "wlim, accel, prof, stream);"),
+    ],
+}
+
+# the first K2 design's warp step (hash_cand.cuh as cand.cu ran it, a
+# warp a block from global memory), lane 0's cycles a part summed
+FIRST_STEP = CLK + r"""
+#include <stdint.h>
+__global__ void first_step(const uint8_t* __restrict__ raw,
+                           const int* __restrict__ raw_len,
+                           int* __restrict__ cand, long long* prof,
+                           int bs) {
+  extern __shared__ uint16_t table[];
+  const int blk = blockIdx.x, lane = threadIdx.x;
+  const uint8_t* src = raw + (size_t)blk * bs;
+  int* out = cand + (size_t)blk * bs;
+  const int n = min(max(raw_len[blk], 0), bs);
+  long long acc[6] = {0, 0, 0, 0, 0, 0};
+  long long c0 = clk(0);
+  uint32_t* t32 = reinterpret_cast<uint32_t*>(table);
+  for (int i = lane; i < (1 << 15); i += 32) t32[i] = 0;
+  __syncwarp();
+  acc[5] += clk(t32[lane]) - c0;
+  const int npos = n - 3;
+  for (int base = 0; base < bs; base += 32) {
+    const int p = base + lane;
+    long long t0 = clk(p);
+    const bool act = p < npos;
+    uint32_t h = 0x10000u + lane;
+    if (act) {
+      const uint32_t v = (uint32_t)src[p] | ((uint32_t)src[p + 1] << 8) |
+                         ((uint32_t)src[p + 2] << 16) |
+                         ((uint32_t)src[p + 3] << 24);
+      h = (v * 2654435761u) >> 16;
+    }
+    long long t1 = clk(h);
+    const unsigned peers = __match_any_sync(0xffffffffu, h);
+    const unsigned lower = peers & ((1u << lane) - 1u);
+    const unsigned higher = peers & ~((2u << lane) - 1u);
+    long long t2 = clk(peers);
+    int d = 0;
+    if (act) {
+      if (lower) {
+        d = lane - (31 - __clz(lower));
+      } else {
+        const int t = table[h];
+        if (t) d = p - (t - 1);
+      }
+    }
+    long long t3 = clk(d);
+    __syncwarp();
+    if (act && !higher) table[h] = (uint16_t)(p + 1);
+    __syncwarp();
+    long long t4 = clk(higher);
+    if (p < bs) out[p] = d;
+    long long t5 = clk(d);
+    acc[0] += t1 - t0; acc[1] += t2 - t1; acc[2] += t3 - t2;
+    acc[3] += t4 - t3; acc[4] += t5 - t4;
+  }
+  if (lane == 0)
+    for (int i = 0; i < 6; i++) prof[blk * 6 + i] = acc[i];
+}
+extern "C" int lz4t_first_step(const void* raw, const void* raw_len,
+                               void* cand, void* prof, int nb, int bs,
+                               void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      first_step, cudaFuncAttributeMaxDynamicSharedMemorySize, 1 << 17);
+  if (e != cudaSuccess) return (int)e;
+  first_step<<<nb, 32, 1 << 17, (cudaStream_t)stream>>>(
+      (const uint8_t*)raw, (const int*)raw_len, (int*)cand,
+      (long long*)prof, bs);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def instrumented(name: str, text: str) -> str:
+    """``text`` (csrc/``name``) with ``PROFILE[name]``'s edits; raises
+    where an anchor is not found (the source has moved on)."""
+    for old, new in PROFILE[name]:
+        if old not in text:
+            raise ValueError(f"{name}: {old!r} is not in the source")
+        text = text.replace(old, new, 1)
+    return text
+
+
+def _load(name: str, srcs: dict[str, str], main: str,
+          entries: dict) -> ctypes.CDLL:
+    """Write ``srcs`` (file name -> text) into a directory of the build
+    directory, build ``main`` among them with the port's flags (the
+    port's headers after theirs), and load it with ``entries``'
+    signatures."""
+    digest = hashlib.sha1(repr(sorted(srcs.items())).encode())
+    d = os.path.join(_build.BUILD_DIR,
+                     f"pace_{name}_{digest.hexdigest()[:12]}")
+    so = os.path.join(d, "lib.so")
+    if not os.path.exists(so):
+        os.makedirs(d, exist_ok=True)
+        for f, text in srcs.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                               "-I", _build.CSRC, "-o", so,
+                               os.path.join(d, main)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+        regs = [ln.split(":", 1)[-1].strip() for ln in
+                proc.stderr.splitlines() if "registers" in ln]
+        print(f"built {name}: {'; '.join(regs)}", flush=True)
+    lib = ctypes.CDLL(so)
+    for fn, sig in entries.items():
+        f = getattr(lib, fn)
+        f.argtypes = [ctypes.c_int if c == "i" else ctypes.c_void_p
+                      for c in sig]
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def variant_header(name: str) -> str:
+    """The header of variant ``name`` with its replacements; raises where
+    a text is not found (the source has moved on)."""
+    _, header, edits = VARIANTS[name]
+    text = _read(os.path.join(_build.CSRC, header))
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"variant {name}: {old!r} is not in {header}")
+        text = text.replace(old, new)
+    return text
+
+
+def variant(name: str) -> ctypes.CDLL:
+    src, header, _ = VARIANTS[name]
+    return _load(name, {f"{src}.cu": _read(os.path.join(_build.CSRC,
+                                                        f"{src}.cu")),
+                        header: variant_header(name)},
+                 f"{src}.cu", MODS[src].ENTRIES)
+
+
+def parent(tree: str, src: str) -> ctypes.CDLL:
+    """DIR's csrc/<src>.cu with its own headers."""
+    csrc = os.path.join(tree, "lz4_sgori_torch", "csrc")
+    texts = {f: _read(os.path.join(csrc, f)) for f in os.listdir(csrc)
+             if f == f"{src}.cu" or f.endswith(".cuh")}
+    return _load(f"parent_{src}", texts, f"{src}.cu", MODS[src].ENTRIES)
+
+
+def with_lib(mod, lib, fn):
+    """``fn`` with ``mod``'s kernel taken from ``lib``."""
+    def call():
+        own = mod.load_kernel
+        mod.load_kernel = lambda: lib
+        try:
+            return fn()
+        finally:
+            mod.load_kernel = own
+    return call
+
+
+def same_segments(a, b) -> bool:
+    """Two segment parses agree: err, and where it is 0 every output
+    (the streams within their lengths)."""
+    if not torch.equal(a[2], b[2]):
+        return False
+    ok = b[2] == 0
+    sm = (torch.arange(b[0].shape[1], device=ok.device)[None, :]
+          < b[1][:, None]) & ok[:, None]
+    return all(torch.equal(x[ok], y[ok]) for x, y in zip(a[1:], b[1:])) \
+        and torch.equal(a[0][sm], b[0][sm])
+
+
+def cells(dev):
+    """name -> (raw, rlen, cand, seg or None) on ``dev``."""
+    from __graft_entry__ import _synth_corpus
+
+    def corpus(nbytes, seed, bs):
+        r, n = split_blocks(_synth_corpus(nbytes, seed=seed), bs)
+        return torch.from_numpy(r).to(dev), torch.from_numpy(n).to(dev)
+    out = {}
+    for name, nbytes, seed, bs, seg in (
+            ("config 1", 32 << 20, 42, 65536, 4096),
+            ("config 3", 32 << 20, 42, 4096, None),
+            ("config 5", 128 << 20, 1234, 65536, 4096),
+            ("config 6", 128 << 20, 55, 1 << 20, 8192)):
+        r, n = corpus(nbytes, seed, bs)
+        c = (K9.dense_candidates_piecewise(r, n) if bs > 65536
+             else K2.dense_candidates(r, n))
+        out[name] = (r, n, c, seg)
+        if name != "config 5":
+            out[f"one block of {bs}"] = (r[:1].contiguous(),
+                                         n[:1].contiguous(),
+                                         c[:1].contiguous(), seg)
+    return out
+
+
+def ms(fn, dev) -> float:
+    """Milliseconds a call of ``fn`` after a warm-up call."""
+    fn()
+    return seconds(fn, dev, CALLS) * 1e3
+
+
+def in_turns(fa, fb, dev) -> tuple[float, float]:
+    t = [ms(f, dev) for f in (fa, fb, fb, fa)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def profile(cs, dev, stream) -> None:
+    """The clock64 breakdowns (see the module's note)."""
+    lib = _load("first_step", {"first.cu": "#include <cuda_runtime.h>\n"
+                               + FIRST_STEP}, "first.cu",
+                {"lz4t_first_step": "ppppiip"})
+    for name in ("config 1", "config 3"):
+        r, n = (t[:4].contiguous() for t in cs[name][:2])
+        nb, bs = r.shape
+        out = torch.empty((nb, bs), dtype=torch.int32, device=dev)
+        pr = torch.zeros((nb, 6), dtype=torch.int64, device=dev)
+        _build.check(lib.lz4t_first_step(r.data_ptr(), n.data_ptr(),
+                                         out.data_ptr(), pr.data_ptr(), nb,
+                                         bs, stream), "first_step")
+        torch.cuda.synchronize(dev)
+        p = pr.double().mean(0) / (bs // 32)
+        print(f"first K2 design, {name}'s first 4 blocks, lane 0's cycles "
+              f"a step: loads and hash {p[0]:.1f}, match {p[1]:.1f}, table "
+              f"read {p[2]:.1f}, table write {p[3]:.1f}, store {p[4]:.1f}; "
+              f"the clear {float(pr[:, 5].double().mean()):.0f} a block; "
+              f"equal {torch.equal(out, K2.dense_candidates(r, n))}",
+              flush=True)
+    texts = {f: _read(os.path.join(_build.CSRC, f)) for f in
+             ("cand.cu", "cand_part.cuh", "parse_seg.cu",
+              "parse_seg_warp.cuh")}
+    k2 = _load("cand_prof", {
+        "cand.cu": instrumented("cand.cu", texts["cand.cu"]),
+        "cand_part_prof.cuh": instrumented("cand_part.cuh",
+                                           texts["cand_part.cuh"])},
+        "cand.cu", {"lz4t_cand_prof": "pppiipp"})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w = int(re.search(r"constexpr int kWarps = (\d+);",
+                      texts["cand_part.cuh"])[1])      # the CTA's warps
+    for name, (r, n, _, _) in cs.items():
+        if r.shape[1] > 65536:
+            continue
+        nb, bs = r.shape
+        out = torch.empty((nb, bs), dtype=torch.int32, device=dev)
+        pr = torch.zeros((min(nb, sms), w, 6), dtype=torch.int64,
+                         device=dev)
+        _build.check(k2.lz4t_cand_prof(r.data_ptr(), n.data_ptr(),
+                                       out.data_ptr(), nb, bs, pr.data_ptr(),
+                                       stream), "cand_prof")
+        torch.cuda.synchronize(dev)
+        per = pr.double() / pr[:, :1, 4:5].double().clamp(min=1)
+        scan, step, nst = per[..., 0], per[..., 1], per[..., 2]
+        print(f"K2 {name} ({nb} blocks, {w} warps, equal "
+              f"{torch.equal(out, K2.dense_candidates(r, n))}): a block, "
+              f"cycles a warp: scan and steps {float(scan.mean()):.0f} "
+              f"(busiest warp {float(scan.max(1).values.mean()):.0f}), of "
+              f"which the steps {float(step.mean()):.0f} (busiest "
+              f"{float(step.max(1).values.mean()):.0f}); steps "
+              f"{float(nst.mean()):.1f} (busiest "
+              f"{float(nst.max(1).values.mean()):.1f}), "
+              f"{float(step.sum() / nst.sum().clamp(min=1)):.0f} cycles a "
+              f"step; the wait {float(per[..., 3].mean()):.0f}; the clear "
+              f"{float(per[..., 5].mean()):.0f}", flush=True)
+    k3 = _load("parse_seg_prof", {
+        "parse_seg.cu": instrumented("parse_seg.cu", texts["parse_seg.cu"]),
+        "parse_seg_warp_prof.cuh": instrumented(
+            "parse_seg_warp.cuh", texts["parse_seg_warp.cuh"])},
+        "parse_seg.cu", {"lz4t_parse_seg_prof": "ppppppppppiiiiiipp"})
+    for name, (r, n, c, seg) in cs.items():
+        if seg is None:
+            continue
+        nb, bs = r.shape
+        ns = nb * (bs // seg)
+        outs = K3.segment_outputs(ns, seg, dev)
+        pr = torch.zeros((ns, 8), dtype=torch.int64, device=dev)
+        _build.check(k3.lz4t_parse_seg_prof(
+            r.data_ptr(), c.data_ptr(), n.data_ptr(),
+            *(t.data_ptr() for t in outs), nb, bs, seg,
+            F.compress_bound(seg), K3.window_limit(65536), 1,
+            pr.data_ptr(), stream), "parse_seg_prof")
+        torch.cuda.synchronize(dev)
+        tot = pr.double().sum(0)
+        nq = tot[4].clamp(min=1)
+        busy = pr[:, :4].double().sum(1)
+        print(f"K3 {name} ({ns} segments, equal "
+              f"{same_segments(outs, K3.parse_segments(r, c, n, seg=seg))})"
+              f": cycles a sequence: search {float(tot[0] / nq):.0f} "
+              f"({float(tot[6] / nq):.2f} rounds), catch-up "
+              f"{float(tot[1] / nq):.0f}, extension {float(tot[2] / nq):.0f}"
+              f", emission {float(tot[3] / nq):.0f}; the wait for the bytes "
+              f"{float(tot[5] / ns):.0f} a warp; the busiest warp "
+              f"{float(busy.max()):.0f} cycles ({int(pr[busy.argmax(), 4])} "
+              f"sequences), the mean {float(busy.mean()):.0f}", flush=True)
+
+
+def store_median(data: bytes, dev) -> float:
+    """Milliseconds, the median of ``STORE_REQUESTS`` sequential 4 KiB
+    ``ProxyStore`` writes of ``data``."""
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from ..store import ProxyStore
+    lat = []
+    with tempfile.TemporaryDirectory() as tmp:
+        st = ProxyStore(os.path.join(tmp, "store.img"), chunk_size=4096,
+                        capacity=STORE_REQUESTS * 4096, device=dev)
+        for i in range(STORE_REQUESTS):
+            t0 = time.perf_counter()
+            st.write(i * 4096, data[i * 4096:(i + 1) * 4096])
+            lat.append(time.perf_counter() - t0)
+        st.close()
+    return 1e3 * float(np.median(lat))
+
+
+def main(argv=None) -> int:
+    p = parser(__doc__)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--variants", nargs="*", default=[],
+                   choices=sorted(VARIANTS))
+    p.add_argument("--parent")
+    p.add_argument("--store", type=int, default=0)
+    a = p.parse_args(argv)
+    if a.store and not a.parent:
+        p.error("--store needs --parent")
+    dev = resolve_device(a.device)
+    if dev.type != "cuda":
+        p.error("the kernels' times need a CUDA card")
+    limit = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip() or "no power limit read"
+    print(f"devices: {device_name(dev)} ({limit})", flush=True)
+    stream = _build.stream(dev)
+    cs = cells(dev)
+    for name, (r, n, c, seg) in cs.items():
+        bs = r.shape[1]
+        line = [name]
+        if bs <= 65536:
+            t = ms(lambda: K2.dense_candidates(r, n), dev)
+            line.append(f"K2 {t:.4f} ms")
+        if seg is not None:
+            ns = K3.parse_segments(r, c, n, seg=seg)[4].to(torch.int64)
+            t = ms(lambda: K3.parse_segments(r, c, n, seg=seg), dev)
+            line.append(f"K3 {t:.4f} ms; {int(ns.sum())} sequences in "
+                        f"{ns.numel()} segments (mean "
+                        f"{float(ns.double().mean()):.1f}, most "
+                        f"{int(ns.max())})")
+        if "one" not in name:
+            t = ms(lambda: compress_blocks_device(r, n, bs), dev)
+            line.append(f"the encode kernel path {t:.3f} ms")
+        print(": ".join(line[:1]) + ": " + ", ".join(line[1:]), flush=True)
+    if a.profile:
+        profile(cs, dev, stream)
+    others = [(v, VARIANTS[v][0], variant(v)) for v in a.variants]
+    if a.parent:
+        others += [(f"parent {s}", s, parent(a.parent, s)) for s in MODS]
+    if a.store:
+        from __graft_entry__ import _synth_corpus
+        data = _synth_corpus(STORE_REQUESTS * 4096)
+        parent_k2 = with_lib(K2, others[-2][2],
+                             lambda: store_median(data, dev))
+        for r in range(a.store):
+            t = [f() for f in (lambda: store_median(data, dev), parent_k2,
+                               parent_k2, lambda: store_median(data, dev))]
+            print(f"4 KiB ProxyStore.write median, round {r + 1} in turns "
+                  f"(this, parent, parent, this): this {t[0]:.4f} "
+                  f"{t[3]:.4f} ms, with the parent's K2 {t[1]:.4f} "
+                  f"{t[2]:.4f} ms", flush=True)
+    differ = []
+    for label, src, lib in others:
+        for name, (r, n, c, seg) in cs.items():
+            if src == "cand" and r.shape[1] <= 65536:
+                fn = lambda: K2.dense_candidates(r, n)  # noqa: E731
+                same = torch.equal
+            elif src == "parse_seg" and seg is not None:
+                fn = lambda: K3.parse_segments(  # noqa: E731
+                    r, c, n, seg=seg)
+                same = same_segments
+            else:
+                continue
+            other = with_lib(MODS[src], lib, fn)
+            ok = same(other(), fn())
+            this, that = in_turns(fn, other, dev)
+            print(f"{label} on {name} in turns (this, variant, variant, "
+                  f"this): this {this:.4f} ms, variant {that:.4f} ms "
+                  f"({that / this:.4f}x); equal: {ok}", flush=True)
+            if not ok:
+                differ.append(f"{label} on {name}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,9 @@ on ``probe_harness``; ``ohbuild``, the five tensor-core readings,
 ``transpose``, ``shiftsel`` and ``red1`` on ``probe_harness_wg``)
 against their plain PyTorch versions and their golden oracles, on the
 card; K6's rings on ``chip_smoke.crafted_streams`` and K8-enc3's warp
-parse on the blocks of ``test_torch_warp_parse`` (``-k "ring or warp"``).
+parse on the blocks of ``test_torch_warp_parse`` (``-k "ring or warp"``);
+K2's split table at 4, 8 and 64 KiB and K3's warp walk at 16 and 64 KiB
+and 1 MiB, acceleration 1 and 8 (``-k "k2 or k3"``).
 Marked ``cuda``; each test skips itself when no card is present.
 Run on a CUDA machine with
 
@@ -84,9 +86,14 @@ def _batch(blocks, bs, dev):
     return torch.from_numpy(raw).to(dev), torch.from_numpy(rlen).to(dev)
 
 
-def test_k2_candidates(dev):
-    bs = 65536
-    blocks = _blocks(bs)
+@pytest.mark.parametrize("bs", [4096, 8192, 65536])
+def test_k2_candidates(dev, bs):
+    """The split table at 4, 8 and 64 KiB, on the zero, random and short
+    blocks of ``_blocks`` and a 5,000-byte one; at 4 KiB also 300 blocks,
+    so that each CTA takes several in turn."""
+    blocks = [b[:bs] for b in _blocks(bs) + [(LOREM * 100)[:5000]]]
+    if bs == 4096:
+        blocks = blocks * 30
     raw, rlen = _batch(blocks, bs, dev)
     got = K2.dense_candidates(raw, rlen)
     torch.cuda.synchronize()
@@ -99,18 +106,32 @@ def test_k2_candidates(dev):
         assert np.array_equal(got[j], want), j
 
 
-def test_k3_parse(dev):
-    bs, seg = 16384, 4096
+@pytest.mark.parametrize("bs,seg,accel", [(16384, 4096, 1),
+                                          (65536, 4096, 1),
+                                          (65536, 4096, 8),
+                                          (1 << 20, 8192, 1),
+                                          (1 << 20, 8192, 8)])
+def test_k3_parse(dev, bs, seg, accel):
+    """The warp walk against its plain version (all seven outputs where
+    err is 0) and, up to 64 KiB at acceleration 1, against golden."""
     blocks = _blocks(bs)
+    if bs > 65536:
+        blocks = blocks[:3] + blocks[7:]
     raw, rlen = _batch(blocks, bs, dev)
-    cand = K2.dense_candidates(raw, rlen)
-    got = K3.parse_segments(raw, cand, rlen, seg=seg)
-    want = K3.parse_segments_plain(raw, cand, rlen, seg=seg)
+    cand = (K9.dense_candidates_piecewise(raw, rlen) if bs > 65536
+            else K2.dense_candidates(raw, rlen))
+    got = K3.parse_segments(raw, cand, rlen, seg=seg, accel=accel)
+    want = K3.parse_segments_plain(raw, cand, rlen, seg=seg, accel=accel)
     torch.cuda.synchronize()
     assert not got[2].any() and not want[2].any()
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
     streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    wstreams = want[0].cpu().numpy()
+    for r in range(len(slen)):
+        assert np.array_equal(streams[r, :slen[r]], wstreams[r, :slen[r]]), r
+    if bs > 65536 or accel != 1:
+        return
     nseg = bs // seg
     for j, b in enumerate(blocks):
         for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg)):
