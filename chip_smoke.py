@@ -68,7 +68,8 @@ K3, K4 and K6), in ``_smoke_big``; the pure-Python golden oracles of its
 blocks run in a pool of worker processes:
 
 13. K9, K3 and K6 against their plain versions exactly (K9 on 4 blocks
-    of 1 MiB and one of 4 MiB, and against
+    of 1 MiB, one of 4 MiB, an all-zero and a short block of 1 MiB, and
+    at piece 4096 on a block of 1 MiB, and against
     golden.dense_candidates_piecewise on 2; K3 on 2 blocks of 1 MiB at
     seg 8192, acceleration 1 and 8; K6 at 512 KiB, 1 MiB and 4 MiB on
     blocks of ``native.compress``
@@ -96,9 +97,11 @@ blocks run in a pool of worker processes:
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
     K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
-    both at 4 MiB; K3 over config 6, and K6 on one block of 1 MiB, one of
-    4 MiB and over config 6, each in turns with the parent tree's when
-    ``--parent`` names one (its outputs equal first).
+    K6 at 4 MiB; K9 and K3 over config 6, K9 on one block of 1 MiB and one
+    of 4 MiB, and K6 on one block of 1 MiB, one of 4 MiB and over config
+    6, each in turns with the parent tree's when ``--parent`` names one
+    (its outputs equal first), and with it the 1 MiB and 4 MiB stores'
+    write medians with this tree's K9 and the parent's in turns.
 
 The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
 64 KiB blocks; depth 3 on seg, depth 5 on enc3 over the first 8 MiB;
@@ -107,9 +110,10 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
 20. the gaps kernel (K2's tape at links 2 and 4, K9's tape with its
     floor), K8-seg and K8-enc3 (64 blocks of 4 KiB, and 4 of the 10
     blocks of 64 KiB the kernel parses: the first, the short last one, a
-    random and an all-zero block, at depth 3 and 5)
-    against their plain versions exactly, and the tapes against golden;
-    the plain K8 parses are timed here, once;
+    random and an all-zero block, K8-enc3 at depth 3 and 5, K8-seg at
+    seg 4096; K8-seg also on 2 blocks of 1 MiB at seg 8192 over K9's
+    tape, acceleration 1 and 8) against their plain versions exactly, and
+    the tapes against golden; the plain K8 parses are timed here, once;
 21. the golden contract of each deep row of the routing table: seg at
     depth 2-3, seg_big at depth 3, enc3 at depth 3 (acceleration 1 and 8)
     and 5, and seg_splice capped at depth 1 with its warning;
@@ -121,13 +125,13 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     ratio and sizes against the TPU record of the same bytes;
 23. a ProxyStore at depth 3, a CompressedStore at depth 5 and
     ``lz4j compress --match-depth 3`` and ``5`` round trips;
-24. times with CUDA events: the deep encode paths, K2 over the corpus (in
-    turns with the parent tree's), the gaps kernel and K8-seg over the
-    corpus beside K3, K8-enc3 over the depth-5 slice, and
-    each deep kernel beside its plain version (the K8 parses' from phase
-    20); K8-enc3 at depth 5 on the first 1, 32 and 128 blocks and at
-    depth 3 on the 64 blocks of 4 KiB, each in turns with the parent
-    tree's K8-enc3 when ``--parent`` names one.
+24. times with CUDA events: the deep encode paths, K2 and K8-seg over the
+    corpus (in turns with the parent tree's), the gaps kernel, K3 beside
+    them, K8-enc3 over the depth-5 slice, and each deep kernel beside its
+    plain version (the K8 parses' from phase 20); K8-seg on one block of
+    1 MiB at seg 8192, K8-enc3 at depth 5 on the first 1, 32 and 128
+    blocks and at depth 3 on the 64 blocks of 4 KiB, each in turns with
+    the parent tree's when ``--parent`` names one.
 
 The mlen mode (K10: ``LZ4J_ENC_MLEN=1`` at depth 1 and 64 KiB and below;
 kernels K2, mcode, K10b and K4 on ``seg``, K2, mcode and K10c through the
@@ -248,7 +252,7 @@ tools' shapes and seeds, in ``_smoke_probes``:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
-without it phases 19 and 24 time this tree's kernels alone.
+without it phases 5, 12, 19 and 24 time this tree's kernels alone.
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -271,7 +275,7 @@ import numpy as np
 
 DEVICE = "cuda"
 # ``--parent DIR``: a tree of the commit before (``git archive``), whose
-# K6 and K8-enc3 sources phases 19 and 24 build and time in turns with
+# kernel sources phases 5, 12, 19 and 24 build and time in turns with
 # this tree's; None times this tree's kernels alone
 PARENT = None
 _PARENT_LIBS = {}       # the parent tree's builds, by source name
@@ -843,12 +847,12 @@ def decode_bytes(comp_len, res) -> int:
         comp_len, out_len, err)
 
 
-def same_parse(torch, maxdiff):
-    """``against_parent``'s comparison of two segment parses (K3's):
-    ``segment_diff``, which raises where they differ."""
+def same_parse(torch, maxdiff, what: str = "K3"):
+    """``against_parent``'s comparison of two segment parses (K3's or
+    K8-seg's): ``segment_diff``, which raises where they differ."""
     return lambda got, want: segment_diff(
         torch, maxdiff, got, want,
-        "K3 (the parent's kernel standing for the plain version)") == 0
+        f"{what} (the parent's kernel standing for the plain version)") == 0
 
 
 def segment_diff(torch, maxdiff, got, want, what: str) -> int:
@@ -1717,9 +1721,16 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                                           {})) for j in psel]
         c9 = K9.dense_candidates_piecewise(rs, ls)
         r4m, l4m = to_dev(*_batch([data[:top]], top))
+        # an all-zero block (one bucket, one warp's steps) and a short one
+        rz, lz = to_dev(*_batch([bytes(bs), data[bs:2 * bs - 12345]], bs))
         err9 = max(maxdiff(c9, K9.dense_candidates_piecewise_plain(rs, ls)),
                    maxdiff(K9.dense_candidates_piecewise(r4m, l4m),
-                           K9.dense_candidates_piecewise_plain(r4m, l4m)))
+                           K9.dense_candidates_piecewise_plain(r4m, l4m)),
+                   maxdiff(K9.dense_candidates_piecewise(rz, lz),
+                           K9.dense_candidates_piecewise_plain(rz, lz)),
+                   maxdiff(K9.dense_candidates_piecewise(rs[:1], ls[:1], 4096),
+                           K9.dense_candidates_piecewise_plain(
+                               rs[:1], ls[:1], 4096)))
         need(err9 == 0, f"K9 differs from its plain version by {err9}")
         # K3 on two of the blocks at seg 8192 (a CTA a segment, reading
         # older match sources from the row), acceleration 1 and 8
@@ -1763,7 +1774,12 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
         err6 = max(e6)
         need(err6 == 0, f"K6 differs from its plain version by {err6}")
         print(f"phase K9/K6 == plain: ok; K9 on {BIG_SUBSET} blocks of {bs} "
-              f"and one of {top}, == golden on {len(psel)}; K3 on 2 blocks "
+              f"and one of {top}, an all-zero and a short ({bs - 12345} "
+              f"bytes) block, piece 4096 on a block of {bs} (runs of "
+              f"{K9.run_length(BIG_SUBSET, bs)}, "
+              f"{K9.run_length(1, top)} and "
+              f"{K9.run_length(1, bs, 4096)} half-pieces a CTA), == golden "
+              f"on {len(psel)}; K3 on 2 blocks "
               f"of {bs} at seg {seg}, acceleration 1 and 8; K6 at 524288, "
               f"{bs} and {top} on native.compress streams and on "
               f"{len(named)} crafted streams each "
@@ -1937,8 +1953,12 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"{ms_enc:.3f} ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode "
           f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fcand = K9.dense_candidates_piecewise(raw, rlen)
-    full = {"cand_piecewise": time_ms(
-                lambda: K9.dense_candidates_piecewise(raw, rlen), 3),
+    old9 = load_parent(K9, "cand_piecewise")
+    full = {"cand_piecewise": against_parent(
+                time_ms, K9, old9,
+                lambda: K9.dense_candidates_piecewise(raw, rlen), 3,
+                f"K9 over config 6 ({nb} blocks of {bs}, runs of "
+                f"{K9.run_length(nb, bs)} half-pieces)", card),
             "parse_seg": against_parent(
                 time_ms, K3, load_parent(K3, "parse_seg"),
                 lambda: K3.parse_segments(raw, fcand, rlen, seg=seg), 3,
@@ -1963,11 +1983,29 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     sub_times["cand_piecewise"] += (tensor_bytes(rs, ls, c9),)
     sub_times["decode_v8"] += (decode_bytes(n1, K6.decompress_blocks_v8(
         c1, n1, bs)),)
-    print(f"[{card}] at {top}: K9 on one block "
-          f"{time_ms(lambda: K9.dense_candidates_piecewise(r4m, l4m), 5):.4f}"
-          f" ms, K6 on two blocks "
+    print(f"[{card}] at {top}: K6 on two blocks "
           f"{time_ms(lambda: K6.decompress_blocks_v8(c4, n4, top), 3):.4f}"
           " ms")
+    # K9 on one block of 1 MiB and one of 4 MiB (a single request), and
+    # the fio-shaped stores' write medians, in turns with the parent's K9
+    r1, l1 = rs[:1].contiguous(), ls[:1].contiguous()
+    for what, (r, l) in ((f"one block of {bs}", (r1, l1)),
+                         (f"one block of {top}", (r4m, l4m))):
+        against_parent(time_ms, K9, old9,
+                       lambda r=r, l=l: K9.dense_candidates_piecewise(r, l),
+                       10, f"K9 on {what} (runs of "
+                       f"{K9.run_length(1, r.shape[1])} half-pieces)", card)
+    if old9 is not None:
+        for chunk, nreq in BIG_STORE_RUNS:
+            def own(chunk=chunk, nreq=nreq):
+                return store_median(data, chunk, nreq)
+            readings = [f() for f in (own, with_kernel(K9, old9, own),
+                                      with_kernel(K9, old9, own), own)]
+            print(f"[{card}] ProxyStore.write of {chunk} bytes, the median "
+                  f"of {nreq} requests in turns (this, parent, parent, "
+                  f"this): this {readings[0]:.4f} {readings[3]:.4f} ms, "
+                  f"with the parent's K9 {readings[1]:.4f} "
+                  f"{readings[2]:.4f} ms")
     # K6 on one block and over config 6, in turns with the parent's
     old6 = load_parent(K6, "decode_v8")
     for what, (c, n), size, reps in (
@@ -2073,11 +2111,6 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
              "gaps over K9's tape differs from golden."
              "dense_candidates_piecewise(with_gaps=True)")
 
-        pk = K8S.parse_segments_deep(rs, cs, g3k, ls)
-        pp, seg_plain_ms = timed_once(
-            torch, lambda: K8S.parse_segments_deep_plain(rs, cs, g3k, ls))
-        err8s = segment_diff(torch, maxdiff, pk, pp, "K8-seg")
-
         # K8-enc3 on 64 blocks of 4 KiB and on 8 of 64 KiB with a random
         # and an all-zero block; its plain version on all 64 and on 4 of
         # the 10 (the first, the short last one, the random and the zero
@@ -2111,14 +2144,36 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                 enc3_in[ebs, depth] = (*sub, ks)
         need(err8e == 0, f"K8-enc3 differs from its plain version by "
                          f"{err8e}")
+        # K8-seg at seg 4096 on those 64 blocks of 4 KiB and 4 of 64 KiB
+        # (the first, the short last one, a random and a zero block), and
+        # at seg 8192 on 2 blocks of 1 MiB over K9's tape and its floored
+        # gaps, acceleration 1 and 8; each plain parse runs once
+        seg_cases = {}
+        for ebs in (4096, bs):
+            r, c, g, _, l, _ = enc3_in[ebs, 3]
+            seg_cases[f"{r.shape[0]} blocks of {ebs}"] = (r, c, g, l, 4096, 1)
+        big2 = [t[:2].contiguous() for t in (rm, c9, pwk, lm)]
+        for a in (1, 8):
+            seg_cases[f"2 blocks of {1 << 20} at seg 8192, acceleration "
+                      f"{a}"] = (*big2, 8192, a)
+        err8s, seg_plain_ms, seg_out = 0, {}, {}
+        for what, (r, c, g, l, sg, a) in seg_cases.items():
+            seg_out[what] = K8S.parse_segments_deep(r, c, g, l, seg=sg,
+                                                    accel=a)
+            p, seg_plain_ms[what] = timed_once(
+                torch, lambda: K8S.parse_segments_deep_plain(
+                    r, c, g, l, seg=sg, accel=a))
+            err8s = max(err8s, segment_diff(torch, maxdiff, seg_out[what], p,
+                                            f"K8-seg on {what}"))
         print(f"phase gaps/K8 == plain: ok; gaps (links 2 and 4) on "
               f"{DEEP_SUBSET} blocks of {bs} and == golden on 2, over K9's "
               f"tape on 4 blocks of 1 MiB and == golden on 1; K8-seg on "
-              f"{DEEP_SUBSET} blocks; K8-enc3 at 4096 (64 blocks) and {bs} "
-              f"(8 blocks, a random and a zero block, 4 against the plain "
-              f"version), depth 3 and 5; the plain parses once each, ms: "
-              f"K8-seg {seg_plain_ms:.1f}, "
-              "K8-enc3 "
+              + ", ".join(seg_cases) + "; K8-enc3 at 4096 (64 blocks) and "
+              f"{bs} (8 blocks, a random and a zero block, 4 against the "
+              f"plain version), depth 3 and 5; the plain parses once each, "
+              "ms: K8-seg "
+              + ", ".join(f"{k} {v:.1f}" for k, v in seg_plain_ms.items())
+              + ", K8-enc3 "
               + ", ".join(f"{b} depth {d} {v:.1f}"
                           for (b, d), v in enc3_plain_ms.items())
               + f" ({time.perf_counter() - t0:.1f} s)")
@@ -2328,13 +2383,17 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
           f"({DEEP5_BYTES / ms_d5 / 1e6:.4f} GB/s)")
     fc = K2.dense_candidates(raw, rlen)
     fg, _ = G.chain_gaps(fc)
+    old8s = load_parent(K8S, "parse_seg_deep")
     full = {"cand": against_parent(
                 time_ms, K2, load_parent(K2, "cand"),
                 lambda: K2.dense_candidates(raw, rlen), 3,
                 f"K2 over config 5 ({nb} blocks of {bs})", card),
             "gaps": time_ms(lambda: G.chain_gaps(fc), 3),
-            "parse_seg_deep": time_ms(
-                lambda: K8S.parse_segments_deep(raw, fc, fg, rlen), 3),
+            "parse_seg_deep": against_parent(
+                time_ms, K8S, old8s,
+                lambda: K8S.parse_segments_deep(raw, fc, fg, rlen), 3,
+                f"K8-seg over config 5 ({nb} blocks of {bs}, seg 4096, "
+                "depth 3)", card, same_parse(torch, maxdiff, "K8-seg")),
             "parse_seg (depth 1)": time_ms(
                 lambda: K3.parse_segments(raw, fc, rlen), 3)}
     f5c = fc[:n5].contiguous()
@@ -2345,6 +2404,11 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                                            rlen[:n5], depth=5), 3)
     print(f"[{card}] kernels over config 5 (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
+    r1, c1, g1, l1 = (t[:1].contiguous() for t in big2)
+    against_parent(time_ms, K8S, old8s,
+                   lambda: K8S.parse_segments_deep(r1, c1, g1, l1, seg=8192),
+                   10, f"K8-seg on one block of {1 << 20} at seg 8192 (depth "
+                   "3)", card, same_parse(torch, maxdiff, "K8-seg"))
     # K8-enc3 runs a CTA of one warp a 64 KiB block: k blocks take k SMs,
     # so t(k) stays one walk up to the card's SMs; the parent's kernel
     # (one thread a block, 32-thread CTAs) in turns with it
@@ -2358,13 +2422,15 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                        f"K8-enc3 at depth 5 on the first {k} blocks of {bs} "
                        f"({sms} SMs)", card)
     r, c, g, g2, l, k = enc3_in[bs, 5]
+    sub8 = f"4 blocks of {bs}"
+    r8, c8, g8, l8, _, _ = seg_cases[sub8]
     sub_times = {
         "gaps": (time_ms(lambda: G.chain_gaps(cs), 10),
                  time_ms(lambda: G.chain_gaps_plain(cs), 3),
                  tensor_bytes(cs, g3k)),
         "parse_seg_deep": (
-            time_ms(lambda: K8S.parse_segments_deep(rs, cs, g3k, ls), 10),
-            seg_plain_ms, parse_bytes((rs, cs, g3k, ls), pk)),
+            time_ms(lambda: K8S.parse_segments_deep(r8, c8, g8, l8), 10),
+            seg_plain_ms[sub8], parse_bytes((r8, c8, g8, l8), seg_out[sub8])),
         "parse_enc3_deep": (
             time_ms(lambda: K8E.parse_blocks_enc3_deep(
                 r, c, g, g2, l, depth=5), 5),
@@ -2373,9 +2439,9 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     for key, (a, b, _) in sub_times.items():
         print(f"[{card}] {key} on its subset: kernel {a:.4f} ms, plain "
               f"{b:.4f} ms")
-    print(f"(K8-enc3's subset: 4 blocks of {bs} at depth 5, two of the "
-          "corpus, a random and a zero block; both K8 parses' plain times "
-          "are phase 20's calls)")
+    print(f"(both K8 parses' subset: 4 blocks of {bs}, two of the corpus, "
+          "a random and a zero block, K8-enc3 at depth 5, K8-seg at depth "
+          "3; their plain times are phase 20's calls)")
     r4, c4, g4, _, l4, _ = enc3_in[4096, 3]
     against_parent(time_ms, K8E, old8,
                    lambda: K8E.parse_blocks_enc3_deep(r4, c4, g4, None, l4),
@@ -2384,6 +2450,25 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     return {"errs": {"gaps": errg, "parse_seg_deep": err8s,
                      "parse_enc3_deep": err8e},
             "counts": counts, "sub_times": sub_times}
+
+
+def store_median(data: bytes, chunk: int, nreq: int) -> float:
+    """Milliseconds, the median of ``nreq`` sequential ``ProxyStore``
+    writes of ``chunk`` bytes of ``data`` (each ending in a host sync)."""
+    import tempfile
+
+    from lz4_sgori_torch import store as ST
+    lat = []
+    with tempfile.TemporaryDirectory() as tmp:
+        st = ST.ProxyStore(os.path.join(tmp, "backing.img"),
+                           chunk_size=chunk, capacity=chunk * nreq,
+                           device=DEVICE)
+        for i in range(nreq):
+            t1 = time.perf_counter()
+            st.write(i * chunk, data[i * chunk:(i + 1) * chunk])
+            lat.append(time.perf_counter() - t1)
+        st.close()
+    return 1e3 * float(np.median(lat))
 
 
 def timed_once(torch, fn):

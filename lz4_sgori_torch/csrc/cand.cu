@@ -29,8 +29,8 @@
 // run's bucket; 16 warps issue twice the scan for too little gain, 4 too
 // few rounds at once. Small blocks (config 3's 4 KiB) run one after
 // another on a CTA, the next block's copy in flight, clearing only the
-// buckets the last one used. K9 (cand_piecewise.cu) keeps the one-warp
-// step (hash_cand.cuh).
+// buckets the last one used. K9 (cand_piecewise.cu) runs the same split
+// table over runs of half-pieces.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

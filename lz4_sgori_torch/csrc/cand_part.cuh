@@ -1,11 +1,14 @@
-// K2's kernel (cand.cu): pass-1 dense candidates with the block resident
-// in shared memory and the hash table's buckets split over the CTA's
-// warps. It computes what hash_cand.cuh's one-warp step computed, bit for
-// bit:
+// The split table of K2 (cand.cu) and K9 (cand_piecewise.cu): pass-1
+// dense candidates with the bytes resident in shared memory and the hash
+// table's buckets split over the CTA's warps. K2's kernel computes, bit
+// for bit,
 //
 //   cand[p] = p - q for the latest q < p in [0, n-4] with
 //   hash16(read32(q)) == hash16(read32(p)); 0 where there is none and
-//   for every p > n-4.
+//   for every p > n-4;
+//
+// K9's the same with q limited to [max(0, (h-1)H), p) for p in
+// half-piece h = p / H (below, "K9's runs").
 //
 // - The block. Its n bytes (at most 64 KiB) go into shared memory by one
 //   cp.async.bulk (from the row's address rounded down to 16: byte i lies
@@ -13,35 +16,57 @@
 //   two buffers, so the next block's copy lands while this one is
 //   scanned.
 // - The split. The CTA's W warps share one table of 2^16 uint16 entries
-//   (q + 1 for the latest inserted q of a bucket, 0 = empty). Warp w owns
+//   (r + 1 for the latest inserted position of a bucket, r relative to
+//   an origin; 0 = empty). Warp w owns
 //   the buckets h with h & (W - 1) == w. A position's candidate depends
 //   only on earlier positions of its own bucket, so each warp runs the
 //   serial insertion order over its buckets alone and no two warps touch
 //   one entry.
-// - The scan. Every warp reads the whole block, 32 positions a tile (a
+// - The scan. Every warp reads the whole range, 32 positions a tile (a
 //   word a lane from shared memory, kUnroll tiles a round, their loads
 //   in flight together); a ballot picks the lanes whose bucket it owns,
 //   and those positions join the warp's queue (a ring of kQueue entries,
-//   hash << 16 | position) in increasing order.
+//   hash << 16 | r) in increasing order.
 // - The match step runs after each round on every 32 queued positions,
-//   as hash_cand.cuh ran it on 32 consecutive ones: __match_any_sync
-//   groups equal hashes; a lane's candidate is its nearest lower peer (its
-//   position by shuffle), else the table's entry read by the group's
-//   lowest lane; the group's highest lane writes its own. So a warp runs
-//   about (n / 32) / W table steps, not n / 32, and the scan's tiles do
-//   not wait on the table. A bucket that holds a long run (a run of zero
-//   bytes is one bucket) still falls to one warp, step by step.
+//   as the first design's one-warp step ran it on 32 consecutive ones:
+//   __match_any_sync groups equal hashes; a lane's candidate is its
+//   nearest lower peer (its position by shuffle), else the table's entry
+//   read by the group's lowest lane; the group's highest lane writes its
+//   own. So a warp runs about (n / 32) / W table steps, not n / 32, and
+//   the scan's tiles do not wait on the table. A bucket that holds a long
+//   run (a run of zero bytes is one bucket) still falls to one warp, step
+//   by step.
 // - The output. Each position below n - 3 is written once, by the warp
 //   that owns its bucket (4-byte stores, scattered within a few KiB); the
 //   rest of the row is zeroed by the whole CTA.
-// - The table between blocks. A CTA takes blocks blockIdx.x, + gridDim.x,
-//   ... (one CTA an SM: the table, the queues and a 64 KiB block take
-//   about 225 KiB of the 227 a block may have).
+// - K2's table between blocks. A CTA takes blocks blockIdx.x, +
+//   gridDim.x, ... (one CTA an SM: the table, the queues and a 64 KiB
+//   block take about 225 KiB of the 227 a block may have).
 //   After a block of kSmallBlock bytes or less, the warps hash its
 //   positions again and zero only those buckets; after a larger one they
-//   zero the whole table, which costs less than the rescan there.
-//
-// Entries are p + 1 with p < n - 3 <= 65,533, so they never wrap.
+//   zero the whole table, which costs less than the rescan there. K2's
+//   origin is 0: entries are p + 1 with p < n - 3 <= 65,533, so they
+//   never wrap.
+// - K9's runs. A CTA walks a run of R consecutive half-pieces [h0, h0 +
+//   R) of one block (cand_piecewise.cu's Runs: R from the grid's waves
+//   on the host), each
+//   half-piece's H + 3 bytes staged by cp.async.bulk into two buffers in
+//   turn, and hashes each position once: the latest equal-hash q < p
+//   overall is the answer when q >= (h-1)H, and no q of the window
+//   exists when it is older. So one table walked forward gives the
+//   contract if it holds no entry below the floor (h-1)H:
+//   - before h0 it takes half-piece h0 - 1's positions without writing
+//     them (the warm half), at h0's origin (h0 - 1)H;
+//   - half-piece h's entries are r + 1 with r = p - (h-1)H in [0, 2H);
+//   - between h and h + 1 a sweep of the table rebases every entry by H
+//     and empties those below the new floor hH (e <= H);
+//   - the entry of h's last position, r = 2H - 1, is 2H: at H = 32768
+//     it wraps to 0 (empty) in uint16, where no later position of h reads
+//     it; after the sweep it is written again as H (its rebased value),
+//     so the wrap never changes an output.
+//   Each half-piece's queues are drained (a last partial step) before
+//   the sweep, so no step mixes two half-pieces. Hashing falls from 2H a
+//   half-piece (the first design's one CTA a half-piece) to (R + 1) / R.
 
 #pragma once
 
@@ -59,21 +84,24 @@ constexpr int kUnroll = 16;                // scan tiles a round
 constexpr int kQueue = 64 * kUnroll;       // queued positions a warp (a ring)
 constexpr int kSlack = 32 * kUnroll + 16;  // bytes a round reads past n
 constexpr int kSmallBlock = 16384;         // blocks up to this clear by rescan
+constexpr int kMaxHalf = 32768;            // K9's largest half-piece
 
 static_assert((kWarps & (kWarps - 1)) == 0 && kWarps <= 32, "warps");
 
 // The shared-memory layout, the same on host and device: the table, the
-// queues, two barriers, then one or two block buffers.
+// queues, two barriers, then two buffers of `buf` bytes each (K9; K2 one
+// above 32 KiB). K2's buffer holds a block of bs bytes, K9's a
+// half-piece of `half` and the 3 bytes after it.
 struct Layout {
   int buf, nbuf, bytes;
-  __host__ __device__ Layout(int bs) {
-    buf = (16 + bs + kSlack + 15) & ~15;
-    nbuf = bs <= 32768 ? 2 : 1;
+  __host__ __device__ Layout(int bs, bool piecewise = false) {
+    buf = (16 + bs + (piecewise ? 3 : 0) + kSlack + 15) & ~15;
+    nbuf = piecewise || bs <= 32768 ? 2 : 1;
     bytes = kTableBytes + kWarps * kQueue * 4 + 16 + nbuf * buf;
   }
 };
 
-// The block's bytes in a buffer: byte i at word-aligned w plus off + i.
+// The bytes in a buffer: byte i at word-aligned w plus off + i.
 // Words are indexed off w (no integer casts), so that the compiler keeps
 // the loads in shared memory.
 struct Bytes {
@@ -95,77 +123,97 @@ __device__ __forceinline__ void arrive(uint64_t* bar) {
                :: "r"(warp_parse::smem_u32(bar)) : "memory");
 }
 
-// Block b's bytes into dst (thread 0); an empty block only arrives, so
-// that every use of a buffer completes one phase of its barrier.
-__device__ __forceinline__ void issue(const uint8_t* raw, const int* raw_len,
-                                      int b, int bs, uint8_t* dst,
-                                      uint64_t* bar) {
-  const uint8_t* src = raw + (size_t)b * bs;
-  const int n = min(max(raw_len[b], 0), bs);
+// Bytes [lo, hi) of a row into dst from the row's address rounded down
+// to 16 (thread 0); none only arrives, so that every use of a buffer
+// completes one phase of its barrier. Returns the head (byte lo lies at
+// dst + head).
+__device__ __forceinline__ int stage(const uint8_t* row, int lo, int hi,
+                                     uint8_t* dst, uint64_t* bar) {
+  const uint8_t* src = row + lo;
   const int rhead = (int)((uintptr_t)src & 15);
-  const int total = n > 0 ? (rhead + n + 15) & ~15 : 0;
+  const int total = hi > lo ? (rhead + hi - lo + 15) & ~15 : 0;
   if (total)
     warp_parse::bulk_load(dst, src - rhead, (uint32_t)total, bar);
   else
     arrive(bar);
+  return rhead;
 }
 
-// The match step on queue entry e (hash << 16 | p) of each active lane.
+// Block b's bytes into dst (K2).
+__device__ __forceinline__ void issue(const uint8_t* raw, const int* raw_len,
+                                      int b, int bs, uint8_t* dst,
+                                      uint64_t* bar) {
+  stage(raw + (size_t)b * bs, 0, min(max(raw_len[b], 0), bs), dst, bar);
+}
+
+// The match step on queue entry e (hash << 16 | r, position origin + r)
+// of each active lane; with kEmit its candidate goes to out.
+template <bool kEmit>
 __device__ __forceinline__ void match_step(uint32_t e, bool act,
                                            uint16_t* table, int* out,
-                                           int lane) {
-  const int p = (int)(e & 0xffffu);
+                                           int origin, int lane) {
+  const int r = (int)(e & 0xffffu);
   const uint32_t h = e >> 16;
   const unsigned peers = __match_any_sync(kAll, act ? h : 0x10000u + lane);
   const unsigned lower = peers & ((1u << lane) - 1u);
   const unsigned higher = peers & ~((2u << lane) - 1u);
-  const int q = __shfl_sync(kAll, p, lower ? 31 - __clz(lower) : lane);
+  const int q = __shfl_sync(kAll, r, lower ? 31 - __clz(lower) : lane);
   int d = 0;
   if (act) {
     if (lower) {
-      d = p - q;
+      d = r - q;
     } else {
       const int t = table[h];
-      if (t) d = p - (t - 1);
+      if (t) d = r - (t - 1);
     }
   }
   __syncwarp();
-  if (act && !higher) table[h] = (uint16_t)(p + 1);
+  if (act && !higher) table[h] = (uint16_t)(r + 1);
   __syncwarp();
-  if (act) out[p] = d;
+  if (kEmit && act) out[origin + r] = d;
 }
 
-// One warp's buckets over one block: the scan, the queue, the steps.
-__device__ __forceinline__ void scan_block(Bytes s, int npos,
-                                           uint32_t* queue, uint16_t* table,
-                                           int* out, int warp, int lane) {
+// One warp's buckets over positions [p0, p1) (their read32 in s, at
+// most 65,536 past origin): the scan, the queue, the steps, and the last
+// partial step, so that the queue is empty after. The scan runs over r =
+// p - origin (the origin folded into the bytes' offset), so that a tile's
+// queue entry is hash << 16 | r with nothing to compute: the 16 tiles'
+// ballots and stores then interleave, predicated, where the origin's
+// arithmetic in each had made every store a branch of its own.
+template <bool kEmit>
+__device__ __forceinline__ void scan_range(Bytes s, int p0, int p1,
+                                           int origin, uint32_t* queue,
+                                           uint16_t* table, int* out,
+                                           int warp, int lane) {
   const unsigned lt = (1u << lane) - 1u;
+  const Bytes sr = {s.w, s.off + origin};
+  const int r1 = p1 - origin;
   int head = 0, tail = 0;
-  for (int base = 0; base < npos; base += 32 * kUnroll) {
+  for (int base = p0 - origin; base < r1; base += 32 * kUnroll) {
     uint32_t h[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; u++)
-      h[u] = hash16(s.rd32(base + 32 * u + lane));
+      h[u] = hash16(sr.rd32(base + 32 * u + lane));
 #pragma unroll
     for (int u = 0; u < kUnroll; u++) {
-      const int p = base + 32 * u + lane;
-      const bool mine = p < npos && (int)(h[u] & (kWarps - 1)) == warp;
+      const int r = base + 32 * u + lane;
+      const bool mine = r < r1 && (int)(h[u] & (kWarps - 1)) == warp;
       const unsigned m = __ballot_sync(kAll, mine);
       if (mine)
-        queue[(tail + __popc(m & lt)) & (kQueue - 1)] = h[u] << 16 | p;
+        queue[(tail + __popc(m & lt)) & (kQueue - 1)] = h[u] << 16 | r;
       tail += __popc(m);
     }
     while (tail - head >= 32) {
       __syncwarp();
-      match_step(queue[(head + lane) & (kQueue - 1)], true, table, out,
-                 lane);
+      match_step<kEmit>(queue[(head + lane) & (kQueue - 1)], true, table,
+                        out, origin, lane);
       head += 32;
     }
   }
   __syncwarp();
   if (tail > head)
-    match_step(queue[(head + lane) & (kQueue - 1)], lane < tail - head,
-               table, out, lane);
+    match_step<kEmit>(queue[(head + lane) & (kQueue - 1)], lane < tail - head,
+                      table, out, origin, lane);
 }
 
 __global__ void __launch_bounds__(32 * kWarps, 1)
@@ -206,7 +254,7 @@ __global__ void __launch_bounds__(32 * kWarps, 1)
     int* out = cand + (size_t)blk * bs;
     warp_parse::bar_wait(&bar[b], parity);
 
-    scan_block(s, npos, queue, table, out, warp, lane);
+    scan_range<true>(s, 0, npos, 0, queue, table, out, warp, lane);
     for (int p = max(npos, 0) + tid; p < bs; p += 32 * kWarps) out[p] = 0;
     if (next >= nb) break;
     __syncthreads();

@@ -1,14 +1,13 @@
-// The scalar parse shared by K8-seg and K10b (parse_seg.cuh, one segment
-// per thread) and K7 and K10c (parse_enc3.cuh, one block per thread).
-// K8-enc3's deep parse is a warp a block (parse_enc3_warp.cuh), K3's
-// greedy parse a warp a segment (parse_seg_warp.cuh).
+// The scalar parse of K10b (parse_seg.cuh, one segment per thread) and K7
+// and K10c (parse_enc3.cuh, one block per thread). K3's and K8-seg's
+// parses are a warp a segment (parse_seg_warp.cuh), K8-enc3's a warp a
+// block (parse_enc3_warp.cuh).
 //
 // It is the sequence loop of golden.compress_dense
 // (lz4_sgori_tpu/golden.py:1054-1129) over precomputed dense candidates,
 // restricted to one range of the block as golden.compress_dense_seg_parts
-// (golden.py:481-583) does. N is the number of candidates a probe weighs:
-// N = 1 is the greedy parse of K7 (and of K3's first design), and its
-// loop is the one they ran before the deep modes existed:
+// (golden.py:481-583) does, at one candidate a probe (the greedy parse of
+// K7, and of K3's first design):
 //   the search starts at max(s0, 1) with a fresh skip schedule per
 //   sequence and stops once a probe would pass mfl;
 //   a candidate d is used when 0 < d <= wlim, d <= pos and read32 agrees;
@@ -17,20 +16,10 @@
 //   with frag set, the first sequence is emitted headerless (its literal
 //   run belongs to the previous segment's owner header) and its match
 //   start and code are returned as p1 and m1.
-// N = 3 is the deep parse of K8-seg (compress_dense_seg_parts at depth
-// > 1, golden.py:455-518; golden.compress_deep, golden.py:873-1025, the
-// same probe):
-//   a probe at p weighs d1 = cand[p] and the chain d1 + g2, + g3 (from
-//   the gaps tape, g2 | g3 << 8); each link only while the previous ones
-//   exist; no candidate when d1 is 0 or past wlim;
-//   a candidate d is checked with m = p - d >= 0, d <= wlim and read32,
-//   then scored by a forward preview capped at min(mlim - p - 4, 64); the
-//   longest wins and the nearest wins ties (strict >). The matchlimit cap
-//   is the tie-break that went wrong once on the TPU: without it a far
-//   candidate previewing past mlim beats a nearer one tied at the cap;
-//   one-step lazy: when p + 1 <= mfl and p + 1's best preview is
-//   strictly longer, the match starts at p + 1 instead.
-// MLEN (N = 1 only) is the mlen mode (K10b, K10c): the loop reads the
+// The deep parse (the best of N chain candidates, one-step lazy
+// deferral) is the warp walks': parse_seg_warp.cuh at N = 3,
+// parse_enc3_warp.cuh at 3 and 5.
+// MLEN is the mlen mode (K10b, K10c): the loop reads the
 // verified candidates and match codes of mcode.cu (golden.dense_mcode)
 // instead of the bytes where it can, and gives the same stream:
 //   a probe hits when 0 < d <= wlim and d <= pos, with no read32: pass 1
@@ -64,51 +53,12 @@ struct ParseState {
   bool bad;        // the stream would pass cap
 };
 
-// The best of up to N chain candidates at p (see above): returns the
-// preview length, -1 for no candidate, and the match position in *mpos.
-template <int N>
-__device__ __forceinline__ int best_of(const uint8_t* __restrict__ src,
-                                       const int* __restrict__ cd,
-                                       const int* __restrict__ gp, int p,
-                                       int mlim, int wlim, int* mpos) {
-  const int d1 = cd[p];
-  if (d1 == 0 || d1 > wlim) return -1;
-  int ds[N];
-  int k = 1;
-  ds[0] = d1;
-  const int g = gp[p];
-  if (g & 255) {
-    ds[k] = ds[k - 1] + (g & 255);
-    k++;
-    if (g >> 8) {
-      ds[k] = ds[k - 1] + (g >> 8);
-      k++;
-    }
-  }
-  const uint32_t v = rd32(src, p);
-  const int cl = min(mlim - p - 4, 64);
-  int best = -1;
-  for (int i = 0; i < k; i++) {
-    const int m = p - ds[i];
-    if (m < 0 || ds[i] > wlim || rd32(src, m) != v) continue;
-    int mc = 0;
-    while (mc < cl && src[p + 4 + mc] == src[m + 4 + mc]) mc++;
-    if (mc > best) {
-      best = mc;
-      *mpos = m;
-    }
-  }
-  return best;
-}
-
-template <int N, bool MLEN = false>
+template <bool MLEN = false>
 __device__ __forceinline__ ParseState greedy_parse(
     const uint8_t* __restrict__ src, const int* __restrict__ cd,
-    const int* __restrict__ gp, const int* __restrict__ mcd,
+    const int* __restrict__ mcd,
     uint8_t* __restrict__ dst, int cap, int s0, int mfl, int mlim, bool frag,
     int wlim, int accel) {
-  static_assert(N == 1 || N == 3, "1 or 3 candidates");
-  static_assert(N == 1 || !MLEN, "the mlen mode is greedy only");
   ParseState st = {0, s0, 0, 0, 0, false, false};
   int pos = max(s0, 1);
 
@@ -127,23 +77,10 @@ __device__ __forceinline__ ParseState greedy_parse(
       fpos += step;
       step = smn >> 6;
       smn++;
-      if constexpr (N == 1) {
-        const int d = cd[pos];
-        if (d > 0 && d <= wlim && d <= pos &&
-            (MLEN || rd32(src, pos - d) == rd32(src, pos))) {
-          mpos = pos - d;
-          found = true;
-          break;
-        }
-      } else {
-        const int mca = best_of<N>(src, cd, gp, pos, mlim, wlim, &mpos);
-        if (mca < 0) continue;
-        int mb = 0;
-        if (pos + 1 <= mfl &&
-            best_of<N>(src, cd, gp, pos + 1, mlim, wlim, &mb) > mca) {
-          pos++;
-          mpos = mb;
-        }
+      const int d = cd[pos];
+      if (d > 0 && d <= wlim && d <= pos &&
+          (MLEN || rd32(src, pos - d) == rd32(src, pos))) {
+        mpos = pos - d;
         found = true;
         break;
       }

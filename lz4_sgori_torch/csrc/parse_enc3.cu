@@ -6,9 +6,9 @@
 // extension, header, literal and tail modes) with banded window walks and
 // a staging ring, because Mosaic has no per-lane scalar loop. Here each
 // block is one thread running the scalar loop of golden.compress_dense
-// (greedy_parse.cuh, shared with K3) and then the terminal literal run.
-// The kernel is parse_enc3.cuh's, at one candidate a probe (K8-enc3,
-// parse_enc3_deep.cu, runs it at three and five).
+// (greedy_parse.cuh, shared with K10b) and then the terminal literal run.
+// The kernel is parse_enc3.cuh's (K8-enc3, parse_enc3_deep.cu, walks a
+// block with a warp at three and five candidates a probe).
 //
 // Contract, per block of n = clamp(raw_len, 0, bs) bytes:
 // golden.compress_dense(block, acceleration, hashlog=16)

@@ -1,5 +1,5 @@
 // The whole-block greedy parse kernel of the enc3 engine, one thread per
-// block (greedy_parse.cuh at one candidate a probe): K7 (parse_enc3.cu),
+// block (greedy_parse.cuh): K7 (parse_enc3.cu),
 // and K10c (parse_enc3_mlen.cu) in the mlen mode with the mcode tape. See
 // parse_enc3.cu for the contract. K8-enc3's deep parse is a warp a block
 // (parse_enc3_warp.cuh).
@@ -27,10 +27,9 @@ __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
   const uint8_t* src = raw + (size_t)t * bs;
   uint8_t* dst = out + (size_t)t * slot;
   const int n = min(max(raw_len[t], 0), bs);
-  const ParseState st = greedy_parse<1, MLEN>(
-      src, cand + (size_t)t * bs, nullptr,
-      MLEN ? mcode + (size_t)t * bs : nullptr, dst, cap, 0, n - 12, n - 5,
-      false, 65535, accel);
+  const ParseState st = greedy_parse<MLEN>(
+      src, cand + (size_t)t * bs, MLEN ? mcode + (size_t)t * bs : nullptr,
+      dst, cap, 0, n - 12, n - 5, false, 65535, accel);
   int o = st.o;
   bool bad = st.bad;
   const int tpos = o;

@@ -10,8 +10,8 @@
 // Each probe weighs up to `depth` chain candidates, scores each by a
 // forward preview capped at min(n - 5 - p - 4, 64) (the matchlimit cap is
 // the tie-break the TPU once got wrong), keeps the nearest on a tie and
-// defers one step when p + 1 previews strictly longer (greedy_parse.cuh,
-// best_of<N>, whose one-thread walk K7 and K10c still run). Outputs are
+// defers one step when p + 1 previews strictly longer (golden.compress_deep's
+// best_at, the probe of K8-seg's warp walk too). Outputs are
 // K7's (parse_enc3.cu): the whole block with its terminal literal run,
 // its length, err, tails and nseq; the row must come in zeroed (the
 // wrapper's block_outputs), as an err row is not written.

@@ -1,9 +1,9 @@
 // The whole-block deep parse of K8-enc3 (parse_enc3_deep.cu), one warp a
 // block, the block resident in shared memory. It computes the serial
-// parse of greedy_parse.cuh at N = 3 and 5 candidates a probe (its loop
-// and best_of<N>, as the one-thread kernel ran it over the whole block,
-// then the terminal literal run), bit for bit, with the 32 lanes
-// splitting each step of the walk:
+// parse of golden.compress_deep at N = 3 and 5 candidates a probe (its
+// loop and best-of-N probe, best_at, as the first design's one-thread
+// kernel ran it over the whole block, then the terminal literal run), bit
+// for bit, with the 32 lanes splitting each step of the walk:
 //
 // - The block. Its n bytes go into shared memory by one cp.async.bulk
 //   (from the row's address rounded down to 16: raw byte i lies at rhead
@@ -20,7 +20,7 @@
 //   start, p_k = start + 1 + S(A + k - 1) - S(A) for k >= 1, and runs only
 //   if p_{k+1} <= mfl + 1. Lane j takes probe K0 + j of a round (the
 //   first round's offsets, the same for every sequence, computed once).
-//   A probe hits when one of its chain candidates passes best_of's
+//   A probe hits when one of its chain candidates passes best_at's
 //   checks (d1 in (0, wlim], each link while the gaps before it are
 //   non-zero, m >= 0, d <= wlim, read32 equal; every candidate's word is
 //   read and masked after, so the lanes do not diverge); the ballot's
@@ -205,7 +205,7 @@ struct Walk {
     return live;
   }
 
-  // best_of's check of candidate dd at p (v = read32 at p), without a
+  // best_at's check of candidate dd at p (v = read32 at p), without a
   // branch: the word is read at m clamped into [0, p], and the check
   // drops it where m < 0.
   __device__ __forceinline__ bool usable(int p, int dd, uint32_t v) const {
@@ -213,7 +213,7 @@ struct Walk {
     return (m >= 0) & (dd <= 65535) & (rd32(min(max(m, 0), p)) == v);
   }
 
-  // Whether some chain candidate at p passes best_of's checks: every
+  // Whether some chain candidate at p passes best_at's checks: every
   // candidate's word is read, live or not, so that the lanes do not
   // diverge.
   __device__ bool probe_hits(int p) const {

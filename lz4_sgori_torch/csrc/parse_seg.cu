@@ -7,8 +7,9 @@
 // Mosaic has no per-lane scalar loop. Here each segment runs the scalar
 // parse of golden.compress_dense_seg_parts
 // (lz4_sgori_tpu/golden.py:481-583) at depth 1, greedy_parse.cuh's loop at
-// one candidate a probe (K8-seg, parse_seg_deep.cu, and K10b,
-// parse_seg_mlen.cu, still run it a thread a segment, parse_seg.cuh).
+// one candidate a probe (K8-seg, parse_seg_deep.cu, runs the same warp
+// walk at three; K10b, parse_seg_mlen.cu, still runs it a thread a
+// segment, parse_seg.cuh).
 //
 // Per segment k of block b (global byte coordinates):
 //   s0 = k*seg, s1 = s0 + clamp(n - s0, 0, seg),
@@ -44,7 +45,7 @@ extern "C" int lz4t_parse_seg(const void* raw, const void* cand,
                               void* serr, void* last_end, void* nseq,
                               void* p1, void* m1h, int nb, int bs, int seg,
                               int scap, int wlim, int accel, void* stream) {
-  return launch_parse_seg_warp(raw, cand, raw_len, streams, slen, serr,
-                               last_end, nseq, p1, m1h, nb, bs, seg, scap,
-                               wlim, accel, stream);
+  return launch_parse_seg_warp<1>(raw, cand, nullptr, raw_len, streams,
+                                  slen, serr, last_end, nseq, p1, m1h, nb,
+                                  bs, seg, scap, wlim, accel, stream);
 }

@@ -1,8 +1,8 @@
-// The segment-parallel parse kernel, one thread per segment, for N
-// candidates a probe (greedy_parse.cuh): K8-seg (parse_seg_deep.cu)
-// launches N = 3 with the gaps tape, K10b (parse_seg_mlen.cu) N = 1 in the
-// mlen mode with the mcode tape. K3 (parse_seg.cu) walks a segment with a
-// warp (parse_seg_warp.cuh). See parse_seg.cu for the contract.
+// The segment-parallel parse kernel of the mlen mode (K10b,
+// parse_seg_mlen.cu), one thread per segment (greedy_parse.cuh, MLEN, over
+// the mcode tape). K3 and K8-seg (parse_seg.cu, parse_seg_deep.cu) walk a
+// segment with a warp (parse_seg_warp.cuh). See parse_seg.cu for the
+// contract.
 
 #pragma once
 
@@ -11,11 +11,9 @@
 
 #include "greedy_parse.cuh"
 
-template <int N, bool MLEN>
 __global__ void parse_seg_kernel(
     const uint8_t* __restrict__ raw, const int* __restrict__ cand,
-    const int* __restrict__ gaps, const int* __restrict__ mcode,
-    const int* __restrict__ raw_len,
+    const int* __restrict__ mcode, const int* __restrict__ raw_len,
     uint8_t* __restrict__ streams, int* __restrict__ slen,
     int* __restrict__ serr, int* __restrict__ last_end,
     int* __restrict__ nseq, int* __restrict__ p1_out,
@@ -29,11 +27,10 @@ __global__ void parse_seg_kernel(
   const int n = min(max(raw_len[blk], 0), bs);
   const int s0 = k * seg;
   const int s1 = s0 + min(max(n - s0, 0), seg);
-  const ParseState st = greedy_parse<N, MLEN>(
+  const ParseState st = greedy_parse<true>(
       raw + (size_t)blk * bs, cand + (size_t)blk * bs,
-      N > 1 ? gaps + (size_t)blk * bs : nullptr,
-      MLEN ? mcode + (size_t)blk * bs : nullptr, streams + (size_t)t * scap,
-      scap, s0, min(s1 - 4, n - 12), min(s1, n - 5), k > 0, wlim, accel);
+      mcode + (size_t)blk * bs, streams + (size_t)t * scap, scap, s0,
+      min(s1 - 4, n - 12), min(s1, n - 5), k > 0, wlim, accel);
   slen[t] = st.o;
   serr[t] = st.bad ? 1 : 0;
   last_end[t] = st.anchor;
@@ -42,21 +39,21 @@ __global__ void parse_seg_kernel(
   m1h_out[t] = st.m1 | (st.has_match ? 1 << 16 : 0);
 }
 
-template <int N, bool MLEN = false>
-int launch_parse_seg(const void* raw, const void* cand, const void* gaps,
-                     const void* mcode, const void* raw_len, void* streams,
-                     void* slen, void* serr, void* last_end, void* nseq,
-                     void* p1, void* m1h, int nb, int bs, int seg, int scap,
-                     int wlim, int accel, void* stream) {
+inline int launch_parse_seg(const void* raw, const void* cand,
+                            const void* mcode, const void* raw_len,
+                            void* streams, void* slen, void* serr,
+                            void* last_end, void* nseq, void* p1, void* m1h,
+                            int nb, int bs, int seg, int scap, int wlim,
+                            int accel, void* stream) {
   const int total = nb * (bs / seg);
   if (total > 0) {
     const int threads = 64;
-    parse_seg_kernel<N, MLEN><<<(total + threads - 1) / threads, threads, 0,
-                                (cudaStream_t)stream>>>(
-        (const uint8_t*)raw, (const int*)cand, (const int*)gaps,
-        (const int*)mcode, (const int*)raw_len, (uint8_t*)streams,
-        (int*)slen, (int*)serr, (int*)last_end, (int*)nseq, (int*)p1,
-        (int*)m1h, nb, bs, seg, scap, wlim, accel);
+    parse_seg_kernel<<<(total + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(
+        (const uint8_t*)raw, (const int*)cand, (const int*)mcode,
+        (const int*)raw_len, (uint8_t*)streams, (int*)slen, (int*)serr,
+        (int*)last_end, (int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap,
+        wlim, accel);
   }
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,7 @@ extern "C" int lz4t_parse_seg_mlen(const void* raw, const void* cand_v,
                                    void* m1h, int nb, int bs, int seg,
                                    int scap, int wlim, int accel,
                                    void* stream) {
-  return launch_parse_seg<1, true>(raw, cand_v, nullptr, mcode, raw_len,
-                                   streams, slen, serr, last_end, nseq, p1,
-                                   m1h, nb, bs, seg, scap, wlim, accel,
-                                   stream);
+  return launch_parse_seg(raw, cand_v, mcode, raw_len, streams, slen, serr,
+                          last_end, nseq, p1, m1h, nb, bs, seg, scap, wlim,
+                          accel, stream);
 }

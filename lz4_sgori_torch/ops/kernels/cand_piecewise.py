@@ -15,6 +15,16 @@ piece pass and the half-shifted straddle pass of the TPU engine, merged
 nearer-first, in one window per position (``csrc/cand_piecewise.cu``).
 ``piece`` is 65,536 on the engine's path; tests pass smaller pieces to
 cross many boundaries on small inputs.
+
+The CUDA kernel (``csrc/cand_part.cuh``, K2's split table) gives a CTA a
+run of consecutive half-pieces of one block: each half-piece's bytes are
+staged in shared memory by a bulk copy, every position of the run (and
+of the half-piece before it) is hashed once, and a sweep at each
+half-piece boundary rebases the table and empties it below the next
+window's floor. The run length comes from the grid's waves on the card
+(``run_length``): a CTA a 1 MiB block over 128 MiB, a CTA a half-piece
+for a single request. A card that refuses the shared memory fails the
+launch, which raises.
 """
 
 from __future__ import annotations
@@ -26,11 +36,23 @@ from .cand import bucket_offsets, check_cand_args, read32_words
 
 launches = 0
 PIECE = 65536
+ENTRIES = {"lz4t_cand_piecewise": "pppiiip"}   # the launch's C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/cand_piecewise.cu."""
-    return _build.load("cand_piecewise", {"lz4t_cand_piecewise": "pppiiip"})
+    return _build.load("cand_piecewise",
+                       {**ENTRIES, "lz4t_cand_piecewise_run": "iii"})
+
+
+def run_length(nb: int, bs: int, piece: int = PIECE) -> int:
+    """The half-pieces a CTA walks in a launch over ``nb`` blocks of
+    ``bs`` bytes on this card (``cand_part::Runs``)."""
+    _check_piece(piece)
+    r = load_kernel().lz4t_cand_piecewise_run(nb, bs, piece // 2)
+    if r < 1:
+        _build.check(-r or 1, "cand_piecewise_run")
+    return r
 
 
 def _check_piece(piece: int) -> None:

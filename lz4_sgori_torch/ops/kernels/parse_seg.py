@@ -167,7 +167,7 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
 
     def best_of(idx, p):
         """(best preview, match position) of the chain candidates at p,
-        -1 for none (greedy_parse.cuh, best_of)."""
+        -1 for none (golden.compress_dense_seg_parts' preview)."""
         at = base[idx] + p
         d1 = candf[at]
         g = gapsf[at]

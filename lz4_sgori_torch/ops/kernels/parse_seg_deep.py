@@ -11,6 +11,13 @@ Contract: per segment, ``golden.compress_dense_seg_parts(..., depth=3)``
 the gaps tape of ``gaps.chain_gaps``, with K3's outputs
 (``parse_seg.py``): streams, slen, err, last_end, nseq, p1, m1h. The seg
 engines run every depth above 1 at three candidates a probe.
+
+The CUDA kernel is K3's warp walk at three candidates a probe
+(``csrc/parse_seg_warp.cuh``, N = 3): a warp a segment over bytes copied
+into shared memory once a CTA, 32 probes a round with every chain
+candidate's checks, the hit's and the lazy step's candidates previewed
+together (two lanes a candidate, 32 bytes a lane, K8-enc3's), the
+extension going on from the winner's preview.
 """
 
 from __future__ import annotations
@@ -23,12 +30,12 @@ from .parse_seg import (check_parse_args, check_seg, parse_segments_plain,
                         segment_outputs, window_limit)
 
 launches = 0
+ENTRIES = {"lz4t_parse_seg_deep": "pppppppppppiiiiiip"}  # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_seg_deep.cu."""
-    return _build.load("parse_seg_deep",
-                       {"lz4t_parse_seg_deep": "pppppppppppiiiiiip"})
+    return _build.load("parse_seg_deep", ENTRIES)
 
 
 def parse_segments_deep(raw: torch.Tensor, cand: torch.Tensor,

@@ -1,31 +1,40 @@
-"""What sets the pace of K2's candidates (``csrc/cand.cu``) and K3's
-segment parse (``csrc/parse_seg.cu``) on the card, on the main paths'
+"""What sets the pace of the split-table candidates, K2
+(``csrc/cand.cu``) and K9 (``csrc/cand_piecewise.cu``), and of the warp
+segment parses, K3 (``csrc/parse_seg.cu``) and K8-seg
+(``csrc/parse_seg_deep.cu``, depth 3), on the card, on the main paths'
 cells (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks,
 seed 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of
 64 KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55,
-K9's tape, seg 8192; and one block of each size):
+K9's tape, seg 8192; one block of each size, one of 4 MiB at seg
+32768, and config 1's bytes in 1 MiB blocks):
 
-- each kernel's time a call (CUDA events), the sequences K3 finds a
-  segment (its ``nseq``) and each cell's encode kernel path;
+- each kernel's time a call (CUDA events), K9's run length, the
+  sequences K3 and K8-seg find a segment (their ``nseq``) and each cell's
+  encode kernel path (depth 3 too where K8-seg runs);
 - ``--profile``: clock64 breakdowns from instrumented copies of this
   tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
   in the table steps, its steps a warp, the wait for the bytes and the
-  clear; K3's cycles a sequence in the search, the catch-up, the
-  extension and the emission, its rounds a sequence, and its busiest
+  clear; K9's the same a half-piece, with the wait for the other warps
+  and the boundary's barriers and sweep; K3's and K8-seg's cycles a
+  sequence in the search, the previews (K8-seg), the catch-up, the
+  extension and the emission, their rounds a sequence, and the busiest
   warp), and of the first K2 design's one-warp step (``FIRST_STEP``:
   cycles a 32-position step in the loads and hash, the match, the table
   read, the table write and the store);
-- ``--variants NAME ...``: builds of the two sources with other settings
+- ``--variants NAME ...``: builds of the sources with other settings
   (``VARIANTS``: other warps or tiles a round in ``cand_part.cuh``, other
-  segments a CTA or bytes held before them in ``parse_seg_warp.cuh``), each
-  timed in turns with this tree's build (this, variant, variant, this)
-  and its outputs held equal to it;
-- ``--parent DIR``: the same for DIR's ``cand.cu`` and ``parse_seg.cu``
-  (a ``git archive`` of an earlier commit);
+  segments a CTA or bytes held before them in ``parse_seg_warp.cuh``, for
+  K3's source or K8-seg's, K8-seg's probe reading its three candidates
+  together, K9 a window a CTA), each timed in turns with this tree's
+  build (this, variant, variant, this) and its outputs held equal to it;
+- ``--parent DIR``: the same for DIR's four sources (a ``git archive`` of
+  an earlier commit);
 - ``--store ROUNDS`` (with ``--parent``): the median latency of
   ``STORE_REQUESTS`` sequential 4 KiB ``ProxyStore`` writes of config 1's
-  bytes with this tree's K2 and with DIR's, in turns (this, parent,
-  parent, this) ROUNDS times.
+  bytes with this tree's K2 and with DIR's, and of ``BIG_STORES``' fio
+  shapes (32 writes of 1 MiB, 8 of 4 MiB, config 6's bytes) with this
+  tree's K9 and DIR's, each in turns (this, parent, parent, this) ROUNDS
+  times.
 
     python -m lz4_sgori_torch.probes.encode_pace [--profile]
         [--variants NAME ...] [--parent DIR [--store ROUNDS]]
@@ -47,17 +56,22 @@ from ..ops.encode import compress_blocks_device
 from ..ops.kernels import _build
 from ..ops.kernels import cand as K2
 from ..ops.kernels import cand_piecewise as K9
+from ..ops.kernels import gaps as G
 from ..ops.kernels import parse_seg as K3
+from ..ops.kernels import parse_seg_deep as K8S
 from . import device_name, parser, seconds
 
 CALLS = 5             # calls in a timing
 STORE_REQUESTS = 1024  # 4 KiB writes a store timing
-MODS = {"cand": K2, "parse_seg": K3}
+BIG_STORES = ((1 << 20, 32), (4 << 20, 8))   # fio test_1m, test_4m
+MODS = {"cand": K2, "parse_seg": K3, "cand_piecewise": K9,
+        "parse_seg_deep": K8S}
 
 # variants: the source they build, the header they change and its
 # (text, replacement) pairs, each text found in the header
 _CAND = ("cand", "cand_part.cuh")
 _SEG = ("parse_seg", "parse_seg_warp.cuh")
+_DEEP = ("parse_seg_deep", "parse_seg_warp.cuh")
 _W = "constexpr int kWarps = 8;"
 _U = "constexpr int kUnroll = 16;"
 _G = "constexpr int kGroup = 2;"
@@ -75,6 +89,30 @@ VARIANTS = {
                                (_B, _B.replace("0", "65536"))]),
     "seg_b4096": (*_SEG, [(_B, _B.replace("0", "4096"))]),
     "seg_b8192": (*_SEG, [(_B, _B.replace("0", "8192"))]),
+    "deep_g1": (*_DEEP, [(_G, _G.replace("2", "1"))]),
+    "deep_b4096": (*_DEEP, [(_B, _B.replace("0", "4096"))]),
+    "deep_b8192": (*_DEEP, [(_B, _B.replace("0", "8192"))]),
+    # a probe's three candidates' words read together, not until one
+    # passes
+    "deep_probe_batched": (*_DEEP, [(
+        """      bool hit = false;
+#pragma unroll
+      for (int i = 0; i < 3; i++)
+        hit = hit || (((live >> i) & 1) && ds[i] <= p && ds[i] <= wlim &&
+                      rd32m(p - ds[i]) == v);
+      return hit;""",
+        """      uint32_t w[3];
+#pragma unroll
+      for (int i = 0; i < 3; i++) {
+        const bool ok = ((live >> i) & 1) && ds[i] <= p && ds[i] <= wlim;
+        w[i] = ok ? rd32m(p - ds[i]) : ~v;
+      }
+      return (w[0] == v) | (w[1] == v) | (w[2] == v);""")]),
+    # K9 a window a CTA (runs of one half-piece, its warm half before it)
+    "k9_r1": ("cand_piecewise", "cand_piecewise.cu", [(
+        "  const Runs R(nb, bs, half, sms);\n",
+        "  Runs R(nb, bs, half, sms);\n  R.len = 1;\n"
+        "  R.per_block = R.nhalf;\n  R.ctas = nb * R.nhalf;\n")]),
 }
 
 CLK = """
@@ -90,23 +128,23 @@ __device__ __forceinline__ long long clk(long long dep) {
 PROFILE = {
     "cand_part.cuh": [
         ("namespace cand_part {", "namespace cand_part {\n" + CLK),
-        ("int* out, int warp, int lane) {",
-         "int* out, int warp, int lane, long long* acc) {"),
-        ("      match_step(queue[(head + lane) & (kQueue - 1)], true, "
-         "table, out,\n                 lane);",
+        ("int warp, int lane) {", "int warp, int lane, long long* acc) {"),
+        ("      match_step<kEmit>(queue[(head + lane) & (kQueue - 1)], true, "
+         "table,\n                        out, origin, lane);",
          "      const long long t0 = clk(tail);\n"
-         "      match_step(queue[(head + lane) & (kQueue - 1)], true, "
-         "table, out,\n                 lane);\n"
+         "      match_step<kEmit>(queue[(head + lane) & (kQueue - 1)], true, "
+         "table,\n                        out, origin, lane);\n"
          "      acc[1] += clk(head) - t0;\n      acc[2]++;"),
         ("int* __restrict__ cand, int nb, int bs) {",
          "int* __restrict__ cand, int nb, int bs, long long* prof) {\n"
          "  long long acc[6] = {0, 0, 0, 0, 0, 0};"),
         ("    warp_parse::bar_wait(&bar[b], parity);\n\n"
-         "    scan_block(s, npos, queue, table, out, warp, lane);",
+         "    scan_range<true>(s, 0, npos, 0, queue, table, out, warp, lane);",
          "    long long tw = clk(npos);\n"
          "    warp_parse::bar_wait(&bar[b], parity);\n"
          "    long long ts = clk(tw);\n    acc[3] += ts - tw;\n"
-         "    scan_block(s, npos, queue, table, out, warp, lane, acc);\n"
+         "    scan_range<true>(s, 0, npos, 0, queue, table, out, warp, lane,\n"
+         "                     acc);\n"
          "    acc[0] += clk(acc[1]) - ts;\n    acc[4]++;"),
         ("    if (next >= nb) break;",
          "    if (next >= nb) break;\n    long long tc = clk(next);"),
@@ -126,6 +164,41 @@ PROFILE = {
          "int nb, int bs, void* prof, void* stream) {"),
         ("(int*)cand, nb, bs);", "(int*)cand, nb, bs, (long long*)prof);"),
     ],
+    "cand_piecewise.cu": [
+        ('#include "cand_part.cuh"', '#include "cand_part_prof.cuh"'),
+        ("int len, int per_block) {",
+         "int len, int per_block, long long* prof) {\n"
+         "  long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};"),
+        ("    warp_parse::bar_wait(&bar[b], (it >> 1) & 1);",
+         "    long long tw = clk(it);\n"
+         "    warp_parse::bar_wait(&bar[b], (it >> 1) & 1);\n"
+         "    long long ts = clk(tw);\n    acc[3] += ts - tw;"),
+        ("origin, queue, table,\n                        out, warp, lane);",
+         "origin, queue, table,\n                        out, warp, lane, "
+         "acc);"),
+        ("origin, queue, table,\n                       out, warp, lane);",
+         "origin, queue, table,\n                       out, warp, lane, "
+         "acc);"),
+        ("    if (h + 1 == he) break;",
+         "    const long long te = clk(acc[1]);\n    acc[0] += te - ts;\n"
+         "    acc[4]++;\n    if (h + 1 == he) break;"),
+        ("    __syncthreads();            // the table and this buffer are "
+         "done with",
+         "    __syncthreads();            // the table and this buffer are "
+         "done with\n    acc[6] += clk(hb) - te;"),
+        ("    __syncthreads();\n  }\n}\n\n}  // namespace cand_part",
+         "    __syncthreads();\n    acc[5] += clk(hb) - te;\n  }\n"
+         "  if (lane == 0)\n    for (int i = 0; i < 8; i++)\n"
+         "      prof[((size_t)blockIdx.x * kWarps + warp) * 8 + i] = acc[i];"
+         "\n}\n\n}  // namespace cand_part"),
+        ("lz4t_cand_piecewise(", "lz4t_cand_piecewise_prof("),
+        ("                                   void* stream) {\n"
+         "  using namespace cand_part;",
+         "                                   void* prof, void* stream) {\n"
+         "  using namespace cand_part;"),
+        ("        R.len, R.per_block);",
+         "        R.len, R.per_block, (long long*)prof);"),
+    ],
     "parse_seg_warp.cuh": [
         ("namespace seg_warp {", "namespace seg_warp {\n" + CLK),
         ("int* m1h_out) const {", "int* m1h_out, long long* acc) const {"),
@@ -133,15 +206,19 @@ PROFILE = {
          "      const int start = pos;",
          "      // ---- the search, 32 probes a round ----\n"
          "      long long t0 = clk(pos);\n      const int start = pos;"),
-        ("        const bool hit = valid && probe_hits((int)pk, dd);",
+        ("        const bool hit = valid && probe_hits((int)pk, dd, gg);",
          "        acc[6]++;\n"
-         "        const bool hit = valid && probe_hits((int)pk, dd);"),
-        ("      if (hp < 0) break;\n      int pos1 = hp,",
+         "        const bool hit = valid && probe_hits((int)pk, dd, gg);"),
+        ("      if (hp < 0) break;\n",
          "      long long t1 = clk(hp);\n      acc[0] += t1 - t0;\n"
-         "      if (hp < 0) break;\n      int pos1 = hp,"),
+         "      if (hp < 0) break;\n"),
+        ("      // ---- catch-up, 32 bytes a step, capped at the anchor ----",
+         "      long long tq = clk(pos1 + mpos + pmc);\n"
+         "      acc[7] += tq - t1;\n"
+         "      // ---- catch-up, 32 bytes a step, capped at the anchor ----"),
         ("      // ---- forward extension, 128 bytes a step, capped at "
          "mlim ----",
-         "      long long t2 = clk(pos1 + mpos);\n      acc[1] += t2 - t1;\n"
+         "      long long t2 = clk(pos1 + mpos);\n      acc[1] += t2 - tq;\n"
          "      // ---- forward extension, 128 bytes a step, capped at "
          "mlim ----"),
         ("      mc = min(mc, lim);\n",
@@ -161,12 +238,10 @@ PROFILE = {
          "&ns, &p1, &m1h, acc);\n  if (lane == 0)\n"
          "    for (int i = 0; i < 8; i++)\n"
          "      prof[(size_t)(R.b * nseg + k) * 8 + i] = acc[i];"),
-        ("(int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap, wlim, "
-         "accel);",
-         "(int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap, wlim, "
-         "accel,\n        (long long*)prof);"),
-        ("int accel, void* stream) {\n  using namespace seg_warp;",
-         "int accel, void* prof, void* stream) {\n"
+        ("        wlim, accel);", "        wlim, accel, (long long*)prof);"),
+        ("                                 void* stream) {\n"
+         "  using namespace seg_warp;",
+         "                                 void* prof, void* stream) {\n"
          "  using namespace seg_warp;"),
     ],
     "parse_seg.cu": [
@@ -177,10 +252,18 @@ PROFILE = {
          "int wlim, int accel, void* prof, void* stream) {"),
         ("wlim, accel, stream);", "wlim, accel, prof, stream);"),
     ],
+    "parse_seg_deep.cu": [
+        ('#include "parse_seg_warp.cuh"',
+         '#include "parse_seg_warp_prof.cuh"'),
+        ("lz4t_parse_seg_deep(", "lz4t_parse_seg_deep_prof("),
+        ("void* stream) {", "void* prof, void* stream) {"),
+        ("wlim, accel, stream);", "wlim, accel, prof, stream);"),
+    ],
 }
 
-# the first K2 design's warp step (hash_cand.cuh as cand.cu ran it, a
-# warp a block from global memory), lane 0's cycles a part summed
+# the first K2 design's warp step (as cand.cu ran it before the split
+# table, a warp a block from global memory), lane 0's cycles a part
+# summed
 FIRST_STEP = CLK + r"""
 #include <stdint.h>
 __global__ void first_step(const uint8_t* __restrict__ raw,
@@ -352,12 +435,22 @@ def same_segments(a, b) -> bool:
 
 
 def cells(dev):
-    """name -> (raw, rlen, cand, seg or None) on ``dev``."""
+    """name -> (raw, rlen, cand, seg or None, gaps or None) on ``dev``:
+    the gaps (links 2, K9's with its floor) where K8-seg runs."""
     from __graft_entry__ import _synth_corpus
 
     def corpus(nbytes, seed, bs):
         r, n = split_blocks(_synth_corpus(nbytes, seed=seed), bs)
         return torch.from_numpy(r).to(dev), torch.from_numpy(n).to(dev)
+
+    def cell(r, n, seg):
+        big = r.shape[1] > 65536
+        c = (K9.dense_candidates_piecewise(r, n) if big
+             else K2.dense_candidates(r, n))
+        g = None
+        if seg is not None:
+            g, _ = G.chain_gaps(c, 2, K9.PIECE // 2 if big else 0)
+        return r, n, c, seg, g
     out = {}
     for name, nbytes, seed, bs, seg in (
             ("config 1", 32 << 20, 42, 65536, 4096),
@@ -365,13 +458,17 @@ def cells(dev):
             ("config 5", 128 << 20, 1234, 65536, 4096),
             ("config 6", 128 << 20, 55, 1 << 20, 8192)):
         r, n = corpus(nbytes, seed, bs)
-        c = (K9.dense_candidates_piecewise(r, n) if bs > 65536
-             else K2.dense_candidates(r, n))
-        out[name] = (r, n, c, seg)
+        out[name] = cell(r, n, seg)
         if name != "config 5":
-            out[f"one block of {bs}"] = (r[:1].contiguous(),
-                                         n[:1].contiguous(),
-                                         c[:1].contiguous(), seg)
+            out[f"one block of {bs}"] = cell(r[:1].contiguous(),
+                                             n[:1].contiguous(), seg)
+    r, n = out["config 6"][:2]
+    out[f"one block of {4 << 20}"] = cell(
+        r[:4].reshape(1, 4 << 20), n[:4].sum().reshape(1).int(), 32768)
+    # config 1's bytes in 1 MiB blocks: K9 on the bytes K2 profiles
+    r, n = out["config 1"][:2]
+    out["config 1 in blocks of 1048576"] = cell(
+        r.reshape(-1, 1 << 20), n.reshape(-1, 16).sum(1).int(), 8192)
     return out
 
 
@@ -408,8 +505,8 @@ def profile(cs, dev, stream) -> None:
               f"equal {torch.equal(out, K2.dense_candidates(r, n))}",
               flush=True)
     texts = {f: _read(os.path.join(_build.CSRC, f)) for f in
-             ("cand.cu", "cand_part.cuh", "parse_seg.cu",
-              "parse_seg_warp.cuh")}
+             ("cand.cu", "cand_part.cuh", "cand_piecewise.cu", "parse_seg.cu",
+              "parse_seg_deep.cu", "parse_seg_warp.cuh")}
     k2 = _load("cand_prof", {
         "cand.cu": instrumented("cand.cu", texts["cand.cu"]),
         "cand_part_prof.cuh": instrumented("cand_part.cuh",
@@ -418,7 +515,7 @@ def profile(cs, dev, stream) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     w = int(re.search(r"constexpr int kWarps = (\d+);",
                       texts["cand_part.cuh"])[1])      # the CTA's warps
-    for name, (r, n, _, _) in cs.items():
+    for name, (r, n, _, _, _) in cs.items():
         if r.shape[1] > 65536:
             continue
         nb, bs = r.shape
@@ -442,41 +539,86 @@ def profile(cs, dev, stream) -> None:
               f"{float(step.sum() / nst.sum().clamp(min=1)):.0f} cycles a "
               f"step; the wait {float(per[..., 3].mean()):.0f}; the clear "
               f"{float(per[..., 5].mean()):.0f}", flush=True)
-    k3 = _load("parse_seg_prof", {
-        "parse_seg.cu": instrumented("parse_seg.cu", texts["parse_seg.cu"]),
-        "parse_seg_warp_prof.cuh": instrumented(
-            "parse_seg_warp.cuh", texts["parse_seg_warp.cuh"])},
-        "parse_seg.cu", {"lz4t_parse_seg_prof": "ppppppppppiiiiiipp"})
-    for name, (r, n, c, seg) in cs.items():
-        if seg is None:
-            continue
+    k9 = _load("cand_piecewise_prof", {
+        "cand_piecewise.cu": instrumented("cand_piecewise.cu",
+                                          texts["cand_piecewise.cu"]),
+        "cand_part_prof.cuh": instrumented("cand_part.cuh",
+                                           texts["cand_part.cuh"])},
+        "cand_piecewise.cu", {"lz4t_cand_piecewise_prof": "pppiiipp"})
+    for name, (r, n, _, _, _) in cs.items():
         nb, bs = r.shape
-        ns = nb * (bs // seg)
-        outs = K3.segment_outputs(ns, seg, dev)
-        pr = torch.zeros((ns, 8), dtype=torch.int64, device=dev)
-        _build.check(k3.lz4t_parse_seg_prof(
-            r.data_ptr(), c.data_ptr(), n.data_ptr(),
-            *(t.data_ptr() for t in outs), nb, bs, seg,
-            F.compress_bound(seg), K3.window_limit(65536), 1,
-            pr.data_ptr(), stream), "parse_seg_prof")
+        if bs <= 65536:
+            continue
+        half = K9.PIECE // 2
+        nhalf = -(-bs // half)
+        ctas = nb * -(-nhalf // K9.run_length(nb, bs))
+        out = torch.empty((nb, bs), dtype=torch.int32, device=dev)
+        pr = torch.zeros((ctas, w, 8), dtype=torch.int64, device=dev)
+        _build.check(k9.lz4t_cand_piecewise_prof(
+            r.data_ptr(), n.data_ptr(), out.data_ptr(), nb, bs, half,
+            pr.data_ptr(), stream), "cand_piecewise_prof")
         torch.cuda.synchronize(dev)
-        tot = pr.double().sum(0)
-        nq = tot[4].clamp(min=1)
-        busy = pr[:, :4].double().sum(1)
-        print(f"K3 {name} ({ns} segments, equal "
-              f"{same_segments(outs, K3.parse_segments(r, c, n, seg=seg))})"
-              f": cycles a sequence: search {float(tot[0] / nq):.0f} "
-              f"({float(tot[6] / nq):.2f} rounds), catch-up "
-              f"{float(tot[1] / nq):.0f}, extension {float(tot[2] / nq):.0f}"
-              f", emission {float(tot[3] / nq):.0f}; the wait for the bytes "
-              f"{float(tot[5] / ns):.0f} a warp; the busiest warp "
-              f"{float(busy.max()):.0f} cycles ({int(pr[busy.argmax(), 4])} "
-              f"sequences), the mean {float(busy.mean()):.0f}", flush=True)
+        per = pr.double() / pr[:, :1, 4:5].double().clamp(min=1)
+        scan, step, nst = per[..., 0], per[..., 1], per[..., 2]
+        print(f"K9 {name} ({ctas} CTAs, {w} warps, runs of "
+              f"{K9.run_length(nb, bs)}, equal "
+              f"{torch.equal(out, K9.dense_candidates_piecewise(r, n))}): a "
+              f"half-piece, cycles a warp: scan and steps "
+              f"{float(scan.mean()):.0f} (busiest warp "
+              f"{float(scan.max(1).values.mean()):.0f}), of which the steps "
+              f"{float(step.mean()):.0f} (busiest "
+              f"{float(step.max(1).values.mean()):.0f}); steps "
+              f"{float(nst.mean()):.1f} (busiest "
+              f"{float(nst.max(1).values.mean()):.1f}); the wait for the "
+              f"bytes {float(per[..., 3].mean()):.0f}; the wait for the "
+              f"other warps {float(per[..., 6].mean()):.0f}; the boundary "
+              f"(barriers and sweep) {float(per[..., 5].mean()):.0f}",
+              flush=True)
+    warp_prof = instrumented("parse_seg_warp.cuh",
+                             texts["parse_seg_warp.cuh"])
+    for src, key in (("parse_seg", "K3"), ("parse_seg_deep", "K8-seg")):
+        lib = _load(f"{src}_prof", {
+            f"{src}.cu": instrumented(f"{src}.cu", texts[f"{src}.cu"]),
+            "parse_seg_warp_prof.cuh": warp_prof}, f"{src}.cu",
+            {f"lz4t_{src}_prof": ("p" if src == "parse_seg_deep" else "")
+             + "ppppppppppiiiiiipp"})
+        deep = src == "parse_seg_deep"
+        for name, (r, n, c, seg, g) in cs.items():
+            if seg is None or (deep and g is None):
+                continue
+            nb, bs = r.shape
+            ns = nb * (bs // seg)
+            outs = K3.segment_outputs(ns, seg, dev)
+            pr = torch.zeros((ns, 8), dtype=torch.int64, device=dev)
+            tapes = (c, g) if deep else (c,)
+            _build.check(getattr(lib, f"lz4t_{src}_prof")(
+                r.data_ptr(), *(t.data_ptr() for t in tapes), n.data_ptr(),
+                *(t.data_ptr() for t in outs), nb, bs, seg,
+                F.compress_bound(seg), K3.window_limit(65536), 1,
+                pr.data_ptr(), stream), f"{src}_prof")
+            torch.cuda.synchronize(dev)
+            want = (K8S.parse_segments_deep(r, c, g, n, seg=seg) if deep
+                    else K3.parse_segments(r, c, n, seg=seg))
+            tot = pr.double().sum(0)
+            nq = tot[4].clamp(min=1)
+            busy = pr[:, :4].double().sum(1) + pr[:, 7].double()
+            print(f"{key} {name} ({ns} segments, equal "
+                  f"{same_segments(outs, want)}): cycles a sequence: search "
+                  f"{float(tot[0] / nq):.0f} ({float(tot[6] / nq):.2f} "
+                  f"rounds), previews {float(tot[7] / nq):.0f}, catch-up "
+                  f"{float(tot[1] / nq):.0f}, extension "
+                  f"{float(tot[2] / nq):.0f}, emission "
+                  f"{float(tot[3] / nq):.0f}; the wait for the bytes "
+                  f"{float(tot[5] / ns):.0f} a warp; the busiest warp "
+                  f"{float(busy.max()):.0f} cycles "
+                  f"({int(pr[busy.argmax(), 4])} sequences), the mean "
+                  f"{float(busy.mean()):.0f}", flush=True)
 
 
-def store_median(data: bytes, dev) -> float:
-    """Milliseconds, the median of ``STORE_REQUESTS`` sequential 4 KiB
-    ``ProxyStore`` writes of ``data``."""
+def store_median(data: bytes, dev, chunk: int = 4096,
+                 nreq: int = STORE_REQUESTS) -> float:
+    """Milliseconds, the median of ``nreq`` sequential ``ProxyStore``
+    writes of ``chunk`` bytes of ``data``."""
     import tempfile
     import time
 
@@ -485,14 +627,37 @@ def store_median(data: bytes, dev) -> float:
     from ..store import ProxyStore
     lat = []
     with tempfile.TemporaryDirectory() as tmp:
-        st = ProxyStore(os.path.join(tmp, "store.img"), chunk_size=4096,
-                        capacity=STORE_REQUESTS * 4096, device=dev)
-        for i in range(STORE_REQUESTS):
+        st = ProxyStore(os.path.join(tmp, "store.img"), chunk_size=chunk,
+                        capacity=nreq * chunk, device=dev)
+        for i in range(nreq):
             t0 = time.perf_counter()
-            st.write(i * 4096, data[i * 4096:(i + 1) * 4096])
+            st.write(i * chunk, data[i * chunk:(i + 1) * chunk])
             lat.append(time.perf_counter() - t0)
         st.close()
     return 1e3 * float(np.median(lat))
+
+
+def runs_of(src: str, cs) -> list:
+    """(cell name, call, comparison) of the cells a source's kernel runs
+    on: K2 at 64 KiB and less, K9 above, K3 and K8-seg where a segment
+    size (and for K8-seg the gaps) is given."""
+    out = []
+    for name, (r, n, c, seg, g) in cs.items():
+        bs = r.shape[1]
+        if src == "cand" and bs <= 65536:
+            out.append((name, lambda r=r, n=n: K2.dense_candidates(r, n),
+                        torch.equal))
+        elif src == "cand_piecewise" and bs > 65536:
+            out.append((name, lambda r=r, n=n:
+                        K9.dense_candidates_piecewise(r, n), torch.equal))
+        elif src == "parse_seg" and seg is not None:
+            out.append((name, lambda r=r, n=n, c=c, seg=seg:
+                        K3.parse_segments(r, c, n, seg=seg), same_segments))
+        elif src == "parse_seg_deep" and g is not None:
+            out.append((name, lambda r=r, n=n, c=c, seg=seg, g=g:
+                        K8S.parse_segments_deep(r, c, g, n, seg=seg),
+                        same_segments))
+    return out
 
 
 def main(argv=None) -> int:
@@ -514,52 +679,62 @@ def main(argv=None) -> int:
     print(f"devices: {device_name(dev)} ({limit})", flush=True)
     stream = _build.stream(dev)
     cs = cells(dev)
-    for name, (r, n, c, seg) in cs.items():
-        bs = r.shape[1]
+    for name, (r, n, c, seg, g) in cs.items():
+        nb, bs = r.shape
         line = [name]
         if bs <= 65536:
             t = ms(lambda: K2.dense_candidates(r, n), dev)
             line.append(f"K2 {t:.4f} ms")
-        if seg is not None:
-            ns = K3.parse_segments(r, c, n, seg=seg)[4].to(torch.int64)
-            t = ms(lambda: K3.parse_segments(r, c, n, seg=seg), dev)
-            line.append(f"K3 {t:.4f} ms; {int(ns.sum())} sequences in "
+        else:
+            t = ms(lambda: K9.dense_candidates_piecewise(r, n), dev)
+            line.append(f"K9 {t:.4f} ms (runs of "
+                        f"{K9.run_length(nb, bs)} half-pieces)")
+        for key, fn in (("K3", lambda: K3.parse_segments(r, c, n, seg=seg)),
+                        ("K8-seg", lambda: K8S.parse_segments_deep(
+                            r, c, g, n, seg=seg))):
+            if seg is None or (key == "K8-seg" and g is None):
+                continue
+            ns = fn()[4].to(torch.int64)
+            t = ms(fn, dev)
+            line.append(f"{key} {t:.4f} ms; {int(ns.sum())} sequences in "
                         f"{ns.numel()} segments (mean "
                         f"{float(ns.double().mean()):.1f}, most "
                         f"{int(ns.max())})")
         if "one" not in name:
             t = ms(lambda: compress_blocks_device(r, n, bs), dev)
             line.append(f"the encode kernel path {t:.3f} ms")
+            if g is not None:
+                t = ms(lambda: compress_blocks_device(r, n, bs,
+                                                      match_depth=3), dev)
+                line.append(f"at depth 3 {t:.3f} ms")
         print(": ".join(line[:1]) + ": " + ", ".join(line[1:]), flush=True)
     if a.profile:
         profile(cs, dev, stream)
     others = [(v, VARIANTS[v][0], variant(v)) for v in a.variants]
+    parents = {}
     if a.parent:
-        others += [(f"parent {s}", s, parent(a.parent, s)) for s in MODS]
+        parents = {s: parent(a.parent, s) for s in MODS}
+        others += [(f"parent {s}", s, lib) for s, lib in parents.items()]
     if a.store:
         from __graft_entry__ import _synth_corpus
-        data = _synth_corpus(STORE_REQUESTS * 4096)
-        parent_k2 = with_lib(K2, others[-2][2],
-                             lambda: store_median(data, dev))
+        shapes = [("cand", K2, 4096, STORE_REQUESTS,
+                   _synth_corpus(STORE_REQUESTS * 4096))]
+        big = _synth_corpus(max(c * k for c, k in BIG_STORES), seed=55)
+        shapes += [("cand_piecewise", K9, c, k, big) for c, k in BIG_STORES]
         for r in range(a.store):
-            t = [f() for f in (lambda: store_median(data, dev), parent_k2,
-                               parent_k2, lambda: store_median(data, dev))]
-            print(f"4 KiB ProxyStore.write median, round {r + 1} in turns "
-                  f"(this, parent, parent, this): this {t[0]:.4f} "
-                  f"{t[3]:.4f} ms, with the parent's K2 {t[1]:.4f} "
-                  f"{t[2]:.4f} ms", flush=True)
+            for src, mod, chunk, nreq, data in shapes:
+                def own(data=data, chunk=chunk, nreq=nreq):
+                    return store_median(data, dev, chunk, nreq)
+                old = with_lib(mod, parents[src], own)
+                t = [f() for f in (own, old, old, own)]
+                print(f"ProxyStore.write of {chunk} bytes, the median of "
+                      f"{nreq}, round {r + 1} in turns (this, parent, "
+                      f"parent, this): this {t[0]:.4f} {t[3]:.4f} ms, with "
+                      f"the parent's {src} {t[1]:.4f} {t[2]:.4f} ms",
+                      flush=True)
     differ = []
     for label, src, lib in others:
-        for name, (r, n, c, seg) in cs.items():
-            if src == "cand" and r.shape[1] <= 65536:
-                fn = lambda: K2.dense_candidates(r, n)  # noqa: E731
-                same = torch.equal
-            elif src == "parse_seg" and seg is not None:
-                fn = lambda: K3.parse_segments(  # noqa: E731
-                    r, c, n, seg=seg)
-                same = same_segments
-            else:
-                continue
+        for name, fn, same in runs_of(src, cs):
             other = with_lib(MODS[src], lib, fn)
             ok = same(other(), fn())
             this, that = in_turns(fn, other, dev)

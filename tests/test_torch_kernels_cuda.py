@@ -8,7 +8,10 @@ against their plain PyTorch versions and their golden oracles, on the
 card; K6's rings on ``chip_smoke.crafted_streams`` and K8-enc3's warp
 parse on the blocks of ``test_torch_warp_parse`` (``-k "ring or warp"``);
 K2's split table at 4, 8 and 64 KiB and K3's warp walk at 16 and 64 KiB
-and 1 MiB, acceleration 1 and 8 (``-k "k2 or k3"``).
+and 1 MiB, acceleration 1 and 8 (``-k "k2 or k3"``); K9's runs of
+half-pieces (a zero and a short block, a single block and 128, piece
+4096, the run length) and K8-seg's warp walk at 16 and 64 KiB and 1 MiB,
+acceleration 1 and 8, window 65536 and 4096 (``-k "k9 or k8_seg"``).
 Marked ``cuda``; each test skips itself when no card is present.
 Run on a CUDA machine with
 
@@ -275,21 +278,40 @@ def test_block_device_path_runs_k2_k7_k5(dev):
 
 @pytest.mark.parametrize("bs", [131072, 1 << 20])
 def test_k9_candidates(dev, bs):
-    """K9 against its plain version on every case of big_blocks, and
-    against golden.dense_candidates_piecewise on the corpus block and the
-    period-1,000 block (candidates at a piece's position 65,535 and the
-    next half-piece's first positions)."""
+    """K9 against its plain version on every case of big_blocks (a zero and
+    a short block among them), alone, 128 times over (a CTA a block) and at
+    piece 4096, and against golden.dense_candidates_piecewise on the
+    corpus block and the period-1,000 block (candidates at a piece's
+    position 65,535 and the next half-piece's first positions)."""
     blocks = big_blocks(bs)
     raw, rlen = _batch(blocks, bs, dev)
     got = K9.dense_candidates_piecewise(raw, rlen)
     torch.cuda.synchronize()
     assert torch.equal(got, K9.dense_candidates_piecewise_plain(raw, rlen))
+    for r, l in ((raw[2:3], rlen[2:3]), (raw.repeat(22, 1)[:128],
+                                         rlen.repeat(22)[:128])):
+        r, l = r.contiguous(), l.contiguous()
+        assert torch.equal(K9.dense_candidates_piecewise(r, l),
+                           K9.dense_candidates_piecewise_plain(r, l))
+    assert torch.equal(K9.dense_candidates_piecewise(raw, rlen, 4096),
+                       K9.dense_candidates_piecewise_plain(raw, rlen, 4096))
     got = got.cpu().numpy()
     for j in (0, 4):
         want = np.zeros(bs, np.int64)
         want[:len(blocks[j])] = golden.dense_candidates_piecewise(blocks[j])
         assert np.array_equal(got[j], want), j
     assert got[4, 65535] == 1000
+
+
+@pytest.mark.parametrize("nb,bs", [(1, 1 << 20), (4, 1 << 20),
+                                   (128, 1 << 20), (1, 4 << 20),
+                                   (10, 131072)])
+def test_k9_run_length_is_the_emulations(dev, nb, bs):
+    """The launcher's run length (``cand_part::Runs`` on this card's SMs)
+    is the CPU emulation's (``test_torch_cand_piecewise_part.runs``)."""
+    from test_torch_cand_piecewise_part import runs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert K9.run_length(nb, bs) == runs(nb, bs, K9.PIECE // 2, sms)[0]
 
 
 @pytest.mark.parametrize("bs,nmut", [(524288, 64), (4 << 20, 16)])
@@ -403,19 +425,35 @@ def test_gaps_kernel(dev, mode):
             not tape[j, len(b):].any(), j
 
 
-def test_k8_seg_parse(dev):
-    bs, seg = 16384, 4096
+@pytest.mark.parametrize("bs,seg,accel,window", [(16384, 4096, 1, 65536),
+                                                (65536, 4096, 8, 4096),
+                                                (1 << 20, 8192, 1, 65536),
+                                                (1 << 20, 8192, 8, 4096)])
+def test_k8_seg_parse(dev, bs, seg, accel, window):
+    """The warp walk at three candidates against its plain version (all
+    seven outputs where err is 0) and, at 16 KiB, against golden; at 1 MiB
+    over K9's tape and its floored gaps."""
     blocks = _blocks(bs)
+    if bs > 65536:
+        blocks = blocks[:3] + blocks[7:]
     raw, rlen = _batch(blocks, bs, dev)
-    cand = K2.dense_candidates(raw, rlen)
-    gaps, _ = G.chain_gaps(cand)
-    got = K8S.parse_segments_deep(raw, cand, gaps, rlen, seg=seg)
-    want = K8S.parse_segments_deep_plain(raw, cand, gaps, rlen, seg=seg)
+    big = bs > 65536
+    cand = (K9.dense_candidates_piecewise(raw, rlen) if big
+            else K2.dense_candidates(raw, rlen))
+    gaps, _ = G.chain_gaps(cand, 2, K9.PIECE // 2 if big else 0)
+    got = K8S.parse_segments_deep(raw, cand, gaps, rlen, seg, window, accel)
+    want = K8S.parse_segments_deep_plain(raw, cand, gaps, rlen, seg, window,
+                                         accel)
     torch.cuda.synchronize()
     assert not got[2].any() and not want[2].any()
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
     streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    wstreams = want[0].cpu().numpy()
+    for r in range(len(slen)):
+        assert np.array_equal(streams[r, :slen[r]], wstreams[r, :slen[r]]), r
+    if bs != 16384:
+        return
     nseg = bs // seg
     for j, b in enumerate(blocks):
         for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg,

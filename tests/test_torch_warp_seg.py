@@ -28,7 +28,7 @@ from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from test_torch_threads import one_thread  # noqa: F401 (a fixture)
-from test_torch_warp_parse import ffs, skip_sum
+from test_torch_warp_parse import WarpWalk, ffs, skip_sum
 
 LANES = 32
 GROUP = 2           # seg_warp::kGroup
@@ -71,6 +71,8 @@ class Resident:
         self.b = rng.integers(0, 256, hi + SLACK + 16, dtype=np.uint8)
         self.b[lo:hi] = np.frombuffer(block[lo:hi], np.uint8)
         self.row = np.frombuffer(block, np.uint8).astype(np.int64)
+        self.w64 = self.b.astype(np.int64)
+        self.bb, self.rowb = self.b.tobytes(), block
         self.global_reads = 0
 
     def byte(self, i):
@@ -88,8 +90,17 @@ class Resident:
         lie in the slot)."""
         i = np.asarray(i, np.int64)
         assert (i >= self.lo).all() and (i + 8 <= len(self.b)).all(), i
-        w = self.b.astype(np.int64)
+        w = self.w64
         return w[i] | w[i + 1] << 8 | w[i + 2] << 16 | w[i + 3] << 24
+
+    def rd32_m1(self, i: int) -> int:
+        """``rd32_m`` at one index."""
+        if i >= self.lo:
+            assert i + 8 <= len(self.bb), i
+            return int.from_bytes(self.bb[i:i + 4], "little")
+        assert i >= 0
+        self.global_reads += 1
+        return int.from_bytes(self.rowb[i:i + 4], "little")
 
     def rd32_m(self, i):
         i = np.asarray(i, np.int64)
@@ -110,9 +121,60 @@ def lsic_len(x):
     return (x - 15) // 255 + 1 if x >= 15 else 0
 
 
-def walk(res, cd, s0, s1, n, frag, wlim, accel, cap):
-    """``Walk::run`` on one segment: (stream, o, ok, anchor, nseq, p1,
-    m1h)."""
+class Previews:
+    """What ``test_torch_warp_parse.WarpWalk.previews`` reads of a walk,
+    for a segment's walk at three candidates a probe (``Walk<3>``): the
+    chain from the cand and gaps rows under the window's wlim, and every
+    read32 through the CTA's bytes (a source before them from the row)."""
+
+    N = 3
+
+    def __init__(self, res, cd, gp, wlim):
+        self.res, self.cd, self.gp, self.wlim = res, cd, gp, wlim
+
+    def chain(self, p):
+        d1, g = int(self.cd[p]), int(self.gp[p])
+        ds = [d1, d1 + (g & 255), d1 + (g & 255) + (g >> 8)]
+        live = [0 < d1 <= self.wlim]
+        live.append(live[0] and (g & 255) != 0)
+        live.append(live[1] and (g >> 8) != 0)
+        return ds, live
+
+    def rd32(self, i):
+        return self.res.rd32_m1(i)
+
+    def usable(self, p, dd, v):
+        m = p - dd
+        return m >= 0 and dd <= self.wlim and self.rd32(m) == v
+
+
+def probe_round(res, cd, gp, q, valid, wlim):
+    """The hits of a round of probes at q (``Walk<N>::probe_hits``): read32
+    at a candidate only where it passes the cheaper checks."""
+    v = np.zeros(len(q), np.int64)
+    v[valid] = res.rd32(q[valid])
+    dd = cd[q]
+    if gp is None:
+        ds, live = dd[None], (dd > 0)[None]
+    else:
+        g = gp[q]
+        ds = np.stack([dd, dd + (g & 255), dd + (g & 255) + (g >> 8)])
+        l0 = (dd > 0) & (dd <= wlim)
+        l1 = l0 & ((g & 255) != 0)
+        live = np.stack([l0, l1, l1 & ((g >> 8) != 0)])
+    hit = np.zeros(len(q), bool)
+    for d, lv in zip(ds, live):
+        ok = valid & lv & (d <= wlim) & (d <= q)
+        got = np.zeros(len(q), bool)
+        got[ok] = res.rd32_m(q[ok] - d[ok]) == v[ok]
+        hit |= got
+    return hit
+
+
+def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
+    """``Walk<N>::run`` on one segment: (stream, o, ok, anchor, nseq, p1,
+    m1h); with the gaps row ``gp`` at three candidates a probe, the
+    previews of the hit and of the lazy step (``WarpWalk.previews``)."""
     mfl, mlim = min(s1 - 4, n - 12), min(s1, n - 5)
     A = accel << 6
     SA = skip_sum(A)
@@ -130,11 +192,7 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap):
             if not valid[0]:
                 break
             q = np.where(valid, pk, start)
-            dd = cd[q]
-            ok = valid & (dd > 0) & (dd <= wlim) & (dd <= q)
-            m = np.where(ok, q - dd, q)
-            hit = ok.copy()
-            hit[ok] = res.rd32_m(m[ok]) == res.rd32(q[ok])
+            hit = probe_round(res, cd, gp, q, valid, wlim)
             if hit.any():
                 hp = int(pk[np.argmax(hit)])
                 break
@@ -143,7 +201,14 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap):
             k0 += LANES
         if hp < 0:
             break
-        pos1, mpos = hp, hp - int(cd[hp])
+        pos1, mpos, pmc, pcl = hp, hp - int(cd[hp]), 0, 0
+        if gp is not None:
+            lazy = hp + 1 <= mfl
+            pmc, mpos, mb, mposb = WarpWalk.previews(
+                Previews(res, cd, gp, wlim), hp, lazy, mlim)
+            if lazy and mb > pmc:
+                pos1, mpos, pmc = hp + 1, mposb, mb
+            pcl = min(mlim - pos1 - 4, 64)
         back = 0
         while True:                                   # catch-up
             c = 0
@@ -155,14 +220,16 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap):
                 break
         p, m = pos1 + 4, mpos + 4
         lim = mlim - p
-        mc = back                                     # known equal
-        while mc < lim:                               # extension
+        mc = back + pmc                               # known equal
+        more = pmc == pcl and mc < lim
+        while more:                                   # extension
             x = res.rd32(p + mc + 4 * lanes) ^ res.rd32_m(m + mc + 4 * lanes)
             nz = np.flatnonzero(x)
             if len(nz):
                 mc += 4 * int(nz[0]) + ((ffs(int(x[nz[0]])) - 1) >> 3)
                 break
             mc += 128
+            more = mc < lim
         mc = min(mc, lim)
         lit = pos1 - anchor
         hl = 0 if frag else 1 + lsic_len(lit)
@@ -196,9 +263,10 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap):
 
 
 def emulate(raw, cand, rlen, seg, window, accel, group=None, back=BACK,
-            seed=0, stats=None):
-    """Every CTA of the launch, each warp's segment walked; the kernel's
-    seven outputs in block-major segment order."""
+            seed=0, stats=None, gaps=None):
+    """Every CTA of the launch, each warp's segment walked (with ``gaps``
+    at three candidates a probe); the kernel's seven outputs in
+    block-major segment order."""
     rng = np.random.default_rng(seed)
     nb, bs = raw.shape
     nseg = bs // seg
@@ -222,11 +290,12 @@ def emulate(raw, cand, rlen, seg, window, accel, group=None, back=BACK,
             block = raw[b].numpy().tobytes()
             res = Resident(block, lo, max(hi, lo), rng)
             cd = cand[b].numpy().astype(np.int64)
+            gp = None if gaps is None else gaps[b].numpy().astype(np.int64)
             for k in range(g0, min(g0 + G.segs, nseg)):
                 s0 = k * seg
                 s1 = s0 + min(max(n - s0, 0), seg)
                 outs[b * nseg + k] = walk(res, cd, s0, s1, n, k > 0, wlim,
-                                          accel, cap)
+                                          accel, cap, gp)
             if stats is not None:
                 stats["global_reads"] = stats.get("global_reads", 0) + \
                     res.global_reads
