@@ -29,20 +29,25 @@ seg and v7, kernels K1-K4):
    trip, zero host fallbacks, a launch of every kernel, and every block
    decoding under the native C++ decoder (and liblz4 where present);
 4. decodes about 1024 corrupted blocks through the decode kernel and
-   requires golden.decompress's verdict for each;
+   requires golden.decompress's verdict for each, and holds K1 to its
+   plain version on the crafted streams (``crafted_streams``) at out_size
+   16, 64 and 128 KiB (its whole-block geometry, and K6's ring above 64
+   KiB);
 5. times the kernel path and each kernel against its plain version with
-   CUDA events; K2 and K3 over the corpus and on one block, each in turns
-   with the parent tree's when ``--parent`` names one (its outputs equal
-   first).
+   CUDA events; K2, K3 and K1 over the corpus and on one block, each in
+   turns with the parent tree's when ``--parent`` names one (its outputs
+   equal first).
 
 The 4 KiB block-device path (8192 blocks; engines enc3 and v6, kernels
 K2, K7 and K5), in ``_smoke_4k``:
 
 6. K2, K7 and K5 against their plain versions exactly (K2 on every 4 KiB
    block of the corpus, a CTA taking some 62 in turn, and on 64 blocks of
-   8 KiB; K7 on all five outputs of a 64-block subset, and against K3
-   then K4 at seg = block size; K5 at 4 KiB, 8 KiB, and 256 KiB on blocks
-   of ``native.compress``);
+   8 KiB; K7 on all five outputs of a 64-block subset, at acceleration 8
+   on it, at 5,000 bytes (corpus, short, zero and random blocks) and at 64
+   KiB (a corpus and a random block), and against K3 then K4 at seg =
+   block size; K5 at 4 KiB, 8 KiB, and 256 KiB on blocks of
+   ``native.compress``);
 7. the golden contract: 64 blocks at 4 KiB and their tails, acceleration 8,
    the non-aligned enc3 sizes 5,000 and 60,000 with edge blocks, and
    seg_splice at 96 and 196 KiB, each decoded through its routed engine;
@@ -59,9 +64,10 @@ K2, K7 and K5), in ``_smoke_4k``:
 11. 1024 corrupted 4 KiB streams through the v6 route against
     golden.decompress's verdict;
 12. times with CUDA events: the 4 KiB kernel path, K2, K7 and K5 beside
-    their plain versions (K2 over the corpus and on one block in turns
-    with the parent tree's, and with it the median of 1024 4 KiB
-    ProxyStore writes), and the ProxyStore's write latency.
+    their plain versions (K2 and K7 over the corpus and on one block in
+    turns with the parent tree's, and with it the median of 1024 4 KiB
+    ProxyStore writes with the parent's K2, and with its K7), and the
+    ProxyStore's write latency.
 
 The big-block path (128 KiB-4 MiB; engines seg_big and v8, kernels K9,
 K3, K4 and K6), in ``_smoke_big``; the pure-Python golden oracles of its
@@ -252,7 +258,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
-without it phases 5, 12, 19 and 24 time this tree's kernels alone.
+without it phases 5, 12, 19 and 24 time this tree's kernels alone (with
+it K1, K2, K3, K6, K7, K9, K8-seg and K8-enc3 in turns with the
+parent's).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -522,16 +530,19 @@ class _Seqs:
 
 def crafted_streams(out_size: int,
                     seed: int = 17) -> list[tuple[str, bytes]]:
-    """Named LZ4 streams for a decoder of ``out_size``-byte blocks (a few
-    hundred KiB and up), each fitting the slot ``compress_bound(out_size)
-    + 8``: valid ones with an offset of exactly 65,535, offsets 1-4,
-    matches across every 128 KiB of output (the history ring's wrap) and
-    from sources across it, LSIC runs over each 8 KiB of stream (the
-    stage boundaries, whatever the row's alignment); and one of each
-    error of the safe decoder (missing token, truncated literal and match
-    LSIC, literals past the input, literals and a match past capacity,
-    truncated offset, offset 0, offset past the output) placed near the
-    end of a long stream, and a stream of exactly ``slot`` bytes."""
+    """Named LZ4 streams for a decoder of ``out_size``-byte blocks, each
+    fitting the slot ``compress_bound(out_size) + 8``: valid ones with
+    an offset of exactly 65,535 (where the output reaches it), offsets
+    1-4, matches across every 128 KiB of output (the history ring's
+    wrap) and from sources across it, LSIC runs over 8 KiB boundaries of
+    the stream (the stage boundaries, whatever the row's alignment; two
+    runs of 40 LSIC bytes from 128 KiB on, below it as many runs of 16
+    as the output holds, and a match whose source is the block's first
+    byte); and one of each error of the safe decoder (missing token,
+    truncated literal and match LSIC, literals past the input, literals
+    and a match past capacity, truncated offset, offset 0, offset past
+    the output) placed near the end of a long stream, and a stream of
+    exactly ``slot`` bytes."""
     from lz4_sgori_torch import format as F
     rng = np.random.default_rng(seed)
     slot = F.compress_bound(out_size) + 8
@@ -571,14 +582,23 @@ def crafted_streams(out_size: int,
 
     streams = []
     w = _Seqs()
-    body(w, out_size // 2)
+    small = out_size < ring
+    body(w, out_size // (8 if small else 2))
+    nff = 16 if small else 40                    # LSIC bytes of 255 a run
     for k in range(2):                           # LSIC over stage bounds
-        bound = (len(w.stream) // stage + 2) * stage
-        w.pad_to(bound - 20, rng)
+        bound = (len(w.stream) // stage + (1 if small else 2)) * stage
+        pad = bound - (10 if small else 20)
+        run = 15 + 255 * nff + 7
+        if small and (len(w.out) + (pad - len(w.stream)) * 18 // 17 + run
+                      + 64 > out_size - 2100):
+            break                                # the output cannot hold it
+        w.pad_to(pad, rng)
         if k == 0:
-            w.seq(rand(15 + 255 * 40 + 7), 2, 4)
+            w.seq(rand(run), 2, 4)
         else:
-            w.seq(b"", 3, 4 + 15 + 255 * 40 + 7)
+            w.seq(b"", 3, 4 + run)
+    if small:                                    # the source at byte 0
+        w.seq(rand(5), len(w.out) + 5, 60)
     body(w, out_size - 2000)
     w.seq(rand(50), last=True)
     streams.append(("mixed", bytes(w.stream)))
@@ -625,7 +645,7 @@ def crafted_streams(out_size: int,
                        ("match past capacity", match_past_cap)):
         streams.append((name, faulty(tail)))
     v = _Seqs()                                  # offsets reach 65,535 back
-    body(v, 60000)
+    body(v, min(60000, out_size - 100))
     v.seq(rand(3), len(v.out) + 4, 4)
     v.seq(rand(9), last=True)
     streams.append(("offset past output", bytes(v.stream)))
@@ -1195,8 +1215,22 @@ def _smoke(torch, start: float) -> int:
         else:
             need(mlen[j] == len(want) and mo[j, :len(want)].tobytes() == want,
                  f"mutant {j}: bytes differ from golden")
+    # K1 on the crafted streams: its whole-block geometry at 16 and 64
+    # KiB, K6's ring at 128 KiB (stage bounds, far and overlapping
+    # offsets, each error late in a long stream, clen == slot)
+    for osz in (16384, 65536, 131072):
+        cc, cl = _pack_streams([s for _, s in crafted_streams(osz)],
+                               F.compress_bound(osz) + 8)
+        cc, cl = torch.from_numpy(cc).to(dev), torch.from_numpy(cl).to(dev)
+        e = max(maxdiff(x, y) for x, y in zip(
+            K1.decompress_blocks_v7(cc, cl, osz),
+            K1.decompress_blocks_plain(cc, cl, osz)))
+        need(e == 0, f"K1 differs from its plain version on the crafted "
+                     f"streams at {osz} by {e}")
+        err1 = max(err1, e)
     print(f"phase malformed: {len(muts)} mutants, {n_err} rejected, err == "
-          f"golden for all ({time.perf_counter() - t0:.1f} s)")
+          f"golden for all; K1 == plain on the crafted streams at 16, 64 "
+          f"and 128 KiB ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 5: times ----
     ms_enc = time_ms(lambda: compress_blocks_device(raw, rlen, BLOCK), 5)
@@ -1207,9 +1241,10 @@ def _smoke(torch, start: float) -> int:
           f"({len(data) / ms_enc / 1e6:.4f} GB/s), decode {ms_dec:.3f} ms "
           f"({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fc = K2.dense_candidates(raw, rlen)
-    # K2 and K3 over the corpus and on one block, in turns with the
+    # K2, K3 and K1 over the corpus and on one block, in turns with the
     # parent's kernels
     old2, old3 = load_parent(K2, "cand"), load_parent(K3, "parse_seg")
+    old1 = load_parent(K1, "decode_v7")
     full = {
         "cand": against_parent(time_ms, K2, old2,
                                lambda: K2.dense_candidates(raw, rlen), 5,
@@ -1219,7 +1254,10 @@ def _smoke(torch, start: float) -> int:
             time_ms, K3, old3, lambda: K3.parse_segments(raw, fc, rlen), 5,
             f"K3 over config 1 ({nb} blocks of {BLOCK}, seg 4096)", card,
             same_parse(torch, maxdiff)),
-        "decode_v7": ms_dec,
+        "decode_v7": against_parent(
+            time_ms, K1, old1,
+            lambda: K1.decompress_blocks_v7(fcomp, fclen, BLOCK), 5,
+            f"K1 over config 1 ({nb} blocks of {BLOCK})", card),
     }
     print(f"[{card}] kernels over the corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
@@ -1231,6 +1269,10 @@ def _smoke(torch, start: float) -> int:
                    lambda: K3.parse_segments(r1, c1, l1), 20,
                    f"K3 on one block of {BLOCK}", card,
                    same_parse(torch, maxdiff))
+    f1, fl1 = fcomp[:1].contiguous(), fclen[:1].contiguous()
+    against_parent(time_ms, K1, old1,
+                   lambda: K1.decompress_blocks_v7(f1, fl1, BLOCK), 20,
+                   f"K1 on one block of {BLOCK}", card)
     # (kernel ms, plain ms, bytes the call must move) on the subset
     sub_times = {
         "cand": (time_ms(lambda: K2.dense_candidates(rs, ls), 10),
@@ -1378,6 +1420,24 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     err7 = max(maxdiff(a, b) for a, b in zip(k7, p7))
     need(err7 == 0, f"K7 differs from its plain version by {err7}")
     need(not bool(k7[2].any()), "K7 flagged a subset block")
+    # acceleration 8 on the subset; 5,000 bytes (corpus, short, zero and
+    # random blocks) and 64 KiB (a corpus and a random block)
+    k7x = [(K7.parse_blocks_enc3(rs, cs, ls, 8),
+            K7.parse_blocks_enc3_plain(rs, cs, ls, 8))]
+    noise = np.random.default_rng(41).integers(0, 256, BLOCK, np.uint8)
+    for bs, blocks in ((5000, [data[:5000], data[77777:82777], data[:12],
+                               data[:13], bytes(5000),
+                               noise[:5000].tobytes()]),
+                       (BLOCK, [data[:BLOCK], noise.tobytes()])):
+        xr, xl = to_dev(*_batch(blocks, bs))
+        xc = K2.dense_candidates(xr, xl)
+        k7x.append((K7.parse_blocks_enc3(xr, xc, xl),
+                    K7.parse_blocks_enc3_plain(xr, xc, xl)))
+    for got, want in k7x:
+        err7 = max(err7, max(maxdiff(a, b) for a, b in zip(got, want)))
+        need(not bool(got[2].any()), "K7 flagged a block")
+    need(err7 == 0, f"K7 differs from its plain version by {err7} at "
+                    "acceleration 8, 5,000 bytes or 64 KiB")
     sc, sl, serr, sns = S.compress_blocks_seg(rs, ls, BLOCK4, seg=BLOCK4)
     need(not bool(serr.any()) and torch.equal(sc, k7[0])
          and torch.equal(sl, k7[1]) and torch.equal(sns, k7[4]),
@@ -1411,7 +1471,8 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     need(err5 == 0, f"K5 differs from its plain version by {err5}")
     print(f"phase K7/K5 == plain: ok; K2 on all {nb} blocks of 4 KiB and on "
           f"{SUBSET4} of 8 KiB; K7 on {SUBSET4} blocks of 4 KiB (all "
-          f"five outputs) and == K3 then K4 at seg 4096; K5 at 4 KiB, 8 KiB "
+          f"five outputs; also at acceleration 8), on 6 of 5,000 bytes and "
+          f"2 of 64 KiB, and == K3 then K4 at seg 4096; K5 at 4 KiB, 8 KiB "
           f"and 256 KiB ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 7: the golden contract ----
@@ -1613,16 +1674,22 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
           f"{ms_enc:.3f} ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode "
           f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fcand = K2.dense_candidates(raw, rlen)
-    old2 = load_parent(K2, "cand")
+    old2, old7 = load_parent(K2, "cand"), load_parent(K7, "parse_enc3")
     full = {"cand": against_parent(
                 time_ms, K2, old2, lambda: K2.dense_candidates(raw, rlen), 5,
                 f"K2 over config 3 ({nb} blocks of 4 KiB)", card),
-            "parse_enc3": time_ms(
-                lambda: K7.parse_blocks_enc3(raw, fcand, rlen), 5),
+            "parse_enc3": against_parent(
+                time_ms, K7, old7,
+                lambda: K7.parse_blocks_enc3(raw, fcand, rlen), 5,
+                f"K7 over config 3 ({nb} blocks of 4 KiB)", card),
             "decode_v6": ms_dec}
     r1, l1 = raw[:1].contiguous(), rlen[:1].contiguous()
     against_parent(time_ms, K2, old2, lambda: K2.dense_candidates(r1, l1),
                    20, "K2 on one block of 4 KiB", card)
+    c1 = fcand[:1].contiguous()
+    against_parent(time_ms, K7, old7,
+                   lambda: K7.parse_blocks_enc3(r1, c1, l1), 20,
+                   "K7 on one block of 4 KiB", card)
     if old2 is not None:
         # a 4 KiB write's latency with this tree's K2 and the parent's
         def store_median():
@@ -1638,11 +1705,14 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
                     lat.append(time.perf_counter() - t1)
                 st.close()
             return 1e3 * float(np.median(lat))
-        own, parent = turns(store_median,
-                            with_kernel(K2, old2, store_median))
+        own, parent, parent7 = turns(store_median,
+                                     with_kernel(K2, old2, store_median),
+                                     with_kernel(K7, old7, store_median))
         print(f"[{card}] ProxyStore.write of 4 KiB, the median of "
-              f"{STORE_TURNS} requests in turns (this, parent, parent, "
-              f"this): {own:.4f} ms, with the parent's K2 {parent:.4f} ms")
+              f"{STORE_TURNS} requests in turns (this, parent K2, parent "
+              f"K7, parent K7, parent K2, this): {own:.4f} ms, with the "
+              f"parent's K2 {parent:.4f} ms, with the parent's K7 "
+              f"{parent7:.4f} ms")
     print(f"[{card}] kernels over the 4 KiB corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
     sub_times = {

@@ -14,7 +14,7 @@
 // walk, so the kernel is bound by the number of warps in flight (8192
 // blocks of 4 KiB for 32 MiB, about 62 warps per SM, enough to hide the
 // load latency) and by launch overhead on small batches. In the
-// 132-256 KiB band few long walks run, as for K1 at 64 KiB but longer.
+// 132-256 KiB band few long walks run, a warp each.
 
 #include "lz4_decode.cuh"
 

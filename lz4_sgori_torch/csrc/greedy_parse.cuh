@@ -1,27 +1,24 @@
-// The scalar parse of K10b (parse_seg.cuh, one segment per thread) and K7
-// and K10c (parse_enc3.cuh, one block per thread). K3's and K8-seg's
-// parses are a warp a segment (parse_seg_warp.cuh), K8-enc3's a warp a
-// block (parse_enc3_warp.cuh).
+// The scalar parse of K10b (parse_seg.cuh, one segment per thread) and
+// K10c (parse_enc3.cuh, one block per thread), in the mlen mode. K3's and
+// K8-seg's parses are a warp a segment (parse_seg_warp.cuh), K7's and
+// K8-enc3's a warp a block (parse_enc3_warp.cuh).
 //
 // It is the sequence loop of golden.compress_dense
 // (lz4_sgori_tpu/golden.py:1054-1129) over precomputed dense candidates,
 // restricted to one range of the block as golden.compress_dense_seg_parts
 // (golden.py:481-583) does, at one candidate a probe (the greedy parse of
-// K7, and of K3's first design):
+// K3's and K7's first designs):
 //   the search starts at max(s0, 1) with a fresh skip schedule per
 //   sequence and stops once a probe would pass mfl;
-//   a candidate d is used when 0 < d <= wlim, d <= pos and read32 agrees;
 //   catch-up stops at the anchor (s0 for the first sequence);
 //   forward extension stops at mlim;
 //   with frag set, the first sequence is emitted headerless (its literal
 //   run belongs to the previous segment's owner header) and its match
 //   start and code are returned as p1 and m1.
-// The deep parse (the best of N chain candidates, one-step lazy
-// deferral) is the warp walks': parse_seg_warp.cuh at N = 3,
-// parse_enc3_warp.cuh at 3 and 5.
-// MLEN is the mlen mode (K10b, K10c): the loop reads the
-// verified candidates and match codes of mcode.cu (golden.dense_mcode)
-// instead of the bytes where it can, and gives the same stream:
+// It reads the verified candidates and match codes of mcode.cu
+// (golden.dense_mcode) instead of the bytes where it can, and gives the
+// stream of the byte-reading loop (0 < d <= wlim, d <= pos and read32
+// equal):
 //   a probe hits when 0 < d <= wlim and d <= pos, with no read32: pass 1
 //   verified it, and zeroed a candidate that failed, so the search goes
 //   on past it as past a failed verify;
@@ -39,11 +36,6 @@
 
 #include <stdint.h>
 
-__device__ __forceinline__ uint32_t rd32(const uint8_t* s, int i) {
-  return (uint32_t)s[i] | ((uint32_t)s[i + 1] << 8) |
-         ((uint32_t)s[i + 2] << 16) | ((uint32_t)s[i + 3] << 24);
-}
-
 struct ParseState {
   int o;           // bytes written to dst
   int anchor;      // end of the last match: start of the pending literals
@@ -53,7 +45,6 @@ struct ParseState {
   bool bad;        // the stream would pass cap
 };
 
-template <bool MLEN = false>
 __device__ __forceinline__ ParseState greedy_parse(
     const uint8_t* __restrict__ src, const int* __restrict__ cd,
     const int* __restrict__ mcd,
@@ -78,24 +69,19 @@ __device__ __forceinline__ ParseState greedy_parse(
       step = smn >> 6;
       smn++;
       const int d = cd[pos];
-      if (d > 0 && d <= wlim && d <= pos &&
-          (MLEN || rd32(src, pos - d) == rd32(src, pos))) {
+      if (d > 0 && d <= wlim && d <= pos) {
         mpos = pos - d;
         found = true;
         break;
       }
     }
     if (!found) break;
-    // catch-up, capped at the anchor (MLEN: from the probe's code first)
-    const int p0 = pos, code = MLEN ? mcd[pos] : 0;
-    bool bytewise = true;
-    if constexpr (MLEN) {
-      const int delta = min(min((code >> 6) & 7, pos - st.anchor), mpos);
-      pos -= delta;
-      mpos -= delta;
-      bytewise = delta == 4;
-    }
-    if (bytewise) {
+    // catch-up, capped at the anchor: from the probe's code first
+    const int p0 = pos, code = mcd[pos];
+    const int delta = min(min((code >> 6) & 7, pos - st.anchor), mpos);
+    pos -= delta;
+    mpos -= delta;
+    if (delta == 4) {
       while (pos > st.anchor && mpos > 0 && src[pos - 1] == src[mpos - 1]) {
         pos--;
         mpos--;
@@ -122,13 +108,10 @@ __device__ __forceinline__ ParseState greedy_parse(
     EMIT(off >> 8);
     const int p = pos + 4, m = mpos + 4;
     const int lim = mlim - p;
-    int mc = 0;
-    if constexpr (MLEN) {  // the known run: the catch-up, then lcp bytes
-      const int lcp = (code >> 1) & 15;
-      mc = min(p0 - (p - 4) + lcp, lim);
-      bytewise = lcp == 8;
-    }
-    if (bytewise)
+    // the known run: the catch-up, then lcp bytes
+    const int lcp = (code >> 1) & 15;
+    int mc = min(p0 - (p - 4) + lcp, lim);
+    if (lcp == 8)
       while (mc < lim && src[p + mc] == src[m + mc]) mc++;
     pos = p + mc;
     if (mc >= 15) {

@@ -1,9 +1,18 @@
-// The safe LZ4 block decode of K6 (decode_v8.cu): one CTA a block, the
-// block's last 128 KiB of output held in a history ring in shared memory
-// and its compressed stream staged into shared memory by bulk
-// asynchronous copies; warp 0 walks, up to 32 sequences a batch, the
-// CTA's other warps join it for each batch's window pass and zero the
-// row's tail at the end.
+// The safe LZ4 block decode of K6 (decode_v8.cu) and K1 (decode_v7.cu):
+// one CTA a block, the block's output held in shared memory and its
+// compressed stream staged into shared memory by bulk asynchronous
+// copies; warp 0 walks, up to 32 sequences a batch, the CTA's other warps
+// join it for each batch's window pass and write the row's tail (K6) or
+// the whole row (K1) at the end. Two geometries, a template over Whole:
+//
+// - K6 (Whole false, every out_size): the last 128 KiB of output in a
+//   history ring, flushed to the row as the walk goes; a CTA an SM.
+// - K1 (Whole true, out_size at most 64 KiB): the block's whole output
+//   in 64 KiB of shared memory, never flushed during the walk; after it
+//   the CTA's 128 threads write the row, decoded bytes and the zeros past
+//   them, in 16-byte stores. About 104 KiB a CTA, so two CTAs share an
+//   SM: while one walks a sequence's dependent steps, the other issues.
+//   K1's blocks of 64-128 KiB take K6's geometry as it stands.
 //
 // Contract: lz4_decode.cuh's (golden.decompress,
 // lz4_sgori_tpu/golden.py:194-261): err = 1 exactly when
@@ -25,19 +34,23 @@
 // stages are in flight while the walk reads the fourth.
 //
 // The output. Output byte o lies at ohead + o (ohead: the output row's
-// address mod 16) of a 128 KiB ring. A match reads its sources from the
-// ring: with an offset d >= 32 lane j of a 32-byte step copies from
-// o - d; with d < 32 from d - (j mod d) bytes before the step's start
-// (the overlap rule src(o) = m - d + (o - m) mod d of lz4_decode.cuh,
-// rebased on each step, so that a match longer than the ring never reads
-// a slot it has overwritten). Either way a step reads only bytes written
-// before it.
-// Every source lies at most 65,535 bytes back, so 128 KiB holds it and
-// the pending bytes. Once 16 KiB are pending, they are flushed to the
+// address mod 16) of the output region, taken mod its size. A match
+// reads its sources from the region in steps of S bytes (32 in a batch's
+// waves, kStep = 128 in the general walk, 4 bytes a lane): with an offset
+// d >= S byte i of a step copies from o - d; with d < S from d - (i mod
+// d) bytes before the step's start (the overlap rule src(o) = m - d + (o
+// - m) mod d of lz4_decode.cuh, rebased on each step, so that a match
+// longer than the ring never reads a slot it has overwritten). Either way
+// a step reads only bytes written before it.
+// K6: every source lies at most 65,535 bytes back, so 128 KiB holds it
+// and the pending bytes. Once 16 KiB are pending, they are flushed to the
 // row with 16-byte stores (bytes at the row's unaligned head); no copy
 // writes more than 4 KiB (a batch 16 KiB) between two flush checks. On
 // an error found late, the whole row, the flushed part with it, is
-// zeroed, as K1's tail loop does.
+// zeroed, as lz4_decode.cuh's tail loop does.
+// K1: ohead + o < 64 KiB + 16; the few bytes past 64 KiB wrap onto [0,
+// ohead), which no byte below 64 KiB uses, so nothing is overwritten and
+// every source is on chip.
 //
 // The walk. A warp alone on its SM issues each dependent instruction
 // some cycles after the last, so a sequence walked one at a time costs
@@ -58,21 +71,30 @@ constexpr int kStageLog = 13;                   // 8 KiB stages
 constexpr int kStage = 1 << kStageLog;
 constexpr int kStages = 4;
 constexpr int kCompRing = kStage * kStages;     // 32 KiB of stream
-constexpr int kOutRing = 1 << 17;               // 128 KiB of output
+constexpr int kWholeMax = 1 << 16;              // K1's whole-block sizes
 constexpr int kFlush = 16384;                   // pending bytes to flush
 constexpr int kPiece = 4096;                    // copy between checks
+constexpr int kWide = 4;                        // general walk: bytes a lane
+constexpr int kStep = 32 * kWide;               //   and a step
 constexpr int kThreads = 128;                   // the walk is warp 0
 constexpr int kTab = 33 * 32;                   // lane mod d, d = 1..32
 constexpr int kWindow = 256;                    // stream bytes a batch
 constexpr int kBatchOut = 16384;                // output bytes a batch
 constexpr int kInvalid = 0xFFFF;
-// shared memory: the output ring, the stream ring, the barriers, the
-// batch's fields (int2) a window position and its links (uint16: 1, 2,
-// 4, 8 and 16 steps), the table
-constexpr int kFld = kOutRing + kCompRing + 8 * kStages;
-constexpr int kNxt = kFld + 8 * kWindow;
-constexpr int kTabAt = kNxt + 5 * 2 * kWindow;
-constexpr int kSmem = kTabAt + kTab;
+
+// A geometry's shared memory: the output region (K6's 128 KiB ring, or
+// K1's whole block), the stream ring, the barriers, the batch's fields
+// (int2) a window position and its links (uint16: 1, 2, 4, 8 and 16
+// steps), the table; and the CTAs it fits an SM.
+template <bool Whole>
+struct Geom {
+  static constexpr int kOutRing = Whole ? kWholeMax : 1 << 17;
+  static constexpr int kFld = kOutRing + kCompRing + 8 * kStages;
+  static constexpr int kNxt = kFld + 8 * kWindow;
+  static constexpr int kTabAt = kNxt + 5 * 2 * kWindow;
+  static constexpr int kSmem = kTabAt + kTab;
+  static constexpr int kCtas = Whole ? 2 : 1;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -153,8 +175,11 @@ struct Stream {
   }
 };
 
-// The output side: the history ring and the flushed prefix of the row.
+// The output side: the output region and (K6) the flushed prefix of
+// the row.
+template <bool Whole>
 struct Out {
+  static constexpr int kOutRing = Geom<Whole>::kOutRing;
   uint8_t* ring;             // kOutRing bytes
   uint8_t* gbase;            // the row's address rounded down to 16
   int ohead;                 // the row's address mod 16
@@ -178,9 +203,12 @@ struct Out {
     fx = xe;
   }
 
+  // K6 flushes once kFlush bytes are pending; K1 holds the whole block.
   __device__ __forceinline__ void check(int op, int lane) {
-    const int x = ohead + op;
-    if (x - fx >= kFlush) flush_to(x & ~15, lane);
+    if constexpr (!Whole) {
+      const int x = ohead + op;
+      if (x - fx >= kFlush) flush_to(x & ~15, lane);
+    }
   }
 };
 
@@ -284,7 +312,8 @@ __device__ void window_helper(const uint8_t* buf, uint64_t* full,
 // through registers and the rest of a longer one by the warp; then the
 // other matches in waves (see there). Returns the sequences taken, 0 for
 // none, with ip and op moved past them.
-__device__ int decode_batch(Stream& in, Out& out, const uint8_t* tab,
+template <bool Whole>
+__device__ int decode_batch(Stream& in, Out<Whole>& out, const uint8_t* tab,
                             int2* fld, uint16_t* nxt, volatile int* cmd,
                             int& ip, int& op, int ilen, int out_size,
                             int lane) {
@@ -414,9 +443,12 @@ __device__ int decode_batch(Stream& in, Out& out, const uint8_t* tab,
   return count;
 }
 
-// The walk of one block by one warp (lz4_decode.cuh's decode_block_warp,
-// through the two rings). Returns the decoded length, or -1 on error.
-__device__ int decode_block_ring(Stream& in, Out& out, const uint8_t* tab,
+// The walk of one block by one warp (lz4_decode.cuh's loop, through the
+// stream ring and the output region). Returns the decoded length, or -1
+// on error.
+template <bool Whole>
+__device__ int decode_block_ring(Stream& in, Out<Whole>& out,
+                                 const uint8_t* tab,
                                  int2* fld, uint16_t* nxt,
                                  volatile int* cmd, int ilen, int slot,
                                  int out_size, int lane) {
@@ -447,7 +479,19 @@ __device__ int decode_block_ring(Stream& in, Out& out, const uint8_t* tab,
       if ((a >> kStageLog) != in.cur) in.advance(a >> kStageLog, lane);
       const int piece =
           min(min(lit, ((in.cur + 1) << kStageLog) - a), kPiece);
-      for (int i = lane; i < piece; i += 32) out.at(op + i) = in.at(a + i);
+      for (int b = 0; b < piece; b += kStep) {       // loads, then stores
+        uint8_t v[kWide];
+#pragma unroll
+        for (int k = 0; k < kWide; k++) {
+          const int i = b + lane + 32 * k;
+          v[k] = i < piece ? (uint8_t)in.at(a + i) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kWide; k++) {
+          const int i = b + lane + 32 * k;
+          if (i < piece) out.at(op + i) = v[k];
+        }
+      }
       ip += piece;
       op += piece;
       lit -= piece;
@@ -469,36 +513,55 @@ __device__ int decode_block_ring(Stream& in, Out& out, const uint8_t* tab,
       if (bad) break;
     }
     if (ml > out_size - op) { bad = true; break; }   // past capacity
-    const int back = step_back(tab, off, lane);
+    // kStep bytes a step, byte i of a step (lane + 32 k) read back[k]
+    // bytes back: off from kStep on, else off's multiple off + i - i mod
+    // off, which lands in the off bytes before the step (the step rule)
+    int back[kWide];
+#pragma unroll
+    for (int k = 0; k < kWide; k++) {
+      const int i = lane + 32 * k;
+      back[k] = off >= kStep ? off : off + i - i % off;
+    }
     while (ml > 0) {
       const int piece = min(ml, kPiece);
-      for (int b = 0; b < piece; b += 32) {
+      for (int b = 0; b < piece; b += kStep) {
         __syncwarp();
-        const int o = op + b + lane;
-        if (b + lane < piece) out.at(o) = out.at(o - back);
+        uint8_t v[kWide];
+#pragma unroll
+        for (int k = 0; k < kWide; k++)
+          v[k] = out.at(op + b + lane + 32 * k - back[k]);
+#pragma unroll
+        for (int k = 0; k < kWide; k++)
+          if (b + lane + 32 * k < piece) out.at(op + b + lane + 32 * k) = v[k];
       }
       op += piece;
       ml -= piece;
       out.check(op, lane);
     }
   }
-  if (!bad) out.flush_to(out.ohead + op, lane);
+  if constexpr (!Whole)
+    if (!bad) out.flush_to(out.ohead + op, lane);
   in.drain();
   return bad ? -1 : op;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One CTA a block. K6 (Whole false): warp 0's flushes fill the row, and
+// the CTA zeroes its tail; K1 (Whole true): the CTA writes the whole row
+// from the block held on chip.
+template <bool Whole>
+__global__ void __launch_bounds__(kThreads, Geom<Whole>::kCtas)
 decode_ring_kernel(const uint8_t* __restrict__ comp,
                    const int* __restrict__ clen, uint8_t* out,
                    int* __restrict__ out_len, uint8_t* __restrict__ err,
                    int slot, int out_size) {
+  using G = Geom<Whole>;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int s_n;
   __shared__ int s_cmd[4];
   const int blk = blockIdx.x;
   const int lane = threadIdx.x & 31;
   uint8_t* dst = out + (size_t)blk * out_size;
-  uint8_t* tab = smem + kTabAt;
+  uint8_t* tab = smem + G::kTabAt;
   for (int i = threadIdx.x; i < kTab; i += kThreads)
     tab[i] = (uint8_t)((i & 31) % max(i >> 5, 1));
   __syncthreads();
@@ -506,8 +569,8 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
     const uint8_t* row = comp + (size_t)blk * slot;
     const int ilen = clen[blk];
     Stream in;
-    in.buf = smem + kOutRing;
-    in.full = (uint64_t*)(smem + kOutRing + kCompRing);
+    in.buf = smem + G::kOutRing;
+    in.full = (uint64_t*)(smem + G::kOutRing + kCompRing);
     in.gbase = (const uint8_t*)((uintptr_t)row & ~(uintptr_t)15);
     in.head = (int)((uintptr_t)row & 15);
     in.total = ilen > 0 && ilen <= slot ? (in.head + ilen + 15) & ~15 : 0;
@@ -520,13 +583,13 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
     }
     __syncwarp();
     if (in.nst > 0) bar_wait(&in.full[0], 0);
-    Out o;
+    Out<Whole> o;
     o.ring = smem;
     o.gbase = (uint8_t*)((uintptr_t)dst & ~(uintptr_t)15);
     o.ohead = (int)((uintptr_t)dst & 15);
     o.fx = o.ohead;
-    const int n = decode_block_ring(in, o, tab, (int2*)(smem + kFld),
-                                    (uint16_t*)(smem + kNxt), s_cmd, ilen,
+    const int n = decode_block_ring(in, o, tab, (int2*)(smem + G::kFld),
+                                    (uint16_t*)(smem + G::kNxt), s_cmd, ilen,
                                     slot, out_size, lane);
     if (lane == 0) {
       s_n = n;
@@ -536,38 +599,76 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
     }
     named_sync(1);
   } else {
-    window_helper(smem + kOutRing, (uint64_t*)(smem + kOutRing + kCompRing),
-                  (int2*)(smem + kFld), (uint16_t*)(smem + kNxt), s_cmd);
+    window_helper(smem + G::kOutRing,
+                  (uint64_t*)(smem + G::kOutRing + kCompRing),
+                  (int2*)(smem + G::kFld), (uint16_t*)(smem + G::kNxt),
+                  s_cmd);
   }
   __syncthreads();
-  // zero the row past the decoded bytes (all of it on an error)
-  const int z0 = s_n < 0 ? 0 : s_n;
   const int head = (int)((uintptr_t)dst & 15);
-  const int v0 = min(z0 + ((16 - ((head + z0) & 15)) & 15), out_size);
-  const int v1 = max(v0, ((head + out_size) & ~15) - head);
-  for (int o = z0 + threadIdx.x; o < v0; o += kThreads) dst[o] = 0;
-  for (int o = v0 + 16 * threadIdx.x; o < v1; o += 16 * kThreads)
-    *(uint4*)(dst + o) = make_uint4(0, 0, 0, 0);
-  for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) dst[o] = 0;
+  if constexpr (Whole) {
+    // the row: row byte o is region byte head + o (mod 64 KiB) below the
+    // decoded length n, zero from n on (all of it on an error, n = -1);
+    // the unaligned head and tail a byte a thread, 16-byte stores between
+    const int n = s_n;
+    uint8_t* g = dst - head;
+    const int xe = head + out_size;
+    const int v0 = min((head + 15) & ~15, xe), v1 = max(xe & ~15, v0);
+    const auto at = [&](int x) -> uint8_t {
+      return x - head < n ? smem[x & (G::kOutRing - 1)] : 0;
+    };
+    for (int x = head + threadIdx.x; x < v0; x += kThreads) g[x] = at(x);
+    for (int x = v0 + 16 * threadIdx.x; x < v1; x += 16 * kThreads) {
+      union { uint4 v; uint8_t b[16]; } u;
+      if (x - head + 16 <= n) {
+        u.v = *(const uint4*)(smem + (x & (G::kOutRing - 1)));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; i++) u.b[i] = at(x + i);
+      }
+      *(uint4*)(g + x) = u.v;
+    }
+    for (int x = v1 + threadIdx.x; x < xe; x += kThreads) g[x] = at(x);
+  } else {
+    // zero the row past the decoded bytes (all of it on an error)
+    const int z0 = s_n < 0 ? 0 : s_n;
+    const int v0 = min(z0 + ((16 - ((head + z0) & 15)) & 15), out_size);
+    const int v1 = max(v0, ((head + out_size) & ~15) - head);
+    for (int o = z0 + threadIdx.x; o < v0; o += kThreads) dst[o] = 0;
+    for (int o = v0 + 16 * threadIdx.x; o < v1; o += 16 * kThreads)
+      *(uint4*)(dst + o) = make_uint4(0, 0, 0, 0);
+    for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) dst[o] = 0;
+  }
 }
 
 }  // namespace ring
 
-static inline int launch_decode_ring(const void* comp, const void* clen,
-                                     void* out, void* out_len, void* err,
-                                     int nb, int slot, int out_size,
-                                     void* stream) {
+// One CTA a block in geometry Whole (K1's whole block at out_size <=
+// 64 KiB, else K6's ring). A shared-memory size the card refuses is
+// returned as the launch's error. Internal linkage, so that `sized` is
+// this library's own beside another build of this header in the same
+// process.
+template <bool Whole>
+static int launch_decode_ring(const void* comp, const void* clen, void* out,
+                              void* out_len, void* err, int nb, int slot,
+                              int out_size, void* stream) {
+  using G = ring::Geom<Whole>;
+  if (Whole && out_size > ring::kWholeMax) return (int)cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ring::decode_ring_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, ring::kSmem);
+    cudaError_t e = cudaFuncSetAttribute(
+        ring::decode_ring_kernel<Whole>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e == cudaSuccess && Whole)
+      e = cudaFuncSetAttribute(ring::decode_ring_kernel<Whole>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   if (nb > 0)
-    ring::decode_ring_kernel<<<nb, ring::kThreads, ring::kSmem,
-                               (cudaStream_t)stream>>>(
+    ring::decode_ring_kernel<Whole><<<nb, ring::kThreads, G::kSmem,
+                                      (cudaStream_t)stream>>>(
         (const uint8_t*)comp, (const int*)clen, (uint8_t*)out,
         (int*)out_len, (uint8_t*)err, slot, out_size);
   return (int)cudaGetLastError();

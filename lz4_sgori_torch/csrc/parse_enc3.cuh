@@ -1,7 +1,7 @@
-// The whole-block greedy parse kernel of the enc3 engine, one thread per
-// block (greedy_parse.cuh): K7 (parse_enc3.cu),
-// and K10c (parse_enc3_mlen.cu) in the mlen mode with the mcode tape. See
-// parse_enc3.cu for the contract. K8-enc3's deep parse is a warp a block
+// The whole-block greedy parse kernel of the enc3 engine in the mlen
+// mode, one thread per block (greedy_parse.cuh with the mcode tape): K10c
+// (parse_enc3_mlen.cu). See parse_enc3.cu for the contract. K7's default
+// parse and K8-enc3's deep parse are a warp a block
 // (parse_enc3_warp.cuh).
 
 #pragma once
@@ -11,8 +11,7 @@
 
 #include "greedy_parse.cuh"
 
-template <bool MLEN>
-__global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
+__global__ void parse_enc3_mlen_kernel(const uint8_t* __restrict__ raw,
                                   const int* __restrict__ cand,
                                   const int* __restrict__ mcode,
                                   const int* __restrict__ raw_len,
@@ -27,8 +26,8 @@ __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
   const uint8_t* src = raw + (size_t)t * bs;
   uint8_t* dst = out + (size_t)t * slot;
   const int n = min(max(raw_len[t], 0), bs);
-  const ParseState st = greedy_parse<MLEN>(
-      src, cand + (size_t)t * bs, MLEN ? mcode + (size_t)t * bs : nullptr,
+  const ParseState st = greedy_parse(
+      src, cand + (size_t)t * bs, mcode + (size_t)t * bs,
       dst, cap, 0, n - 12, n - 5, false, 65535, accel);
   int o = st.o;
   bool bad = st.bad;
@@ -57,15 +56,16 @@ __global__ void parse_enc3_kernel(const uint8_t* __restrict__ raw,
   nseq[t] = bad ? 0 : st.nseq;
 }
 
-template <bool MLEN = false>
-int launch_parse_enc3(const void* raw, const void* cand, const void* mcode,
-                      const void* raw_len, void* out, void* out_len,
-                      void* err, void* tails, void* nseq, int nb, int bs,
-                      int slot, int cap, int accel, void* stream) {
+static int launch_parse_enc3_mlen(const void* raw, const void* cand,
+                                  const void* mcode, const void* raw_len,
+                                  void* out, void* out_len, void* err,
+                                  void* tails, void* nseq, int nb, int bs,
+                                  int slot, int cap, int accel,
+                                  void* stream) {
   if (nb > 0) {
     const int threads = 32;
-    parse_enc3_kernel<MLEN><<<(nb + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
+    parse_enc3_mlen_kernel<<<(nb + threads - 1) / threads, threads, 0,
+                             (cudaStream_t)stream>>>(
         (const uint8_t*)raw, (const int*)cand, (const int*)mcode,
         (const int*)raw_len, (uint8_t*)out, (int*)out_len, (uint8_t*)err,
         (int*)tails, (int*)nseq, nb, bs, slot, cap, accel);

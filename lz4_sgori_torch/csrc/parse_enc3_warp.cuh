@@ -1,43 +1,51 @@
-// The whole-block deep parse of K8-enc3 (parse_enc3_deep.cu), one warp a
-// block, the block resident in shared memory. It computes the serial
-// parse of golden.compress_deep at N = 3 and 5 candidates a probe (its
-// loop and best-of-N probe, best_at, as the first design's one-thread
-// kernel ran it over the whole block, then the terminal literal run), bit
-// for bit, with the 32 lanes splitting each step of the walk:
+// The whole-block parses of K7 (parse_enc3.cu) and K8-enc3
+// (parse_enc3_deep.cu), one warp a block, the block resident in shared
+// memory. At N = 3 and 5 candidates a probe it computes the serial parse
+// of golden.compress_deep (its loop and best-of-N probe, best_at, as the
+// first design's one-thread kernel ran it over the whole block, then the
+// terminal literal run); at N = 1 that of golden.compress_dense
+// (greedy_parse.cuh's loop over one segment spanning the block, then the
+// terminal literal run). Bit for bit, with the 32 lanes splitting each
+// step of the walk:
 //
 // - The block. Its n bytes go into shared memory by one cp.async.bulk
 //   (from the row's address rounded down to 16: raw byte i lies at rhead
 //   + i). Reads run past n by at most 132 bytes, into slack whose bytes
 //   only ever meet a cap (cl, lim) that excludes them.
-// - The tapes. cand, gaps and (N = 5) gaps2, an int32 a position, stream
-//   through a ring of kChunks chunks of kChunk positions a tape, one
-//   cp.async group a chunk (empty past the block). The walk reads them at
-//   increasing positions only; a round waits for every chunk but the last
-//   one issued, so kChunk x (kChunks - 1) positions from the round's
-//   first chunk are resident.
+// - The tapes. cand, at N = 3 and 5 gaps, and at N = 5 gaps2, an int32
+//   a position, stream through a ring of kChunks chunks of kChunk
+//   positions a tape, one cp.async group a chunk (empty past the block).
+//   The walk reads them at increasing positions only; a round waits for
+//   every chunk but the last one issued, so kChunk x (kChunks - 1)
+//   positions from the round's first chunk are resident.
 // - The search. The skip schedule is fixed from a sequence's start: with
 //   A = accel << 6 and S(x) = sum_{y < x} (y >> 6), probe k sits at p_0 =
 //   start, p_k = start + 1 + S(A + k - 1) - S(A) for k >= 1, and runs only
 //   if p_{k+1} <= mfl + 1. Lane j takes probe K0 + j of a round (the
 //   first round's offsets, the same for every sequence, computed once).
-//   A probe hits when one of its chain candidates passes best_at's
-//   checks (d1 in (0, wlim], each link while the gaps before it are
-//   non-zero, m >= 0, d <= wlim, read32 equal; every candidate's word is
-//   read and masked after, so the lanes do not diverge); the ballot's
-//   first hit is the probe the serial loop stops at.
-// - The previews. The hit probe p's candidates and p + 1's (when p + 1 <=
-//   mfl) are previewed together, two lanes a candidate, 32 bytes a lane
-//   as 8 words of XOR (the first set bit of the first non-zero word is
-//   the first mismatch), capped at cl = min(mlim - p - 4, 64). The longest
-//   wins, the nearest (first in chain order) on a tie: the largest key
-//   (mc + 1) << 4 | (15 - i) over the lanes (__reduce_max_sync). The lazy
-//   step is taken when p + 1's best is strictly longer.
+//   At N = 1 a probe at p hits when d = cand[p] has 0 < d <= 65535, d <=
+//   p and read32 at p - d equals read32 at p (K3's test,
+//   parse_seg_warp.cuh). At N = 3 and 5 it hits when one of its chain
+//   candidates passes best_at's checks (d1 in (0, wlim], each link while
+//   the gaps before it are non-zero, m >= 0, d <= wlim, read32 equal;
+//   every candidate's word is read and masked after, so the lanes do not
+//   diverge). The ballot's first hit is the probe the serial loop stops
+//   at.
+// - The previews (N = 3 and 5). The hit probe p's candidates and p + 1's
+//   (when p + 1 <= mfl) are previewed together, two lanes a candidate, 32
+//   bytes a lane as 8 words of XOR (the first set bit of the first
+//   non-zero word is the first mismatch), capped at cl = min(mlim - p - 4,
+//   64). The longest wins, the nearest (first in chain order) on a tie:
+//   the largest key (mc + 1) << 4 | (15 - i) over the lanes
+//   (__reduce_max_sync). The lazy step is taken when p + 1's best is
+//   strictly longer.
 // - Catch-up compares 32 bytes back a step. The extension starts from
-//   what is known equal: the catch-up's bytes, read32's 4 and the
+//   what is known equal: the catch-up's bytes, read32's 4 and (N > 1) the
 //   winner's preview; a preview that stopped short of its 64 bytes (or at
-//   mlim's cap) ends the match, else it goes on 128 bytes a step (a word
-//   a lane) to mlim. Literals copy a byte a lane; LSIC runs of 255 are
-//   written a lane each. The token and the header bytes are lane 0's.
+//   mlim's cap) ends the match, else (and at N = 1 always) it goes on 128
+//   bytes a step (a word a lane) to mlim. Literals copy a byte a lane;
+//   LSIC runs of 255 are written a lane each. The token and the header
+//   bytes are lane 0's.
 // - The output. The stream is staged in shared memory (out byte o at
 //   ohead + o, ohead the row's address mod 16) and leaves once, at the
 //   end: the row's unaligned head and tail a byte a lane, 16-byte stores
@@ -55,7 +63,16 @@ constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChunks = 4;          // ring chunks a tape (a power of two)
 constexpr int kSlack = 256;         // raw bytes past n that reads may touch
 constexpr int kMaxWarps = 8;        // blocks a CTA (small blocks)
+constexpr int kMaxWarps1 = 1;       // at N = 1 (K7): a CTA a block
 constexpr int kSmemLimit = 232448;  // the H100's opt-in shared memory
+
+// The tapes a walk at N candidates reads: cand; gaps; gaps2.
+__host__ __device__ constexpr int tapes(int N) {
+  return N == 1 ? 1 : N > 3 ? 3 : 2;
+}
+__host__ __device__ constexpr int max_warps(int N) {
+  return N == 1 ? kMaxWarps1 : kMaxWarps;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -154,7 +171,7 @@ struct Walk {
     const int lo = c << chunk_log;
     if (lo < bs) {
       const int hi = min(lo + C, bs);
-      for (int t = 0; t < (N > 3 ? 3 : 2); t++) {
+      for (int t = 0; t < tapes(N); t++) {
         if (vec16 && hi - lo == C) {
           for (int i = 4 * lane; i < C; i += 128)
             cp_async16(&ring[t][(lo + i) & wmask], tape[t] + lo + i);
@@ -213,10 +230,15 @@ struct Walk {
     return (m >= 0) & (dd <= 65535) & (rd32(min(max(m, 0), p)) == v);
   }
 
-  // Whether some chain candidate at p passes best_at's checks: every
-  // candidate's word is read, live or not, so that the lanes do not
-  // diverge.
+  // Whether the probe at p hits: at N = 1 K3's test; else whether some
+  // chain candidate passes best_at's checks. Every candidate's word is
+  // read, live or not, so that the lanes do not diverge.
   __device__ bool probe_hits(int p) const {
+    if constexpr (N == 1) {
+      const int d = tp(0, p);
+      const bool ok = (d > 0) & (d <= 65535) & (d <= p);
+      return ok & (rd32(ok ? p - d : p) == rd32(p));
+    }
     int ds[5];
     const int live = chain(p, ds);
     const uint32_t v = rd32(p);
@@ -327,18 +349,23 @@ struct Walk {
         k0 += __popc(acts);
       }
       if (hp < 0) break;
-      // ---- the best at hp, and the lazy step at hp + 1 ----
-      int mpos, mb, mposb;
-      const bool lazy = hp + 1 <= mfl;
-      const int mca = previews(hp, lazy, mlim, &mpos, &mb, &mposb);
+      // ---- the match: hp's candidate (N = 1), or the best at hp and the
+      // lazy step at hp + 1 (pmc: the winner's preview, pcl its cap) ----
+      int mpos, pmc = 0, pcl = 0;
       pos = hp;
-      int pmc = mca;                   // the winner's preview
-      if (lazy && mb > mca) {
-        pos = hp + 1;
-        mpos = mposb;
-        pmc = mb;
+      if constexpr (N == 1) {
+        mpos = hp - tp(0, hp);
+      } else {
+        int mb, mposb;
+        const bool lazy = hp + 1 <= mfl;
+        pmc = previews(hp, lazy, mlim, &mpos, &mb, &mposb);
+        if (lazy && mb > pmc) {
+          pos = hp + 1;
+          mpos = mposb;
+          pmc = mb;
+        }
+        pcl = min(mlim - pos - 4, 64);
       }
-      const int pcl = min(mlim - pos - 4, 64);
       int back = 0;                    // bytes the catch-up goes back
       // ---- catch-up, 32 bytes a step, capped at the anchor ----
       for (;;) {
@@ -377,7 +404,8 @@ struct Walk {
       // The bytes from pos through the probe's 4 and its preview are
       // known equal: the catch-up's, read32's and the preview's. A preview
       // that stopped before its cap (or at mlim's) ends the match there;
-      // one that ran the 64 bytes goes on from its end.
+      // one that ran the 64 bytes goes on from its end. At N = 1 there is
+      // no preview (pmc = pcl = 0): the extension goes on from read32's 4.
       const int p = pos + 4, m = mpos + 4, lim = mlim - p;
       int mc = back + pmc;
       for (bool more = pmc == pcl && mc < lim; more;) {
@@ -442,7 +470,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * (blockDim.x >> 5) + warp;
   if (t >= nb) return;
-  const Layout L(bs, cap, N > 3 ? 3 : 2);
+  const Layout L(bs, cap, tapes(N));
   uint8_t* base = smem + (size_t)warp * L.bytes;
   uint8_t* raw_s = base;
   uint8_t* out_s = base + L.raw;
@@ -461,7 +489,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   const int W = kChunks << L.chunk_log;
   for (int i = 0; i < 3; i++) w.ring[i] = ring0 + i * W;
   w.tape[0] = cand + (size_t)t * bs;
-  w.tape[1] = gaps + (size_t)t * bs;
+  w.tape[1] = N > 1 ? gaps + (size_t)t * bs : nullptr;
   w.tape[2] = N > 3 ? gaps2 + (size_t)t * bs : nullptr;
   w.chunk_log = L.chunk_log;
   w.wmask = W - 1;
@@ -473,7 +501,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   w.accel = accel;
   w.lane = lane;
   w.vec16 = ((uintptr_t)w.tape[0] & 15) == 0 &&
-            ((uintptr_t)w.tape[1] & 15) == 0 &&
+            (N == 1 || ((uintptr_t)w.tape[1] & 15) == 0) &&
             (N <= 3 || ((uintptr_t)w.tape[2] & 15) == 0);
 
   // the block by one bulk copy: every 16 bytes of it hold a byte of src
@@ -513,7 +541,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
 }  // namespace warp_parse
 
 // One warp a block; blocks a CTA as shared memory allows (one at 64 KiB,
-// up to kMaxWarps for small blocks). A shared-memory size the card
+// up to max_warps(N) for small blocks). A shared-memory size the card
 // refuses is returned as the launch's error. Internal linkage: the
 // static below must be this library's own, not one that another build of
 // this header loaded in the same process (a parent tree's) would share.
@@ -524,8 +552,8 @@ static int launch_parse_warp(const void* raw, const void* cand, const void* gaps
                       int nb, int bs, int slot, int cap, int accel,
                       void* stream) {
   using namespace warp_parse;
-  const Layout L(bs, cap, N > 3 ? 3 : 2);
-  const int wpc = max(1, min(kMaxWarps, kSmemLimit / L.bytes));
+  const Layout L(bs, cap, tapes(N));
+  const int wpc = max(1, min(max_warps(N), kSmemLimit / L.bytes));
   const int bytes = wpc * L.bytes;
   static int sized = 0;
   if (bytes > sized) {

@@ -1,5 +1,5 @@
 // The segment-parallel parse kernel of the mlen mode (K10b,
-// parse_seg_mlen.cu), one thread per segment (greedy_parse.cuh, MLEN, over
+// parse_seg_mlen.cu), one thread per segment (greedy_parse.cuh, over
 // the mcode tape). K3 and K8-seg (parse_seg.cu, parse_seg_deep.cu) walk a
 // segment with a warp (parse_seg_warp.cuh). See parse_seg.cu for the
 // contract.
@@ -27,7 +27,7 @@ __global__ void parse_seg_kernel(
   const int n = min(max(raw_len[blk], 0), bs);
   const int s0 = k * seg;
   const int s1 = s0 + min(max(n - s0, 0), seg);
-  const ParseState st = greedy_parse<true>(
+  const ParseState st = greedy_parse(
       raw + (size_t)blk * bs, cand + (size_t)blk * bs,
       mcode + (size_t)blk * bs, streams + (size_t)t * scap, scap, s0,
       min(s1 - 4, n - 12), min(s1, n - 5), k > 0, wlim, accel);

@@ -10,7 +10,7 @@
 // (parse_seg.cu), per segment golden.compress_dense_seg_parts at depth 1,
 // over mcode.cu's verified candidates and match codes: the mode reads the
 // codes instead of the bytes where it can and writes the same stream
-// (greedy_parse.cuh, MLEN). Outputs as K3's.
+// (greedy_parse.cuh). Outputs as K3's.
 //
 // What bounds it on the H100: as K3, one serial walk per segment. The
 // mode saves a probe's read32 pair, up to 4 catch-up byte pairs and up to

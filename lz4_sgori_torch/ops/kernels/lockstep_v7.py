@@ -2,7 +2,12 @@
 
 ``decompress_blocks_v7`` launches ``csrc/decode_v7.cu`` (the port of
 ``lz4_sgori_tpu/ops/pallas/lockstep_v7.py:_kernel``) for a CUDA tensor
-and runs ``decompress_blocks_plain`` for a CPU tensor.
+and runs ``decompress_blocks_plain`` for a CPU tensor. The kernel is
+K6's walk (``csrc/lz4_decode_ring.cuh``): a CTA a block, the stream
+staged into shared memory by ``cp.async.bulk``, up to 32 sequences a
+batch; at ``out_size`` 64 KiB and below the block's whole output stays in
+shared memory and the CTA writes the row once at the end (two CTAs an
+SM), above it K6's 128 KiB history ring.
 
 ``decompress_blocks_plain`` is the port of the JAX package's portable
 decoder ``lz4_sgori_tpu/ops/decode.py:_decompress_blocks_impl``: a
@@ -27,11 +32,12 @@ from ..primitives import (exclusive_cumsum, next_false_index, segment_ids,
 from . import _build
 
 launches = 0
+ENTRIES = {"lz4t_decode_v7": "pppppiiip"}   # the C entry's signature
 
 
 def load_kernel():
     """Build (once) and load csrc/decode_v7.cu."""
-    return _build.load("decode_v7", {"lz4t_decode_v7": "pppppiiip"})
+    return _build.load("decode_v7", ENTRIES)
 
 
 def check_decode_args(comp: torch.Tensor, comp_len: torch.Tensor,

@@ -20,6 +20,14 @@ return
 A block whose stream would pass ``compress_bound(block_size)`` sets
 ``err`` and has an all-zero row and 0 in ``out_len``, ``tails`` and
 ``nseq``. Blocks are at most 64 KiB (K2's limit).
+
+The CUDA kernel is K8-enc3's warp walk (``csrc/parse_enc3_warp.cuh``) at
+one candidate a probe: a warp a block, the block in shared memory by one
+``cp.async.bulk``, the cand tape through a ring of ``cp.async`` chunks,
+32 probes of the skip schedule a round (the first hit by ballot), 32
+bytes of catch-up and 128 of extension a step, the stream staged on chip
+and stored once into the zeroed row. Each block takes a CTA of its own
+(one warp).
 """
 
 from __future__ import annotations
@@ -32,11 +40,12 @@ from .cand import MAX_BLOCK
 from .parse_seg import _lsic_len, check_parse_args, parse_segments_plain
 
 launches = 0
+ENTRIES = {"lz4t_parse_enc3": "ppppppppiiiiip"}   # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_enc3.cu."""
-    return _build.load("parse_enc3", {"lz4t_parse_enc3": "ppppppppiiiiip"})
+    return _build.load("parse_enc3", ENTRIES)
 
 
 def check_block_size(raw: torch.Tensor) -> None:
@@ -69,8 +78,8 @@ def parse_blocks_enc3(raw: torch.Tensor, cand: torch.Tensor,
         raw_len.contiguous()
     nb, bs = raw.shape
     cap = F.compress_bound(bs)
-    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     lib = load_kernel()
+    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     _build.check(lib.lz4t_parse_enc3(
         raw.data_ptr(), cand.data_ptr(), raw_len.data_ptr(), out.data_ptr(),
         out_len.data_ptr(), err.data_ptr(), tails.data_ptr(),

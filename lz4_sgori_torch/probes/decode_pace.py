@@ -1,0 +1,317 @@
+"""What sets the pace of K1, the v7 decode (``csrc/decode_v7.cu`` on
+``csrc/lz4_decode_ring.cuh``), on the card, on its cells: config 1 (32
+MiB of 64 KiB blocks, seed 42, the seg engine's streams), config 5 (128
+MiB of 64 KiB blocks, seed 1234, the depth-3 streams), one 64 KiB block,
+and config 1's bytes in 128 KiB blocks (256 of them, and one):
+
+- K1's time a call (CUDA events) and the decode kernel path's
+  (``decompress_blocks_device``) on each cell;
+- ``--profile``: clock64 breakdowns from an instrumented copy of the
+  header (``PROFILE``): the walking warp's cycles a block in batches, in
+  the general walk and, for K6's ring, in the last flush; the batches and
+  sequences a block; and the CTA's cycles writing the row (K1's whole
+  block) or zeroing its tail (K6's ring);
+- ``--variants NAME ...``: builds of the sources with other settings
+  (``VARIANTS``: every block through K6's 128 KiB ring; one CTA an SM),
+  each timed in turns with this tree's build (this, variant, variant,
+  this) and its outputs held equal to it;
+- ``--parent DIR``: the same for DIR's ``decode_v7.cu`` with its own
+  headers (a ``git archive`` of an earlier commit);
+- ``--store ROUNDS`` (with ``--parent``): the median latency of
+  ``STORE_REQUESTS`` sequential 64 KiB ``ProxyStore`` writes at match
+  depth 3 (each decode-verified through K1) of config 5's bytes with this
+  tree's K1 and with DIR's, in turns (this, parent, parent, this) ROUNDS
+  times.
+
+    python -m lz4_sgori_torch.probes.decode_pace [--profile]
+        [--variants NAME ...] [--parent DIR [--store ROUNDS]]
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+
+import torch
+
+from ..blocks import resolve_device, split_blocks
+from ..ops.decode import decompress_blocks_device
+from ..ops.encode import compress_blocks_device
+from ..ops.kernels import _build
+from ..ops.kernels import lockstep_v7 as K1
+from . import device_name, parser
+from .encode_pace import (CLK, _load, _read, in_turns, instrumented, ms,
+                          store_median, with_lib)
+
+STORE_REQUESTS = 64   # 64 KiB writes a store timing
+
+# variants: decode_v7.cu and its headers with (file, text, replacement)
+# edits, each text found in its file
+VARIANTS = {
+    # K1's blocks of 64 KiB and less through K6's kernel unchanged
+    "k6_ring": [("decode_v7.cu", "if (out_size <= ring::kWholeMax)",
+                 "if (false)")],
+    # the whole block at one CTA an SM (20,000 more bytes of shared
+    # memory a CTA than two fit)
+    "one_cta": [("lz4_decode_ring.cuh",
+                 "static constexpr int kSmem = kTabAt + kTab;",
+                 "static constexpr int kSmem = kTabAt + kTab + "
+                 "(Whole ? 20000 : 0);")],
+}
+
+# instrumented copies: file -> (anchor, replacement) pairs, each anchor
+# found in the source; acc[] the walking warp's, written to prof at the
+# end: 0 batch cycles, 1 batches, 2 sequences in batches, 3 general-walk
+# cycles, 4 general sequences, 5 the last flush (K6), 6 the CTA's row
+# write or tail zeroing, 7 the whole walk; inside the batch calls (the
+# ones that take none too): 8 the command and the window pass, 9 the
+# lookups, the scan and the checks, 10 the literals and the independent
+# matches, 11 the dependency waves
+NACC = 12
+PROFILE = {
+    "lz4_decode_ring.cuh": [
+        ("namespace ring {", "namespace ring {\n" + CLK),
+        ("                            int& ip, int& op, int ilen, "
+         "int out_size,\n                            int lane) {\n"
+         "  const int a0 = in.head + ip;",
+         "                            int& ip, int& op, int ilen, "
+         "int out_size,\n                            int lane, long long* acc)"
+         " {\n  const long long b0 = clk(ip);\n"
+         "  const int a0 = in.head + ip;"),
+        ("  window_pass(in.buf, fld, nxt, a0, rel, lane);\n  int mine = 0;",
+         "  window_pass(in.buf, fld, nxt, a0, rel, lane);\n"
+         "  const long long b1 = clk(rel);\n  acc[8] += b1 - b0;\n"
+         "  int mine = 0;"),
+        ("  // Literals, and the matches whose sources lie before the batch:",
+         "  const long long b2 = clk(count);\n  acc[9] += b2 - b1;\n"
+         "  // Literals, and the matches whose sources lie before the batch:"),
+        ("  // The others in waves. A match waits for the earlier ones whose",
+         "  const long long b3 = clk(op);\n  acc[10] += b3 - b2;\n"
+         "  // The others in waves. A match waits for the earlier ones whose"),
+        ("  const int last = count - 1;",
+         "  acc[11] += clk(op) - b3;\n  const int last = count - 1;"),
+        ("                                 volatile int* cmd, int ilen, "
+         "int slot,\n                                 int out_size, int lane)"
+         " {",
+         "                                 volatile int* cmd, int ilen, "
+         "int slot,\n                                 int out_size, int lane,"
+         " long long* acc) {"),
+        ("  while (!bad) {\n    if (ip < ilen && ((in.head + ip) >> kStageLog)"
+         " != in.cur)\n      in.advance((in.head + ip) >> kStageLog, lane);\n"
+         "    if (decode_batch(in, out, tab, fld, nxt, cmd, ip, op, ilen, "
+         "out_size,\n                     lane))\n      continue;",
+         "  while (!bad) {\n    const long long t0 = clk(ip);\n"
+         "    if (ip < ilen && ((in.head + ip) >> kStageLog)"
+         " != in.cur)\n      in.advance((in.head + ip) >> kStageLog, lane);\n"
+         "    const int got = decode_batch(in, out, tab, fld, nxt, cmd, ip, "
+         "op, ilen,\n                                 out_size, lane, acc);\n"
+         "    if (got) {\n      acc[0] += clk(op) - t0;\n      acc[1]++;\n"
+         "      acc[2] += got;\n      continue;\n    }\n    acc[4]++;"),
+        ("      out.check(op, lane);\n    }\n  }\n  if constexpr (!Whole)\n"
+         "    if (!bad) out.flush_to(out.ohead + op, lane);",
+         "      out.check(op, lane);\n    }\n    acc[3] += clk(op) - t0;\n"
+         "  }\n  const long long tf = clk(op);\n  if constexpr (!Whole)\n"
+         "    if (!bad) out.flush_to(out.ohead + op, lane);\n"
+         "  acc[5] += clk(op) - tf;"),
+        ("                   int slot, int out_size) {\n  using G = "
+         "Geom<Whole>;",
+         "                   int slot, int out_size, long long* prof) {\n"
+         "  using G = Geom<Whole>;"),
+        ("    const int n = decode_block_ring(in, o, tab, (int2*)(smem + "
+         "G::kFld),\n                                    (uint16_t*)(smem + "
+         "G::kNxt), s_cmd, ilen,\n                                    slot, "
+         "out_size, lane);",
+         "    long long acc[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+         "    const long long tw = clk(ilen);\n"
+         "    const int n = decode_block_ring(in, o, tab, (int2*)(smem + "
+         "G::kFld),\n                                    (uint16_t*)(smem + "
+         "G::kNxt), s_cmd, ilen,\n                                    slot, "
+         "out_size, lane, acc);\n    acc[7] = clk(n) - tw;\n"
+         "    if (lane == 0)\n      for (int i = 0; i < 12; i++)\n"
+         "        if (i != 6) prof[(size_t)blk * 12 + i] = acc[i];"),
+        ("  __syncthreads();\n  const int head = (int)((uintptr_t)dst & 15);",
+         "  __syncthreads();\n  const long long te = clk(s_n);\n"
+         "  const int head = (int)((uintptr_t)dst & 15);"),
+        ("    for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) "
+         "dst[o] = 0;\n  }\n}",
+         "    for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) "
+         "dst[o] = 0;\n  }\n  __syncthreads();\n  if (threadIdx.x == 0) "
+         "prof[(size_t)blk * 12 + 6] = clk(te) - te;\n}"),
+        ("                              int out_size, void* stream) {\n"
+         "  using G = ring::Geom<Whole>;",
+         "                              int out_size, void* prof, "
+         "void* stream) {\n  using G = ring::Geom<Whole>;"),
+        ("        (int*)out_len, (uint8_t*)err, slot, out_size);",
+         "        (int*)out_len, (uint8_t*)err, slot, out_size, "
+         "(long long*)prof);"),
+    ],
+    "decode_v7.cu": [
+        ('#include "lz4_decode_ring.cuh"',
+         '#include "lz4_decode_ring_prof.cuh"'),
+        ("lz4t_decode_v7(", "lz4t_decode_v7_prof("),
+        ("int out_size, void* stream) {",
+         "int out_size, void* prof, void* stream) {"),
+        ("out_size, stream);", "out_size, prof, stream);"),
+    ],
+}
+
+
+def _sources(csrc: str) -> dict[str, str]:
+    return {f: _read(os.path.join(csrc, f)) for f in os.listdir(csrc)
+            if f == "decode_v7.cu" or f.endswith(".cuh")}
+
+
+def variant_sources(name: str) -> dict[str, str]:
+    """decode_v7.cu and the headers with ``VARIANTS[name]``'s edits;
+    raises where a text is not found (the source has moved on)."""
+    texts = _sources(_build.CSRC)
+    for f, old, new in VARIANTS[name]:
+        if old not in texts[f]:
+            raise ValueError(f"variant {name}: {old!r} is not in {f}")
+        texts[f] = texts[f].replace(old, new)
+    return texts
+
+
+def variant(name: str):
+    return _load(f"k1_{name}", variant_sources(name), "decode_v7.cu",
+                 K1.ENTRIES)
+
+
+def parent(tree: str):
+    """DIR's csrc/decode_v7.cu with its own headers."""
+    return _load("parent_decode_v7",
+                 _sources(os.path.join(tree, "lz4_sgori_torch", "csrc")),
+                 "decode_v7.cu", K1.ENTRIES)
+
+
+def cells(dev):
+    """name -> (comp, comp_len, out_size) on ``dev``: each cell's streams
+    from the port's encode path."""
+    from __graft_entry__ import _synth_corpus
+
+    def cell(data, bs, depth=None):
+        r, n = split_blocks(data, bs)
+        r, n = torch.from_numpy(r).to(dev), torch.from_numpy(n).to(dev)
+        c, cl = compress_blocks_device(r, n, bs, match_depth=depth)
+        return c, cl, bs
+    d1 = _synth_corpus(32 << 20)
+    out = {"config 1": cell(d1, 65536),
+           "config 5": cell(_synth_corpus(128 << 20, seed=1234), 65536, 3),
+           "config 1 in blocks of 131072": cell(d1, 131072)}
+    for name in ("config 1", "config 1 in blocks of 131072"):
+        c, cl, bs = out[name]
+        out[f"one block of {bs}"] = (c[:1].contiguous(), cl[:1].contiguous(),
+                                     bs)
+    return out
+
+
+def decode(c, cl, bs):
+    return lambda: K1.decompress_blocks_v7(c, cl, bs)
+
+
+def profile(cs, dev, stream) -> None:
+    """The clock64 breakdowns (see the module's note)."""
+    texts = _sources(_build.CSRC)
+    lib = _load("decode_v7_prof", {
+        "decode_v7.cu": instrumented("decode_v7.cu", texts["decode_v7.cu"],
+                                     PROFILE),
+        "lz4_decode_ring_prof.cuh": instrumented(
+            "lz4_decode_ring.cuh", texts["lz4_decode_ring.cuh"], PROFILE)},
+        "decode_v7.cu", {"lz4t_decode_v7_prof": "pppppiiipp"})
+    for name, (c, cl, bs) in cs.items():
+        nb, slot = c.shape
+        out = torch.empty((nb, bs), dtype=torch.uint8, device=dev)
+        out_len = torch.empty(nb, dtype=torch.int32, device=dev)
+        err = torch.empty(nb, dtype=torch.bool, device=dev)
+        pr = torch.zeros((nb, NACC), dtype=torch.int64, device=dev)
+        _build.check(lib.lz4t_decode_v7_prof(
+            c.data_ptr(), cl.data_ptr(), out.data_ptr(), out_len.data_ptr(),
+            err.data_ptr(), nb, slot, bs, pr.data_ptr(), stream),
+            "decode_v7_prof")
+        torch.cuda.synchronize(dev)
+        want = K1.decompress_blocks_v7(c, cl, bs)
+        same = all(torch.equal(a, b) for a, b in zip((out, out_len, err),
+                                                     want))
+        p = pr.double().mean(0)
+        seqs = p[2] + p[4]
+        geom = "whole block" if bs <= 65536 else "K6's ring"
+        print(f"K1 {name} ({nb} blocks, {geom}, equal {same}): a block, "
+              f"the walking warp's cycles: the walk {float(p[7]):.0f}; "
+              f"batches {float(p[0]):.0f} ({float(p[1]):.1f} batches, "
+              f"{float(p[2] / p[1].clamp(min=1)):.1f} sequences a batch, "
+              f"{float(p[0] / p[2].clamp(min=1)):.1f} cycles a sequence); "
+              f"the general walk {float(p[3]):.0f} ({float(p[4]):.1f} "
+              f"sequences, {float(p[3] / p[4].clamp(min=1)):.0f} cycles "
+              f"each); the last flush {float(p[5]):.0f}; the CTA's row "
+              f"write {float(p[6]):.0f}; {float(seqs):.1f} sequences a "
+              f"block, {float(p[7] / seqs.clamp(min=1)):.1f} cycles a "
+              f"sequence; the longest walk {int(pr[:, 7].max())}; in the "
+              f"batch calls: the command and window pass {float(p[8]):.0f}, "
+              f"the lookups, scan and checks {float(p[9]):.0f}, literals and "
+              f"independent matches {float(p[10]):.0f}, the waves "
+              f"{float(p[11]):.0f}", flush=True)
+
+
+def main(argv=None) -> int:
+    p = parser(__doc__)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--variants", nargs="*", default=[],
+                   choices=sorted(VARIANTS))
+    p.add_argument("--parent")
+    p.add_argument("--store", type=int, default=0)
+    a = p.parse_args(argv)
+    if a.store and not a.parent:
+        p.error("--store needs --parent")
+    dev = resolve_device(a.device)
+    if dev.type != "cuda":
+        p.error("the kernels' times need a CUDA card")
+    limit = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip() or "no power limit read"
+    print(f"devices: {device_name(dev)} ({limit})", flush=True)
+    cs = cells(dev)
+    for name, (c, cl, bs) in cs.items():
+        nbytes = c.shape[0] * bs
+        t = ms(decode(c, cl, bs), dev)
+        line = f"{name}: K1 {t:.4f} ms ({nbytes / t / 1e6:.4f} GB/s)"
+        if c.shape[0] > 1:
+            t = ms(lambda: decompress_blocks_device(c, cl, bs), dev)
+            line += f", the decode kernel path {t:.4f} ms"
+        print(line, flush=True)
+    if a.profile:
+        profile(cs, dev, _build.stream(dev))
+    others = [(v, variant(v)) for v in a.variants]
+    if a.parent:
+        old = parent(a.parent)
+        others.append(("parent decode_v7", old))
+    if a.store:
+        from __graft_entry__ import _synth_corpus
+        data = _synth_corpus(STORE_REQUESTS * 65536, seed=1234)
+
+        def own():
+            return store_median(data, dev, 65536, STORE_REQUESTS, 3)
+        for r in range(a.store):
+            t = [f() for f in (own, with_lib(K1, old, own),
+                               with_lib(K1, old, own), own)]
+            print(f"ProxyStore.write of 65536 bytes at depth 3, the median "
+                  f"of {STORE_REQUESTS}, round {r + 1} in turns (this, "
+                  f"parent, parent, this): this {t[0]:.4f} {t[3]:.4f} ms, "
+                  f"with the parent's K1 {t[1]:.4f} {t[2]:.4f} ms",
+                  flush=True)
+    differ = []
+    for label, lib in others:
+        for name, (c, cl, bs) in cs.items():
+            fn = decode(c, cl, bs)
+            other = with_lib(K1, lib, fn)
+            ok = all(torch.equal(x, y) for x, y in zip(other(), fn()))
+            this, that = in_turns(fn, other, dev)
+            print(f"{label} on {name} in turns (this, variant, variant, "
+                  f"this): this {this:.4f} ms, variant {that:.4f} ms "
+                  f"({that / this:.4f}x); equal: {ok}", flush=True)
+            if not ok:
+                differ.append(f"{label} on {name}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,16 +1,18 @@
 """What sets the pace of the split-table candidates, K2
-(``csrc/cand.cu``) and K9 (``csrc/cand_piecewise.cu``), and of the warp
+(``csrc/cand.cu``) and K9 (``csrc/cand_piecewise.cu``), of the warp
 segment parses, K3 (``csrc/parse_seg.cu``) and K8-seg
-(``csrc/parse_seg_deep.cu``, depth 3), on the card, on the main paths'
-cells (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks,
-seed 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of
-64 KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55,
-K9's tape, seg 8192; one block of each size, one of 4 MiB at seg
-32768, and config 1's bytes in 1 MiB blocks):
+(``csrc/parse_seg_deep.cu``, depth 3), and of K7's warp block parse
+(``csrc/parse_enc3.cu``), on the card, on the main paths' cells
+(``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks, seed
+42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of 64
+KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55, K9's
+tape, seg 8192; one block of each size, one of 4 MiB at seg 32768,
+config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
+1's first):
 
 - each kernel's time a call (CUDA events), K9's run length, the
-  sequences K3 and K8-seg find a segment (their ``nseq``) and each cell's
-  encode kernel path (depth 3 too where K8-seg runs);
+  sequences K3, K8-seg and K7 find a segment or block (their ``nseq``)
+  and each cell's encode kernel path (depth 3 too where K8-seg runs);
 - ``--profile``: clock64 breakdowns from instrumented copies of this
   tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
   in the table steps, its steps a warp, the wait for the bytes and the
@@ -18,23 +20,25 @@ K9's tape, seg 8192; one block of each size, one of 4 MiB at seg
   and the boundary's barriers and sweep; K3's and K8-seg's cycles a
   sequence in the search, the previews (K8-seg), the catch-up, the
   extension and the emission, their rounds a sequence, and the busiest
-  warp), and of the first K2 design's one-warp step (``FIRST_STEP``:
-  cycles a 32-position step in the loads and hash, the match, the table
-  read, the table write and the store);
+  warp; K7's the same a block, with the wait for the block's bytes), and
+  of the first K2 design's one-warp step (``FIRST_STEP``: cycles a
+  32-position step in the loads and hash, the match, the table read, the
+  table write and the store);
 - ``--variants NAME ...``: builds of the sources with other settings
   (``VARIANTS``: other warps or tiles a round in ``cand_part.cuh``, other
   segments a CTA or bytes held before them in ``parse_seg_warp.cuh``, for
   K3's source or K8-seg's, K8-seg's probe reading its three candidates
-  together, K9 a window a CTA), each timed in turns with this tree's
-  build (this, variant, variant, this) and its outputs held equal to it;
-- ``--parent DIR``: the same for DIR's four sources (a ``git archive`` of
+  together, K9 a window a CTA, K7 with other blocks a CTA), each timed in
+  turns with this tree's build (this, variant, variant, this) and its
+  outputs held equal to it;
+- ``--parent DIR``: the same for DIR's five sources (a ``git archive`` of
   an earlier commit);
 - ``--store ROUNDS`` (with ``--parent``): the median latency of
   ``STORE_REQUESTS`` sequential 4 KiB ``ProxyStore`` writes of config 1's
-  bytes with this tree's K2 and with DIR's, and of ``BIG_STORES``' fio
-  shapes (32 writes of 1 MiB, 8 of 4 MiB, config 6's bytes) with this
-  tree's K9 and DIR's, each in turns (this, parent, parent, this) ROUNDS
-  times.
+  bytes with this tree's K2 and with DIR's, and with this tree's K7 and
+  DIR's, and of ``BIG_STORES``' fio shapes (32 writes of 1 MiB, 8 of 4
+  MiB, config 6's bytes) with this tree's K9 and DIR's, each in turns
+  (this, parent, parent, this) ROUNDS times.
 
     python -m lz4_sgori_torch.probes.encode_pace [--profile]
         [--variants NAME ...] [--parent DIR [--store ROUNDS]]
@@ -57,6 +61,7 @@ from ..ops.kernels import _build
 from ..ops.kernels import cand as K2
 from ..ops.kernels import cand_piecewise as K9
 from ..ops.kernels import gaps as G
+from ..ops.kernels import parse_enc3 as K7
 from ..ops.kernels import parse_seg as K3
 from ..ops.kernels import parse_seg_deep as K8S
 from . import device_name, parser, seconds
@@ -65,17 +70,19 @@ CALLS = 5             # calls in a timing
 STORE_REQUESTS = 1024  # 4 KiB writes a store timing
 BIG_STORES = ((1 << 20, 32), (4 << 20, 8))   # fio test_1m, test_4m
 MODS = {"cand": K2, "parse_seg": K3, "cand_piecewise": K9,
-        "parse_seg_deep": K8S}
+        "parse_seg_deep": K8S, "parse_enc3": K7}
 
 # variants: the source they build, the header they change and its
 # (text, replacement) pairs, each text found in the header
 _CAND = ("cand", "cand_part.cuh")
 _SEG = ("parse_seg", "parse_seg_warp.cuh")
 _DEEP = ("parse_seg_deep", "parse_seg_warp.cuh")
+_ENC3 = ("parse_enc3", "parse_enc3_warp.cuh")
 _W = "constexpr int kWarps = 8;"
 _U = "constexpr int kUnroll = 16;"
 _G = "constexpr int kGroup = 2;"
 _B = "constexpr int kBack = 0;"
+_K7 = "constexpr int kMaxWarps1 = 1;"
 VARIANTS = {
     "cand_w1": (*_CAND, [(_W, _W.replace("8", "1"))]),
     "cand_w4": (*_CAND, [(_W, _W.replace("8", "4"))]),
@@ -108,6 +115,11 @@ VARIANTS = {
         w[i] = ok ? rd32m(p - ds[i]) : ~v;
       }
       return (w[0] == v) | (w[1] == v) | (w[2] == v);""")]),
+    # K7 with more blocks a CTA at 4 KiB (at 16 one CTA an SM)
+    "enc3_w2": (*_ENC3, [(_K7, _K7.replace("= 1", "= 2"))]),
+    "enc3_w4": (*_ENC3, [(_K7, _K7.replace("= 1", "= 4"))]),
+    "enc3_w8": (*_ENC3, [(_K7, _K7.replace("= 1", "= 8"))]),
+    "enc3_w16": (*_ENC3, [(_K7, _K7.replace("= 1", "= 16"))]),
     # K9 a window a CTA (runs of one half-piece, its warm half before it)
     "k9_r1": ("cand_piecewise", "cand_piecewise.cu", [(
         "  const Runs R(nb, bs, half, sms);\n",
@@ -259,6 +271,70 @@ PROFILE = {
         ("void* stream) {", "void* prof, void* stream) {"),
         ("wlim, accel, stream);", "wlim, accel, prof, stream);"),
     ],
+    # K7's walk (N = 1): acc[] as K3's, acc[5] the wait for the block
+    "parse_enc3_warp.cuh": [
+        ("namespace warp_parse {", "namespace warp_parse {\n" + CLK),
+        ("  __device__ bool run(int& o_out, int& tpos, int& nseq_out) {",
+         "  __device__ bool run(int& o_out, int& tpos, int& nseq_out,\n"
+         "                      long long* acc) {"),
+        ("      // ---- the search, 32 probes a round ----\n"
+         "      const int start = pos;",
+         "      // ---- the search, 32 probes a round ----\n"
+         "      long long t0 = clk(pos);\n      const int start = pos;"),
+        ("        const bool hit = probe_hits(act ? (int)pk : p0) & act;",
+         "        acc[6]++;\n"
+         "        const bool hit = probe_hits(act ? (int)pk : p0) & act;"),
+        ("      if (hp < 0) break;\n",
+         "      long long t1 = clk(hp);\n      acc[0] += t1 - t0;\n"
+         "      if (hp < 0) break;\n"),
+        ("      // ---- catch-up, 32 bytes a step, capped at the anchor ----",
+         "      long long tq = clk(pos + mpos + pmc);\n"
+         "      acc[7] += tq - t1;\n"
+         "      // ---- catch-up, 32 bytes a step, capped at the anchor ----"),
+        ("      // ---- the sequence: token, literal LSIC, literals, offset "
+         "----",
+         "      long long t2 = clk(pos + mpos);\n      acc[1] += t2 - tq;\n"
+         "      // ---- the sequence: token, literal LSIC, literals, offset "
+         "----"),
+        ("      // ---- forward extension, 128 bytes a step, capped at "
+         "mlim ----",
+         "      long long tx = clk(o);\n      acc[3] += tx - t2;\n"
+         "      // ---- forward extension, 128 bytes a step, capped at "
+         "mlim ----"),
+        ("      mc = min(mc, lim);\n      pos = p + mc;",
+         "      mc = min(mc, lim);\n      long long t3 = clk(mc);\n"
+         "      acc[2] += t3 - tx;\n      pos = p + mc;"),
+        ("      if (lane == 0) d[token_at] = (uint8_t)token;\n      nseq++;",
+         "      if (lane == 0) d[token_at] = (uint8_t)token;\n"
+         "      acc[3] += clk(o) - t3;\n      acc[4]++;\n      nseq++;"),
+        ("                                  int slot, int cap, int accel) {\n"
+         "  extern __shared__",
+         "                                  int slot, int cap, int accel,\n"
+         "                                  long long* prof) {\n"
+         "  long long acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+         "  extern __shared__"),
+        ("  if (total) bar_wait(bar, 0);\n",
+         "  long long tw = clk(total);\n  if (total) bar_wait(bar, 0);\n"
+         "  acc[5] = clk(tw) - tw;\n"),
+        ("  const bool ok = w.run(o, tpos, ns);",
+         "  const bool ok = w.run(o, tpos, ns, acc);\n  if (lane == 0)\n"
+         "    for (int i = 0; i < 8; i++) prof[(size_t)t * 8 + i] = acc[i];"),
+        ("                      int nb, int bs, int slot, int cap, int accel,"
+         "\n                      void* stream) {",
+         "                      int nb, int bs, int slot, int cap, int accel,"
+         "\n                      void* prof, void* stream) {"),
+        ("(int*)nseq, nb, bs, slot, cap, accel);",
+         "(int*)nseq, nb, bs, slot, cap, accel,\n        (long long*)prof);"),
+    ],
+    "parse_enc3.cu": [
+        ('#include "parse_enc3_warp.cuh"',
+         '#include "parse_enc3_warp_prof.cuh"'),
+        ("lz4t_parse_enc3(", "lz4t_parse_enc3_prof("),
+        ("int accel,\n                               void* stream) {",
+         "int accel,\n                               void* prof, "
+         "void* stream) {"),
+        ("accel, stream);", "accel, prof, stream);"),
+    ],
 }
 
 # the first K2 design's warp step (as cand.cu ran it before the split
@@ -334,13 +410,14 @@ extern "C" int lz4t_first_step(const void* raw, const void* raw_len,
 """
 
 
-def instrumented(name: str, text: str) -> str:
-    """``text`` (csrc/``name``) with ``PROFILE[name]``'s edits; raises
-    where an anchor is not found (the source has moved on)."""
-    for old, new in PROFILE[name]:
+def instrumented(name: str, text: str, profile=None) -> str:
+    """``text`` (csrc/``name``) with the edits of ``profile[name]``
+    (default ``PROFILE``), each anchor replaced wherever it occurs;
+    raises where an anchor is not found (the source has moved on)."""
+    for old, new in (profile or PROFILE)[name]:
         if old not in text:
             raise ValueError(f"{name}: {old!r} is not in the source")
-        text = text.replace(old, new, 1)
+        text = text.replace(old, new)
     return text
 
 
@@ -434,6 +511,11 @@ def same_segments(a, b) -> bool:
         and torch.equal(a[0][sm], b[0][sm])
 
 
+def same_blocks(a, b) -> bool:
+    """Two whole-block parses agree on all five outputs."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def cells(dev):
     """name -> (raw, rlen, cand, seg or None, gaps or None) on ``dev``:
     the gaps (links 2, K9's with its floor) where K8-seg runs."""
@@ -465,8 +547,11 @@ def cells(dev):
     r, n = out["config 6"][:2]
     out[f"one block of {4 << 20}"] = cell(
         r[:4].reshape(1, 4 << 20), n[:4].sum().reshape(1).int(), 32768)
-    # config 1's bytes in 1 MiB blocks: K9 on the bytes K2 profiles
+    # K7's 64 KiB cell: config 1's first 64 blocks, parsed whole
     r, n = out["config 1"][:2]
+    out["64 blocks of 65536"] = cell(r[:64].contiguous(),
+                                     n[:64].contiguous(), None)
+    # config 1's bytes in 1 MiB blocks: K9 on the bytes K2 profiles
     out["config 1 in blocks of 1048576"] = cell(
         r.reshape(-1, 1 << 20), n.reshape(-1, 16).sum(1).int(), 8192)
     return out
@@ -574,6 +659,39 @@ def profile(cs, dev, stream) -> None:
               f"other warps {float(per[..., 6].mean()):.0f}; the boundary "
               f"(barriers and sweep) {float(per[..., 5].mean()):.0f}",
               flush=True)
+    k7 = _load("parse_enc3_prof", {
+        "parse_enc3.cu": instrumented("parse_enc3.cu",
+                                      _read(os.path.join(_build.CSRC,
+                                                         "parse_enc3.cu"))),
+        "parse_enc3_warp_prof.cuh": instrumented(
+            "parse_enc3_warp.cuh",
+            _read(os.path.join(_build.CSRC, "parse_enc3_warp.cuh")))},
+        "parse_enc3.cu", {"lz4t_parse_enc3_prof": "ppppppppiiiiipp"})
+    for name, (r, n, c, seg, _) in cs.items():
+        nb, bs = r.shape
+        if seg is not None or bs > 65536:
+            continue
+        cap = F.compress_bound(bs)
+        outs = K7.block_outputs(nb, bs, dev)
+        pr = torch.zeros((nb, 8), dtype=torch.int64, device=dev)
+        _build.check(k7.lz4t_parse_enc3_prof(
+            r.data_ptr(), c.data_ptr(), n.data_ptr(),
+            *(t.data_ptr() for t in outs), nb, bs, cap + 8, cap, 1,
+            pr.data_ptr(), stream), "parse_enc3_prof")
+        torch.cuda.synchronize(dev)
+        tot = pr.double().sum(0)
+        nq = tot[4].clamp(min=1)
+        busy = pr[:, :4].double().sum(1) + pr[:, 7].double()
+        print(f"K7 {name} ({nb} blocks, equal "
+              f"{same_blocks(outs, K7.parse_blocks_enc3(r, c, n))}): cycles "
+              f"a sequence: search {float(tot[0] / nq):.0f} "
+              f"({float(tot[6] / nq):.2f} rounds), the match's pick "
+              f"{float(tot[7] / nq):.0f}, catch-up {float(tot[1] / nq):.0f}, "
+              f"extension {float(tot[2] / nq):.0f}, emission "
+              f"{float(tot[3] / nq):.0f}; the wait for the bytes "
+              f"{float(tot[5] / nb):.0f} a warp; the busiest warp "
+              f"{float(busy.max()):.0f} cycles ({int(pr[busy.argmax(), 4])} "
+              f"sequences), the mean {float(busy.mean()):.0f}", flush=True)
     warp_prof = instrumented("parse_seg_warp.cuh",
                              texts["parse_seg_warp.cuh"])
     for src, key in (("parse_seg", "K3"), ("parse_seg_deep", "K8-seg")):
@@ -616,9 +734,10 @@ def profile(cs, dev, stream) -> None:
 
 
 def store_median(data: bytes, dev, chunk: int = 4096,
-                 nreq: int = STORE_REQUESTS) -> float:
+                 nreq: int = STORE_REQUESTS,
+                 match_depth: int | None = None) -> float:
     """Milliseconds, the median of ``nreq`` sequential ``ProxyStore``
-    writes of ``chunk`` bytes of ``data``."""
+    writes of ``chunk`` bytes of ``data`` (at ``match_depth``)."""
     import tempfile
     import time
 
@@ -628,7 +747,8 @@ def store_median(data: bytes, dev, chunk: int = 4096,
     lat = []
     with tempfile.TemporaryDirectory() as tmp:
         st = ProxyStore(os.path.join(tmp, "store.img"), chunk_size=chunk,
-                        capacity=nreq * chunk, device=dev)
+                        capacity=nreq * chunk, device=dev,
+                        match_depth=match_depth)
         for i in range(nreq):
             t0 = time.perf_counter()
             st.write(i * chunk, data[i * chunk:(i + 1) * chunk])
@@ -640,7 +760,7 @@ def store_median(data: bytes, dev, chunk: int = 4096,
 def runs_of(src: str, cs) -> list:
     """(cell name, call, comparison) of the cells a source's kernel runs
     on: K2 at 64 KiB and less, K9 above, K3 and K8-seg where a segment
-    size (and for K8-seg the gaps) is given."""
+    size (and for K8-seg the gaps) is given, K7 where none is."""
     out = []
     for name, (r, n, c, seg, g) in cs.items():
         bs = r.shape[1]
@@ -653,6 +773,9 @@ def runs_of(src: str, cs) -> list:
         elif src == "parse_seg" and seg is not None:
             out.append((name, lambda r=r, n=n, c=c, seg=seg:
                         K3.parse_segments(r, c, n, seg=seg), same_segments))
+        elif src == "parse_enc3" and seg is None and bs <= 65536:
+            out.append((name, lambda r=r, n=n, c=c:
+                        K7.parse_blocks_enc3(r, c, n), same_blocks))
         elif src == "parse_seg_deep" and g is not None:
             out.append((name, lambda r=r, n=n, c=c, seg=seg, g=g:
                         K8S.parse_segments_deep(r, c, g, n, seg=seg),
@@ -700,7 +823,16 @@ def main(argv=None) -> int:
                         f"{ns.numel()} segments (mean "
                         f"{float(ns.double().mean()):.1f}, most "
                         f"{int(ns.max())})")
-        if "one" not in name:
+        if seg is None and bs <= 65536:
+            def k7(r=r, c=c, n=n):
+                return K7.parse_blocks_enc3(r, c, n)
+            ns = k7()[4].to(torch.int64)
+            t = ms(k7, dev)
+            line.append(f"K7 {t:.4f} ms; {int(ns.sum())} sequences in "
+                        f"{ns.numel()} blocks (mean "
+                        f"{float(ns.double().mean()):.1f}, most "
+                        f"{int(ns.max())})")
+        if "one" not in name and "64 blocks" not in name:
             t = ms(lambda: compress_blocks_device(r, n, bs), dev)
             line.append(f"the encode kernel path {t:.3f} ms")
             if g is not None:
@@ -717,8 +849,9 @@ def main(argv=None) -> int:
         others += [(f"parent {s}", s, lib) for s, lib in parents.items()]
     if a.store:
         from __graft_entry__ import _synth_corpus
-        shapes = [("cand", K2, 4096, STORE_REQUESTS,
-                   _synth_corpus(STORE_REQUESTS * 4096))]
+        small = _synth_corpus(STORE_REQUESTS * 4096)
+        shapes = [(src, MODS[src], 4096, STORE_REQUESTS, small)
+                  for src in ("cand", "parse_enc3")]
         big = _synth_corpus(max(c * k for c, k in BIG_STORES), seed=55)
         shapes += [("cand_piecewise", K9, c, k, big) for c, k in BIG_STORES]
         for r in range(a.store):

@@ -3,10 +3,11 @@ version.
 
 ``decompress_blocks_lockstep_v9`` deals the blocks into chains of
 ``chain`` (torch ops), decodes them with ``csrc/decode_v9.cu`` (the port
-of ``tools/retired/lockstep_v9.py:_kernel``: one warp a chain, K1's walk
-for each block in turn), and undoes the deal, for a CUDA tensor; for a
-CPU tensor it runs ``decompress_blocks_lockstep_v9_plain``, which decodes
-the dealt rows with K1's plain decoder.
+of ``tools/retired/lockstep_v9.py:_kernel``: one warp a chain, the warp
+walk of ``csrc/lz4_decode.cuh`` for each block in turn), and undoes the
+deal, for a CUDA tensor; for a CPU tensor it runs
+``decompress_blocks_lockstep_v9_plain``, which decodes the dealt rows
+with K1's plain decoder.
 
 Contract, per block: K1's ``(out uint8 [B, out_size], out_len int32 [B],
 err bool [B])``, ``golden.decompress`` with an error row all zero (the

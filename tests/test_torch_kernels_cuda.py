@@ -11,8 +11,11 @@ K2's split table at 4, 8 and 64 KiB and K3's warp walk at 16 and 64 KiB
 and 1 MiB, acceleration 1 and 8 (``-k "k2 or k3"``); K9's runs of
 half-pieces (a zero and a short block, a single block and 128, piece
 4096, the run length) and K8-seg's warp walk at 16 and 64 KiB and 1 MiB,
-acceleration 1 and 8, window 65536 and 4096 (``-k "k9 or k8_seg"``).
-Marked ``cuda``; each test skips itself when no card is present.
+acceleration 1 and 8, window 65536 and 4096 (``-k "k9 or k8_seg"``);
+K1 at 16 and 64 KiB (the whole block in shared memory) and 128 KiB
+(K6's ring) on mutants and the crafted streams, and K7's warp walk at 4
+KiB, 5,000 bytes, 60,000 and 64 KiB, acceleration 1 and 8 (``-k "k1 or
+k7"``). Marked ``cuda``; each test skips itself when no card is present.
 Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -171,12 +174,18 @@ def test_k4_assembly_and_engine_bytes(dev):
         assert not comp[j, clen[j]:].any(), j
 
 
-def test_k1_decode_and_mutants(dev):
-    bs = 65536
-    bases = [golden.compress(b) for b in _blocks(bs)]
+@pytest.mark.parametrize("bs", [16384, 65536, 131072])
+def test_k1_decode_and_mutants(dev, bs):
+    """K1 at 16 and 64 KiB (the whole block in shared memory) and 128 KiB
+    (K6's ring) on golden's streams of ``_blocks``, 256 mutants of them
+    and the crafted streams (``crafted_streams``: stage bounds, far and
+    overlapping offsets, each error late in a long stream, clen ==
+    slot), against the plain decoder and golden.decompress."""
+    bases = [golden.compress(b[:bs]) for b in _blocks(bs)]
     rng = np.random.default_rng(77)
     slot = F.compress_bound(bs) + 8
-    payloads = bases + make_mutants(bases, rng, 256, slot - 8)
+    payloads = bases + make_mutants(bases, rng, 256, slot - 8) + [
+        s for _, s in crafted_streams(bs)]
     comp = np.zeros((len(payloads), slot), np.uint8)
     clen = np.zeros(len(payloads), np.int32)
     for j, c in enumerate(payloads):
@@ -213,21 +222,29 @@ def test_slice_runs_every_kernel(dev):
     assert min(m.launches for m in (K1, K2, K3, K4)) > 0
 
 
-@pytest.mark.parametrize("bs", [4096, 60000])
-def test_k7_parse(dev, bs):
+@pytest.mark.parametrize("bs,accel", [(4096, 1), (4096, 8), (5000, 1),
+                                      (5000, 8), (60000, 1), (65536, 1),
+                                      (65536, 8)])
+def test_k7_parse(dev, bs, accel):
+    """K7's warp walk on ``_blocks`` (text, zeros, random bytes, short
+    blocks, blocks under 13 bytes) and 5,000-byte corpus text, against
+    its plain version (all five outputs) and golden.compress_dense with
+    its tail; at 4 KiB 308 blocks, many CTAs an SM."""
     blocks = [b[:bs] for b in _blocks(max(bs, 8192))] + [
-        b"", b"a", b"x" * 13]
+        b"", b"a", b"x" * 13, (LOREM * 100)[:5000][:bs]]
+    if bs == 4096:
+        blocks = blocks * 22
     raw, rlen = _batch(blocks, bs, dev)
     cand = K2.dense_candidates(raw, rlen)
-    got = K7.parse_blocks_enc3(raw, cand, rlen)
-    want = K7.parse_blocks_enc3_plain(raw, cand, rlen)
+    got = K7.parse_blocks_enc3(raw, cand, rlen, accel)
+    want = K7.parse_blocks_enc3_plain(raw, cand, rlen, accel)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     out, out_len, err, tails, _ = (t.cpu().numpy() for t in got)
     assert not err.any()
-    for j, b in enumerate(blocks):
-        w = golden.compress_dense(b, hashlog=16)
+    for j, b in enumerate(blocks[:14]):
+        w = golden.compress_dense(b, accel, hashlog=16)
         assert out[j, :out_len[j]].tobytes() == w, j
         assert not out[j, out_len[j]:].any(), j
         assert int(tails[j]) == golden.tail_offset(w), j

@@ -1,5 +1,6 @@
-"""K6's ring decode (``csrc/lz4_decode_ring.cuh``) emulated on the CPU
-and held against ``decompress_blocks_plain`` (out, out_len, err) on the
+"""K6's ring decode (``csrc/lz4_decode_ring.cuh``, the geometry of the
+128 KiB history ring) emulated on the CPU and held against
+``decompress_blocks_plain`` (out, out_len, err) on the
 crafted streams of ``chip_smoke.crafted_streams``: an offset of exactly
 65,535, matches across the history ring's wrap and from sources across
 it, overlapping matches at offsets 1-4, LSIC runs over stage boundaries,
@@ -16,8 +17,11 @@ the general walk between them; the 128 KiB output ring (garbage at
 first) with the step rule of the match copy; flushes of the pending
 bytes to an output row that starts as garbage (the wrapper's
 ``torch.empty``); and the final zeroing of the row past the decoded
-bytes, or all of it on an error. The card runs the
-kernel itself on the same streams (``test_torch_kernels_cuda.py``)."""
+bytes, or all of it on an error. ``emulate(..., whole=True)`` is K1's
+geometry (``test_torch_ring_decode_v7.py``): the block's whole output in
+a 64 KiB region, never flushed during the walk, and the row written
+from it at the end. The card runs the kernel itself on the same streams
+(``test_torch_kernels_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -32,9 +36,11 @@ from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 STAGE_LOG = 13      # ring::kStageLog
 STAGE = 1 << STAGE_LOG
 STAGES = 4          # ring::kStages
-OUT_RING = 1 << 17  # ring::kOutRing
+OUT_RING = 1 << 17  # ring::Geom<false>::kOutRing
+WHOLE = 1 << 16     # ring::kWholeMax, ring::Geom<true>::kOutRing
 FLUSH = 16384       # ring::kFlush
 PIECE = 4096        # ring::kPiece
+STEP = 128          # ring::kStep, the general walk's match step
 OUT_SIZE = 393216   # slot 394,782: 14 mod 16, so rows start at every head
 WINDOW = 256        # ring::kWindow
 BATCH_OUT = 16384   # ring::kBatchOut
@@ -95,37 +101,43 @@ class Stream:
 
 
 class Out:
-    """The history ring and the flushed prefix (``ring::Out``)."""
+    """The output region and the flushed prefix (``ring::Out``): K6's
+    history ring, or with ``whole`` K1's 64 KiB block, never flushed."""
 
-    def __init__(self, flat_out, row_start, rng):
+    def __init__(self, flat_out, row_start, rng, whole=False):
         self.g = flat_out
         self.gbase = row_start & ~15
         self.ohead = row_start & 15
         self.fx = self.ohead
-        self.ring = rng.integers(0, 256, OUT_RING, dtype=np.uint8)
+        self.whole = whole
+        self.size = WHOLE if whole else OUT_RING
+        self.ring = rng.integers(0, 256, self.size, dtype=np.uint8)
 
     def idx(self, o):
-        return (self.ohead + o) & (OUT_RING - 1)
+        return (self.ohead + o) & (self.size - 1)
 
     def flush_to(self, xe):
+        assert not self.whole
         for x in range(self.fx, xe):
-            self.g[self.gbase + x] = self.ring[x & (OUT_RING - 1)]
+            self.g[self.gbase + x] = self.ring[x & (self.size - 1)]
         self.fx = xe
 
     def check(self, op):
         x = self.ohead + op
-        if x - self.fx >= FLUSH:
+        if not self.whole and x - self.fx >= FLUSH:
             self.flush_to(x & ~15)
 
 
-def match_step(out, op, off, ml):
-    """A match of ``ml`` bytes at ``op``, 32 a step, each lane reading
-    ``step_back`` bytes back: all of a step's reads, then its writes."""
-    lanes = np.arange(32)
-    back = off + lanes - lanes % min(off, 32)
-    for b in range(0, ml, 32):
-        live = b + lanes < ml
-        o = op + b + lanes[live]
+def match_step(out, op, off, ml, step=32):
+    """A match of ``ml`` bytes at ``op``, ``step`` bytes a step (32 in a
+    batch's waves, ``STEP`` in the general walk), byte i of a step reading
+    ``off`` bytes back from ``step`` on, else ``off + i - i % off`` (the
+    step rule): all of a step's reads, then its writes."""
+    i = np.arange(step)
+    back = np.where(off >= step, off, off + i - i % off)
+    for b in range(0, ml, step):
+        live = b + i < ml
+        o = op + b + i[live]
         out.ring[out.idx(o)] = out.ring[out.idx(o - back[live])]
 
 
@@ -294,17 +306,19 @@ def walk(inp, out, ilen, slot, out_size):
             break
         while ml > 0:
             piece = min(ml, PIECE)
-            match_step(out, op, off, piece)
+            match_step(out, op, off, piece, STEP)
             op += piece
             ml -= piece
             out.check(op)
-    if not bad:
+    if not bad and not out.whole:
         out.flush_to(out.ohead + op)
     return -1 if bad else op
 
 
-def emulate(comp, comp_len, out_size, seed=0):
-    """The kernel's (out, out_len, err) for every row."""
+def emulate(comp, comp_len, out_size, seed=0, whole=False):
+    """The kernel's (out, out_len, err) for every row; ``whole``: K1's
+    geometry (``out_size`` at most 64 KiB)."""
+    assert not whole or out_size <= WHOLE
     rng = np.random.default_rng(seed)
     nb, slot = comp.shape
     flat = np.concatenate([comp.numpy().reshape(-1),
@@ -314,11 +328,14 @@ def emulate(comp, comp_len, out_size, seed=0):
     for j in range(nb):
         ilen = int(comp_len[j])
         inp = Stream(flat, j * slot, ilen, slot, rng)
-        out = Out(flat_out, j * out_size, rng)
+        out = Out(flat_out, j * out_size, rng, whole)
         n = walk(inp, out, ilen, slot, out_size)
         for s in range(inp.cur + 1, min(inp.cur + STAGES, inp.nst)):
             inp.wait(s)                                       # drain
         z0 = 0 if n < 0 else n
+        if whole:               # the row from the region, by the CTA
+            row = j * out_size + np.arange(n if n > 0 else 0)
+            flat_out[row] = out.ring[out.idx(row - j * out_size)]
         flat_out[j * out_size + z0:(j + 1) * out_size] = 0
         lens.append(max(n, 0))
         errs.append(n < 0)

@@ -2,7 +2,8 @@
 CPU, lane for lane, and held bit for bit against
 ``parse_blocks_enc3_deep_plain`` (all five outputs) on 4 KiB blocks at
 depth 3 and 5 and acceleration 1 and 8, with a short, a random and an
-all-zero block among them.
+all-zero block among them. ``WarpWalk`` at depth 1 is K7's walk (K3's
+hit test, no previews or lazy step; ``test_torch_warp_enc3.py``).
 
 The emulation keeps the kernel's decisions and its memory: the 32-probe
 round with the closed-form skip schedule and the first-hit ballot; the
@@ -99,9 +100,9 @@ class TapeRing:
 class WarpWalk:
     """One warp's walk (``Walk<N>::run``)."""
 
-    def __init__(self, block, bs, tapes, accel, depth, rng):
+    def __init__(self, block, bs, tapes, accel, depth, rng, cap=None):
         self.n, self.bs, self.accel, self.N = len(block), bs, accel, depth
-        self.cap = F.compress_bound(bs)
+        self.cap = F.compress_bound(bs) if cap is None else cap
         self.s = block + rng.integers(0, 256, SLACK,
                                       dtype=np.uint8).tobytes()
         self.tapes = TapeRing(tapes, bs, rng)
@@ -132,6 +133,10 @@ class WarpWalk:
         return m >= 0 and dd <= MAX_D and self.rd32(m) == v
 
     def probe_hits(self, p):
+        if self.N == 1:                  # K3's test
+            d = self.tapes.read(0, p)
+            return 0 < d <= MAX_D and d <= p and \
+                self.rd32(p - d) == self.rd32(p)
         ds, live = self.chain(p)
         v = self.rd32(p)
         return any(live[i] and self.usable(p, ds[i], v)
@@ -217,12 +222,15 @@ class WarpWalk:
                 k0 += int(act.sum())
             if hp < 0:
                 break
-            lazy = hp + 1 <= mfl
-            mca, mpos, mb, mposb = self.previews(hp, lazy, mlim)
-            pos, pmc = hp, mca
-            if lazy and mb > mca:
-                pos, mpos, pmc = hp + 1, mposb, mb
-            pcl = min(mlim - pos - 4, 64)
+            if self.N == 1:              # hp's candidate, no preview
+                pos, mpos, pmc, pcl = hp, hp - self.tapes.read(0, hp), 0, 0
+            else:
+                lazy = hp + 1 <= mfl
+                mca, mpos, mb, mposb = self.previews(hp, lazy, mlim)
+                pos, pmc = hp, mca
+                if lazy and mb > mca:
+                    pos, mpos, pmc = hp + 1, mposb, mb
+                pcl = min(mlim - pos - 4, 64)
             back = 0
             while True:                                    # catch-up
                 ok = [j < pos - anchor and j < mpos
@@ -300,15 +308,17 @@ class WarpWalk:
                     o = self.lsic(o, lit - 15)
                 self.d[o:o + lit] = s[anchor:n]
                 o += lit
-        row = np.zeros(self.cap + 8, np.uint8)
+        row = np.zeros(F.compress_bound(self.bs) + 8, np.uint8)
         if bad:
             return row, 0, True, 0, 0
         row[:o] = np.frombuffer(bytes(self.d[:o]), np.uint8)
         return row, o, False, tpos, nseq
 
 
-def emulate(raw, cand, gaps, gaps2, rlen, accel, depth, seed=0):
-    """The kernel's five outputs, one WarpWalk a block."""
+def emulate(raw, cand, gaps, gaps2, rlen, accel, depth, seed=0, cap=None):
+    """The kernel's five outputs, one WarpWalk a block (depth 1: K7's
+    walk, gaps and gaps2 None; ``cap``: the stream's limit, by default
+    ``compress_bound(block_size)``)."""
     rng = np.random.default_rng(seed)
     nb, bs = raw.shape
     tapes = [t.numpy().astype(np.int64) for t in (cand, gaps, gaps2)
@@ -317,7 +327,7 @@ def emulate(raw, cand, gaps, gaps2, rlen, accel, depth, seed=0):
     for j in range(nb):
         n = min(max(int(rlen[j]), 0), bs)
         w = WarpWalk(raw[j, :n].numpy().tobytes(), bs,
-                     [t[j] for t in tapes], accel, depth, rng)
+                     [t[j] for t in tapes], accel, depth, rng, cap)
         r, o, e, tp, ns = w.run()
         rows.append(r)
         lens.append(o)
