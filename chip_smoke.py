@@ -147,7 +147,8 @@ enc3 function's ``mlen`` argument) on config 1's corpus, in
 25. mcode and K10b on the 32-block 64 KiB subset, K10c on the 64-block
     4 KiB subset, against their plain versions exactly and against K3 and
     K7 on the unverified tape; mcode against golden.dense_mcode on 4
-    blocks;
+    blocks; K10b and K10c on these subsets in turns with the parent
+    tree's when ``--parent`` names one;
 26. all 512 blocks of 64 KiB through the seg engine with and without the
     mode: the same bytes, and 16 blocks equal golden.compress_dense_seg;
 27. ``lz4_sgori_torch.compress`` / ``decompress`` with the variable set
@@ -160,7 +161,9 @@ enc3 function's ``mlen`` argument) on config 1's corpus, in
 28. times, each pair in turns: the compress walls with and without the
     mode (host clock), and with CUDA events the mlen encode kernel path
     against the default one on the same blocks, K10b against K3 and K10c
-    against K7 over the corpus, mcode, and each beside its plain version.
+    against K7 over the corpus, mcode, and each beside its plain version;
+    K10b and K10c over the corpus and on one block, each in turns with the
+    parent tree's when ``--parent`` names one.
 
 The retired round-1 engines (``lz4_sgori_torch.retired``: T1 the greedy
 encoder, T2 the scalar decoder, T3 the chained decoder; kernels
@@ -2663,6 +2666,17 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
               f"tape), K10c on {SUBSET4} blocks of {BLOCK4} (== K7); mcode "
               f"== golden.dense_mcode on {len(msel)} "
               f"({time.perf_counter() - t0:.1f} s)")
+        # K10b and K10c on the subsets, in turns with the parent's
+        old10b = load_parent(K10B, "parse_seg_mlen")
+        old10c = load_parent(K10C, "parse_enc3_mlen")
+        against_parent(time_ms, K10B, old10b,
+                       lambda: K10B.parse_segments_mlen(rs, cv, mc, ls), 10,
+                       f"K10b on {SUBSET} blocks of {BLOCK}", card,
+                       same_parse(torch, maxdiff, "K10b"))
+        against_parent(time_ms, K10C, old10c,
+                       lambda: K10C.parse_blocks_enc3_mlen(r4s, cv4, mc4,
+                                                           l4s), 10,
+                       f"K10c on {SUBSET4} blocks of {BLOCK4}", card)
 
         # ---- phase 26: every block with and without the mode ----
         t0 = time.perf_counter()
@@ -2775,6 +2789,25 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
     k7_ms, k10c_ms = in_turns(
         time_ms, lambda: K7.parse_blocks_enc3(raw4, f4, rlen4),
         lambda: K10C.parse_blocks_enc3_mlen(raw4, f4v, f4m, rlen4), 5)
+    # K10b and K10c over the corpus and on one block, in turns with the
+    # parent's kernels
+    against_parent(time_ms, K10B, old10b,
+                   lambda: K10B.parse_segments_mlen(raw, fcv, fmc, rlen), 5,
+                   f"K10b over config 1 ({nb} blocks of {BLOCK}, seg 4096)",
+                   card, same_parse(torch, maxdiff, "K10b"))
+    against_parent(time_ms, K10C, old10c,
+                   lambda: K10C.parse_blocks_enc3_mlen(raw4, f4v, f4m,
+                                                       rlen4), 5,
+                   f"K10c over config 3 ({nb4} blocks of {BLOCK4})", card)
+    one = [t[:1].contiguous() for t in (raw, fcv, fmc, rlen)]
+    against_parent(time_ms, K10B, old10b,
+                   lambda: K10B.parse_segments_mlen(*one), 20,
+                   f"K10b on one block of {BLOCK}", card,
+                   same_parse(torch, maxdiff, "K10b"))
+    one4 = [t[:1].contiguous() for t in (raw4, f4v, f4m, rlen4)]
+    against_parent(time_ms, K10C, old10c,
+                   lambda: K10C.parse_blocks_enc3_mlen(*one4), 20,
+                   f"K10c on one block of {BLOCK4}", card)
     full = {"mcode (64 KiB)": time_ms(lambda: M.dense_mcode(fc, raw, rlen),
                                       5),
             "mcode (4 KiB)": time_ms(lambda: M.dense_mcode(f4, raw4, rlen4),

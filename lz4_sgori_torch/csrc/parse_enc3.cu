@@ -37,8 +37,9 @@
 // walks differ threefold in length, so an SM takes the next block as
 // soon as any walk ends. On config 3, 2, 4, 8 and 16 blocks a CTA took
 // some 1.10x, 1.31x, 1.55x and 1.67x the time of one. The first design
-// (one thread a block, greedy_parse.cuh from global memory) ran 8192
-// serial walks, some 2 warps an SM.
+// (one thread a block from global memory) ran 8192 serial walks, some 2
+// warps an SM. K10c (parse_enc3_mlen.cu) runs the same walk in the mlen
+// mode.
 
 #include "parse_enc3_warp.cuh"
 

@@ -1,21 +1,23 @@
-// The whole-block parses of K7 (parse_enc3.cu) and K8-enc3
-// (parse_enc3_deep.cu), one warp a block, the block resident in shared
-// memory. At N = 3 and 5 candidates a probe it computes the serial parse
-// of golden.compress_deep (its loop and best-of-N probe, best_at, as the
-// first design's one-thread kernel ran it over the whole block, then the
-// terminal literal run); at N = 1 that of golden.compress_dense
-// (greedy_parse.cuh's loop over one segment spanning the block, then the
-// terminal literal run). Bit for bit, with the 32 lanes splitting each
-// step of the walk:
+// The whole-block parses of K7 (parse_enc3.cu), K8-enc3
+// (parse_enc3_deep.cu) and K10c (parse_enc3_mlen.cu), one warp a block,
+// the block resident in shared memory. At N = 3 and 5 candidates a probe
+// it computes the serial parse of golden.compress_deep (its loop and
+// best-of-N probe, best_at, as the first design's one-thread kernel ran
+// it over the whole block, then the terminal literal run); at N = 1 that
+// of golden.compress_dense (its greedy loop over one segment spanning the
+// block, then the terminal literal run), and in the mlen mode (Mlen, N =
+// 1, K10c) the same over the verified candidates and match codes of
+// mcode.cu (golden.dense_mcode). Bit for bit, with the 32 lanes splitting
+// each step of the walk:
 //
 // - The block. Its n bytes go into shared memory by one cp.async.bulk
 //   (from the row's address rounded down to 16: raw byte i lies at rhead
 //   + i). Reads run past n by at most 132 bytes, into slack whose bytes
 //   only ever meet a cap (cl, lim) that excludes them.
-// - The tapes. cand, at N = 3 and 5 gaps, and at N = 5 gaps2, an int32
-//   a position, stream through a ring of kChunks chunks of kChunk
-//   positions a tape, one cp.async group a chunk (empty past the block).
-//   The walk reads them at increasing positions only; a round waits for
+// - The tapes. cand, at N = 3 and 5 gaps, at N = 5 gaps2, and in the
+//   mlen mode cand_v and mcode, an int32 a position, stream through a
+//   ring of kChunks chunks of kChunk positions a tape, one cp.async group
+//   a chunk (empty past the block). The walk reads them at increasing positions only; a round waits for
 //   every chunk but the last one issued, so kChunk x (kChunks - 1)
 //   positions from the round's first chunk are resident.
 // - The search. The skip schedule is fixed from a sequence's start: with
@@ -25,12 +27,13 @@
 //   first round's offsets, the same for every sequence, computed once).
 //   At N = 1 a probe at p hits when d = cand[p] has 0 < d <= 65535, d <=
 //   p and read32 at p - d equals read32 at p (K3's test,
-//   parse_seg_warp.cuh). At N = 3 and 5 it hits when one of its chain
-//   candidates passes best_at's checks (d1 in (0, wlim], each link while
-//   the gaps before it are non-zero, m >= 0, d <= wlim, read32 equal;
-//   every candidate's word is read and masked after, so the lanes do not
-//   diverge). The ballot's first hit is the probe the serial loop stops
-//   at.
+//   parse_seg_warp.cuh); in the mlen mode with no read32 (pass 1 verified
+//   the candidate and zeroed one that failed). At N = 3 and 5 it hits
+//   when one of its chain candidates passes best_at's checks (d1 in (0,
+//   wlim], each link while the gaps before it are non-zero, m >= 0, d <=
+//   wlim, read32 equal; every candidate's word is read and masked after,
+//   so the lanes do not diverge). The ballot's first hit is the probe the
+//   serial loop stops at.
 // - The previews (N = 3 and 5). The hit probe p's candidates and p + 1's
 //   (when p + 1 <= mfl) are previewed together, two lanes a candidate, 32
 //   bytes a lane as 8 words of XOR (the first set bit of the first
@@ -39,11 +42,15 @@
 //   the largest key (mc + 1) << 4 | (15 - i) over the lanes
 //   (__reduce_max_sync). The lazy step is taken when p + 1's best is
 //   strictly longer.
-// - Catch-up compares 32 bytes back a step. The extension starts from
-//   what is known equal: the catch-up's bytes, read32's 4 and (N > 1) the
-//   winner's preview; a preview that stopped short of its 64 bytes (or at
-//   mlim's cap) ends the match, else (and at N = 1 always) it goes on 128
-//   bytes a step (a word a lane) to mlim. Literals copy a byte a lane;
+// - Catch-up compares 32 bytes back a step; in the mlen mode it first
+//   goes back delta = min(cu, pos - anchor, mpos) bytes from the hit's
+//   code and compares on only when delta is the code's cap, 4. The
+//   extension starts from what is known equal: the catch-up's bytes,
+//   read32's 4 and (N > 1) the winner's preview or (mlen) the code's lcp;
+//   a preview that stopped short of its 64 bytes (or at mlim's cap), or an
+//   lcp short of 8, ends the match, else (and at N = 1 outside the mlen
+//   mode always) it goes on 128 bytes a step (a word a lane) to mlim.
+//   Literals copy a byte a lane;
 //   LSIC runs of 255 are written a lane each. The token and the header
 //   bytes are lane 0's.
 // - The output. The stream is staged in shared memory (out byte o at
@@ -66,9 +73,10 @@ constexpr int kMaxWarps = 8;        // blocks a CTA (small blocks)
 constexpr int kMaxWarps1 = 1;       // at N = 1 (K7): a CTA a block
 constexpr int kSmemLimit = 232448;  // the H100's opt-in shared memory
 
-// The tapes a walk at N candidates reads: cand; gaps; gaps2.
-__host__ __device__ constexpr int tapes(int N) {
-  return N == 1 ? 1 : N > 3 ? 3 : 2;
+// The ring tapes a walk at N candidates reads: cand; gaps; gaps2 (the mlen
+// mode: cand_v; mcode).
+__host__ __device__ constexpr int tapes(int N, bool mlen = false) {
+  return N == 1 ? (mlen ? 2 : 1) : N > 3 ? 3 : 2;
 }
 __host__ __device__ constexpr int max_warps(int N) {
   return N == 1 ? kMaxWarps1 : kMaxWarps;
@@ -143,12 +151,14 @@ struct Layout {
 };
 
 // One block's walk by one warp. Returns {o, tail offset, nseq} through
-// the references; false when the stream would pass cap.
-template <int N>
+// the references; false when the stream would pass cap. Mlen: the mlen
+// mode (N = 1), tape 1 the codes.
+template <int N, bool Mlen = false>
 struct Walk {
+  static_assert(!Mlen || N == 1, "the mlen mode at one candidate");
   const uint8_t* s;          // raw, shifted so that s[i] is byte i
   uint8_t* d;                // staged stream, d[o] is output byte o
-  int* ring[3];              // tape rings: cand, gaps, gaps2
+  int* ring[3];              // tape rings: cand, gaps, gaps2 (or mcode)
   const int* tape[3];        // the block's rows of the tapes
   int chunk_log, wmask;      // positions a chunk (log), ring positions - 1
   int wbase, whi;            // the resident window's first chunk, issued
@@ -171,7 +181,7 @@ struct Walk {
     const int lo = c << chunk_log;
     if (lo < bs) {
       const int hi = min(lo + C, bs);
-      for (int t = 0; t < tapes(N); t++) {
+      for (int t = 0; t < tapes(N, Mlen); t++) {
         if (vec16 && hi - lo == C) {
           for (int i = 4 * lane; i < C; i += 128)
             cp_async16(&ring[t][(lo + i) & wmask], tape[t] + lo + i);
@@ -230,13 +240,15 @@ struct Walk {
     return (m >= 0) & (dd <= 65535) & (rd32(min(max(m, 0), p)) == v);
   }
 
-  // Whether the probe at p hits: at N = 1 K3's test; else whether some
-  // chain candidate passes best_at's checks. Every candidate's word is
-  // read, live or not, so that the lanes do not diverge.
+  // Whether the probe at p hits: at N = 1 K3's test (Mlen: without
+  // read32); else whether some chain candidate passes best_at's checks.
+  // Every candidate's word is read, live or not, so that the lanes do not
+  // diverge.
   __device__ bool probe_hits(int p) const {
     if constexpr (N == 1) {
       const int d = tp(0, p);
       const bool ok = (d > 0) & (d <= 65535) & (d <= p);
+      if constexpr (Mlen) return ok;
       return ok & (rd32(ok ? p - d : p) == rd32(p));
     }
     int ds[5];
@@ -306,7 +318,7 @@ struct Walk {
   }
 
   // The whole parse: the serial loop at s0 = 0, window 65535, then the
-  // terminal literals (as parse_enc3.cuh). Returns false for err.
+  // terminal literals. Returns false for err.
   __device__ bool run(int& o_out, int& tpos, int& nseq_out) {
     const int mfl = n - 12, mlim = n - 5;
     const long long A = (long long)accel << 6;
@@ -350,11 +362,17 @@ struct Walk {
       }
       if (hp < 0) break;
       // ---- the match: hp's candidate (N = 1), or the best at hp and the
-      // lazy step at hp + 1 (pmc: the winner's preview, pcl its cap) ----
-      int mpos, pmc = 0, pcl = 0;
+      // lazy step at hp + 1 (pmc: the winner's preview, pcl its cap; Mlen:
+      // the code's lcp, capped at 8) ----
+      int mpos, pmc = 0, pcl = 0, code = 0;
       pos = hp;
       if constexpr (N == 1) {
         mpos = hp - tp(0, hp);
+        if constexpr (Mlen) {
+          code = tp(1, hp);
+          pmc = (code >> 1) & 15;
+          pcl = 8;
+        }
       } else {
         int mb, mposb;
         const bool lazy = hp + 1 <= mfl;
@@ -368,7 +386,16 @@ struct Walk {
       }
       int back = 0;                    // bytes the catch-up goes back
       // ---- catch-up, 32 bytes a step, capped at the anchor ----
-      for (;;) {
+      // (Mlen: the code's cu bytes first, then the steps only where they
+      // reached its cap)
+      bool steps = true;
+      if constexpr (Mlen) {
+        back = min(min((code >> 6) & 7, pos - anchor), mpos);
+        pos -= back;
+        mpos -= back;
+        steps = back == 4;
+      }
+      while (steps) {
         const bool ok = lane < pos - anchor && lane < mpos &&
                         s[pos - 1 - lane] == s[mpos - 1 - lane];
         const unsigned stop = __ballot_sync(kAll, !ok);
@@ -405,7 +432,8 @@ struct Walk {
       // known equal: the catch-up's, read32's and the preview's. A preview
       // that stopped before its cap (or at mlim's) ends the match there;
       // one that ran the 64 bytes goes on from its end. At N = 1 there is
-      // no preview (pmc = pcl = 0): the extension goes on from read32's 4.
+      // no preview (pmc = pcl = 0): the extension goes on from read32's 4;
+      // in the mlen mode from the code's lcp bytes, when they are its cap.
       const int p = pos + 4, m = mpos + 4, lim = mlim - p;
       int mc = back + pmc;
       for (bool more = pmc == pcl && mc < lim; more;) {
@@ -454,7 +482,7 @@ struct Walk {
   }
 };
 
-template <int N>
+template <int N, bool Mlen>
 __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
                                   const int* __restrict__ cand,
                                   const int* __restrict__ gaps,
@@ -470,7 +498,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = blockIdx.x * (blockDim.x >> 5) + warp;
   if (t >= nb) return;
-  const Layout L(bs, cap, tapes(N));
+  const Layout L(bs, cap, tapes(N, Mlen));
   uint8_t* base = smem + (size_t)warp * L.bytes;
   uint8_t* raw_s = base;
   uint8_t* out_s = base + L.raw;
@@ -483,13 +511,13 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   const int rhead = (int)((uintptr_t)src & 15);
   const int ohead = (int)((uintptr_t)dst & 15);
 
-  Walk<N> w;
+  Walk<N, Mlen> w;
   w.s = raw_s + rhead;
   w.d = out_s + ohead;
   const int W = kChunks << L.chunk_log;
   for (int i = 0; i < 3; i++) w.ring[i] = ring0 + i * W;
   w.tape[0] = cand + (size_t)t * bs;
-  w.tape[1] = N > 1 ? gaps + (size_t)t * bs : nullptr;
+  w.tape[1] = N > 1 || Mlen ? gaps + (size_t)t * bs : nullptr;
   w.tape[2] = N > 3 ? gaps2 + (size_t)t * bs : nullptr;
   w.chunk_log = L.chunk_log;
   w.wmask = W - 1;
@@ -501,7 +529,7 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
   w.accel = accel;
   w.lane = lane;
   w.vec16 = ((uintptr_t)w.tape[0] & 15) == 0 &&
-            (N == 1 || ((uintptr_t)w.tape[1] & 15) == 0) &&
+            (tapes(N, Mlen) == 1 || ((uintptr_t)w.tape[1] & 15) == 0) &&
             (N <= 3 || ((uintptr_t)w.tape[2] & 15) == 0);
 
   // the block by one bulk copy: every 16 bytes of it hold a byte of src
@@ -541,31 +569,32 @@ __global__ void parse_warp_kernel(const uint8_t* __restrict__ raw,
 }  // namespace warp_parse
 
 // One warp a block; blocks a CTA as shared memory allows (one at 64 KiB,
-// up to max_warps(N) for small blocks). A shared-memory size the card
-// refuses is returned as the launch's error. Internal linkage: the
-// static below must be this library's own, not one that another build of
-// this header loaded in the same process (a parent tree's) would share.
-template <int N>
+// up to max_warps(N) for small blocks). gaps: the second tape (the mlen
+// mode's codes). A shared-memory size the card refuses is returned as the
+// launch's error. Internal linkage: the static below must be this
+// library's own, not one that another build of this header loaded in the
+// same process (a parent tree's) would share.
+template <int N, bool Mlen = false>
 static int launch_parse_warp(const void* raw, const void* cand, const void* gaps,
                       const void* gaps2, const void* raw_len, void* out,
                       void* out_len, void* err, void* tails, void* nseq,
                       int nb, int bs, int slot, int cap, int accel,
                       void* stream) {
   using namespace warp_parse;
-  const Layout L(bs, cap, tapes(N));
+  const Layout L(bs, cap, tapes(N, Mlen));
   const int wpc = max(1, min(max_warps(N), kSmemLimit / L.bytes));
   const int bytes = wpc * L.bytes;
   static int sized = 0;
   if (bytes > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        parse_warp_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        parse_warp_kernel<N, Mlen>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     sized = bytes;
   }
   if (nb > 0)
-    parse_warp_kernel<N><<<(nb + wpc - 1) / wpc, 32 * wpc, bytes,
-                           (cudaStream_t)stream>>>(
+    parse_warp_kernel<N, Mlen><<<(nb + wpc - 1) / wpc, 32 * wpc, bytes,
+                                 (cudaStream_t)stream>>>(
         (const uint8_t*)raw, (const int*)cand, (const int*)gaps,
         (const int*)gaps2, (const int*)raw_len, (uint8_t*)out, (int*)out_len,
         (uint8_t*)err, (int*)tails, (int*)nseq, nb, bs, slot, cap, accel);

@@ -6,10 +6,10 @@
 // lockstep through a mode machine with banded window walks, because
 // Mosaic has no per-lane scalar loop. Here each segment runs the scalar
 // parse of golden.compress_dense_seg_parts
-// (lz4_sgori_tpu/golden.py:481-583) at depth 1, greedy_parse.cuh's loop at
-// one candidate a probe (K8-seg, parse_seg_deep.cu, runs the same warp
-// walk at three; K10b, parse_seg_mlen.cu, still runs it a thread a
-// segment, parse_seg.cuh).
+// (lz4_sgori_tpu/golden.py:481-583) at depth 1, its greedy loop at one
+// candidate a probe (K8-seg, parse_seg_deep.cu, runs the same warp walk
+// at three; K10b, parse_seg_mlen.cu, at one in the mlen mode, over the
+// match codes).
 //
 // Per segment k of block b (global byte coordinates):
 //   s0 = k*seg, s1 = s0 + clamp(n - s0, 0, seg),

@@ -15,7 +15,7 @@
 //
 // What bounds it on the H100: as K3, one serial walk a segment, and a
 // launch lasts as long as its longest segment. The first design ran it a
-// thread a segment (parse_seg.cuh), 64 threads a CTA, each probe reading
+// thread a segment, 64 threads a CTA, each probe reading
 // up to three candidates and previewing up to 64 bytes of each, twice
 // with the lazy step, a byte at a time through global memory, the 32
 // walks of a warp diverging. Here a warp walks a segment over bytes

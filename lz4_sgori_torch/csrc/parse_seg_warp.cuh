@@ -1,11 +1,12 @@
-// K3's and K8-seg's kernel (parse_seg.cu, parse_seg_deep.cu): the
-// segment-parallel parse, one warp a segment, the bytes it reads resident
-// in shared memory. It computes the serial parse of
-// golden.compress_dense_seg_parts at N candidates a probe (N = 1 for K3,
-// greedy_parse.cuh's loop; N = 3 for K8-seg, its best-of-3 probe preview
-// and one-step lazy deferral, as the first designs ran them a thread a
-// segment), bit for bit, with the 32 lanes splitting each step of the
-// walk:
+// K3's, K8-seg's and K10b's kernel (parse_seg.cu, parse_seg_deep.cu,
+// parse_seg_mlen.cu): the segment-parallel parse, one warp a segment, the
+// bytes it reads resident in shared memory. It computes the serial parse
+// of golden.compress_dense_seg_parts at N candidates a probe (N = 1 for
+// K3, its greedy loop; N = 3 for K8-seg, its best-of-3 probe preview and
+// one-step lazy deferral; N = 1 in the mlen mode for K10b, over the
+// verified candidates and match codes of mcode.cu, as the first designs
+// ran them a thread a segment), bit for bit, with the 32 lanes splitting
+// each step of the walk:
 //
 // - The CTA. A warp a segment. A CTA takes kGroup consecutive segments of
 //   one block at seg 4 KiB and less (2: 8 KiB), one above (1 MiB blocks'
@@ -27,10 +28,11 @@
 //   more in CTAs an SM than it saved. Word reads run past a segment's end
 //   by at most 140 bytes, into bytes (the next segment's, or slack) that
 //   only ever meet a cap (cl, lim) that excludes them.
-// - The tapes (cand; N = 3 also gaps, g2 | g3 << 8) are read from global
-//   memory at increasing positions: a round's 32 probes lie within a few
-//   cache lines. The next sequence's first round is loaded as soon as
-//   this sequence's match ends, so the load is in flight while the
+// - The tapes (cand; N = 3 also gaps, g2 | g3 << 8; the mlen mode cand_v
+//   and mcode, more_f | lcp << 1 | more_b << 5 | cu << 6) are read from
+//   global memory at increasing positions: a round's 32 probes lie within
+//   a few cache lines. The next sequence's first round is loaded as soon
+//   as this sequence's match ends, so the load is in flight while the
 //   sequence is written.
 // - The search. The skip schedule is fixed from a sequence's start: with
 //   A = accel << 6 and S(x) = sum_{y < x} (y >> 6), probe k sits at p_0 =
@@ -40,8 +42,11 @@
 //   read32 at p - d equals read32 at p. At N = 3 it hits when one of its
 //   chain candidates d1 = cand[p], d1 + g2, + g3 passes preview's checks
 //   (d1 in (0, wlim], each link while the gaps before it are non-zero, p
-//   - d >= 0, d <= wlim, read32 equal). The ballot's first hit is the
-//   probe the serial loop stops at.
+//   - d >= 0, d <= wlim, read32 equal). In the mlen mode it hits when d =
+//   cand_v[p] has 0 < d <= wlim and d <= p, with no read32: pass 1
+//   verified the candidate and zeroed one that failed. The ballot's first
+//   hit is the probe the serial loop stops at; in the mlen mode its code
+//   leaves the hit lane with it.
 // - The previews (N = 3, parse_enc3_warp.cuh's). The hit probe p's
 //   candidates and p + 1's (when p + 1 <= mfl) are previewed together,
 //   two lanes a candidate, 32 bytes a lane as 8 words of XOR, capped at
@@ -52,10 +57,13 @@
 //   memory or, for a source before the CTA's bytes, from the row in one
 //   round trip.
 // - Catch-up compares 32 bytes back a step, to the anchor (s0 for the
-//   first sequence). The extension starts from what is known equal (the
-//   catch-up's bytes, read32's 4 and at N = 3 the winner's preview: one
-//   that stopped short of its cap ends the match) and goes on 128 bytes
-//   a step (a word a lane) to mlim.
+//   first sequence). In the mlen mode it first goes back delta = min(cu,
+//   pos - anchor, mpos) bytes from the code, and compares on only when
+//   delta is the code's cap, 4. The extension starts from what is known
+//   equal (the catch-up's bytes, read32's 4, at N = 3 the winner's
+//   preview and in the mlen mode the code's lcp: a preview or an lcp that
+//   stopped short of its cap ends the match) and goes on 128 bytes a step
+//   (a word a lane) to mlim.
 // - The stream. A sequence's length is known before it is written, so a
 //   stream that would pass cap sets err and stops, as the serial loop's
 //   first byte past cap would. The bytes go straight to the segment's row:
@@ -108,17 +116,19 @@ struct Geometry {
   }
 };
 
-// One segment's walk by one warp, at N candidates a probe (1 or 3).
-template <int N>
+// One segment's walk by one warp, at N candidates a probe (1 or 3); Mlen:
+// the mlen mode (N = 1) over cand_v and mcode.
+template <int N, bool Mlen = false>
 struct Walk {
   static_assert(N == 1 || N == 3, "1 or 3 candidates");
+  static_assert(!Mlen || N == 1, "the mlen mode at one candidate");
   const uint32_t* w;  // the slot: byte i of the block at byte off + i of w
   int off;            // (words indexed off w, no integer casts, so that
                       // the compiler keeps the loads in shared memory)
   int lo;             // the first byte held on chip
   const uint8_t* g;   // the block's row in global memory
   const int* cd;      // the block's cand row
-  const int* gp;      // the block's gaps row (N = 3)
+  const int* gp;      // the block's gaps row (N = 3) or mcode row (Mlen)
   uint8_t* d;         // the segment's stream row
   int cap, wlim, accel, lane;
 
@@ -162,10 +172,10 @@ struct Walk {
     return v;
   }
 
-  // The tapes' entries at p: cand, and at N = 3 gaps.
+  // The tapes' entries at p: cand, and at N = 3 gaps (Mlen: the code).
   __device__ __forceinline__ int tape_c(int p) const { return __ldg(cd + p); }
   __device__ __forceinline__ int tape_g(int p) const {
-    return N > 1 ? __ldg(gp + p) : 0;
+    return N > 1 || Mlen ? __ldg(gp + p) : 0;
   }
 
   // The chain at p from its entries (d1 = cand[p], g = gaps[p]): its
@@ -180,14 +190,15 @@ struct Walk {
     return live;
   }
 
-  // The probe at p with its entries dd, gg (greedy_parse.cuh's, and at N
+  // The probe at p with its entries dd, gg (the greedy loop's, and at N
   // = 3 preview's checks): read32 at a candidate only where it passes the
   // cheaper ones (0 < d <= wlim, d <= p, its links live), and at N = 3
   // only until one passes (reading the three together cost 6-12% more:
-  // the older links' sources lie in the row more often).
+  // the older links' sources lie in the row more often). Mlen: no read32.
   __device__ __forceinline__ bool probe_hits(int p, int dd, int gg) const {
     if constexpr (N == 1) {
       const bool ok = (dd > 0) & (dd <= wlim) & (dd <= p);
+      if constexpr (Mlen) return ok;
       return ok && rd32m(p - dd) == rd32(p);
     } else {
       int ds[3];
@@ -309,7 +320,7 @@ struct Walk {
       // ---- the search, 32 probes a round ----
       const int start = pos;
       long long k0 = 0;
-      int hp = -1, hd = 0;
+      int hp = -1, hd = 0, hg = 0;
       for (;;) {
         long long pk = start + d0, pn = start + d1;
         if (k0) {
@@ -330,6 +341,7 @@ struct Walk {
         if (hits) {
           hp = __shfl_sync(kAll, (int)pk, __ffs(hits) - 1);
           hd = __shfl_sync(kAll, dd, __ffs(hits) - 1);
+          if constexpr (Mlen) hg = __shfl_sync(kAll, gg, __ffs(hits) - 1);
           break;
         }
         if (vals != kAll) break;       // the schedule ends in this round
@@ -338,8 +350,12 @@ struct Walk {
       if (hp < 0) break;
       // ---- the match: the hit's candidate, or the best of the previews
       // at hp and the lazy step's at hp + 1 (pmc: the winner's preview,
-      // pcl its cap) ----
+      // pcl its cap; Mlen: the code's lcp, capped at 8) ----
       int pos1 = hp, mpos = hp - hd, pmc = 0, pcl = 0;
+      if constexpr (Mlen) {
+        pmc = (hg >> 1) & 15;
+        pcl = 8;
+      }
       if constexpr (N > 1) {
         int mb, mposb;
         const bool lazy = hp + 1 <= mfl;
@@ -352,8 +368,17 @@ struct Walk {
         pcl = min(mlim - pos1 - 4, 64);
       }
       // ---- catch-up, 32 bytes a step, capped at the anchor ----
+      // (Mlen: the code's cu bytes first, then the steps only where they
+      // reached its cap)
       int back = 0;
-      for (;;) {
+      bool steps = true;
+      if constexpr (Mlen) {
+        back = min(min((hg >> 6) & 7, pos1 - anchor), mpos);
+        pos1 -= back;
+        mpos -= back;
+        steps = back == 4;
+      }
+      while (steps) {
         const bool ok = lane < pos1 - anchor && lane < mpos &&
                         at(pos1 - 1 - lane) == atm(mpos - 1 - lane);
         const unsigned stop = __ballot_sync(kAll, !ok);
@@ -364,9 +389,10 @@ struct Walk {
         if (c < 32) break;
       }
       // ---- forward extension, 128 bytes a step, capped at mlim ----
-      // The bytes from pos1 through the probe's 4 (and a preview) are
-      // known equal; a preview that stopped before its cap (or at mlim's)
-      // ends the match there, one that ran its 64 bytes goes on.
+      // The bytes from pos1 through the probe's 4 (and a preview, or the
+      // code's lcp) are known equal; a preview that stopped before its cap
+      // (or at mlim's) ends the match there, one that ran its 64 bytes (an
+      // lcp of 8) goes on.
       const int p = pos1 + 4, m = mpos + 4, lim = mlim - p;
       int mc = back + pmc;
       for (bool more = pmc == pcl && mc < lim; more;) {
@@ -471,7 +497,7 @@ struct Range {
   }
 };
 
-template <int N>
+template <int N, bool Mlen>
 __global__ void __launch_bounds__(32 * kMaxWarps, 2)
     parse_seg_warp_kernel(const uint8_t* __restrict__ raw,
                           const int* __restrict__ cand,
@@ -515,13 +541,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
   const int s1 = s0 + min(max(n - s0, 0), seg);
   const int t = R.b * nseg + k;
 
-  Walk<N> w;
+  Walk<N, Mlen> w;
   w.w = (const uint32_t*)(smem + r * G.slot);
   w.off = R.rhead - R.lo;
   w.lo = R.lo;
   w.g = raw + (size_t)R.b * bs;
   w.cd = cand + (size_t)R.b * bs;
-  w.gp = N > 1 ? gaps + (size_t)R.b * bs : nullptr;
+  w.gp = N > 1 || Mlen ? gaps + (size_t)R.b * bs : nullptr;
   w.d = streams + (size_t)t * scap;
   w.cap = scap;
   w.wlim = wlim;
@@ -541,12 +567,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
 
 }  // namespace seg_warp
 
-// One warp a segment at N candidates a probe (gaps: the tape at N = 3);
-// the CTA's shape from Geometry. A shared-memory size the card refuses is
-// returned as the launch's error. Internal linkage, so that `sized` is
-// this library's own beside another build of this header in the same
-// process.
-template <int N>
+// One warp a segment at N candidates a probe (gaps: the second tape, the
+// gaps at N = 3, the codes in the mlen mode); the CTA's shape from
+// Geometry. A shared-memory size the card refuses is returned as the
+// launch's error. Internal linkage, so that `sized` is this library's own
+// beside another build of this header in the same process.
+template <int N, bool Mlen = false>
 static int launch_parse_seg_warp(const void* raw, const void* cand,
                                  const void* gaps, const void* raw_len,
                                  void* streams, void* slen, void* serr,
@@ -560,14 +586,14 @@ static int launch_parse_seg_warp(const void* raw, const void* cand,
   static int sized = 0;
   if (G.bytes > sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        parse_seg_warp_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G.bytes);
+        parse_seg_warp_kernel<N, Mlen>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G.bytes);
     if (e != cudaSuccess) return (int)e;
     sized = G.bytes;
   }
   if (nb > 0)
-    parse_seg_warp_kernel<N><<<G.ctas, 32 * G.rows * G.segs, G.bytes,
-                               (cudaStream_t)stream>>>(
+    parse_seg_warp_kernel<N, Mlen><<<G.ctas, 32 * G.rows * G.segs, G.bytes,
+                                     (cudaStream_t)stream>>>(
         (const uint8_t*)raw, (const int*)cand, (const int*)gaps,
         (const int*)raw_len, (uint8_t*)streams, (int*)slen, (int*)serr,
         (int*)last_end, (int*)nseq, (int*)p1, (int*)m1h, nb, bs, seg, scap,

@@ -30,11 +30,12 @@ from .cand import MAX_BLOCK
 launches = 0
 LCP_MAX = 8      # forward bytes past the verified 4 that a code holds
 CU_MAX = 4       # backward bytes a code holds
+ENTRIES = {"lz4t_mcode": "pppppiip"}   # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/mcode.cu."""
-    return _build.load("mcode", {"lz4t_mcode": "pppppiip"})
+    return _build.load("mcode", ENTRIES)
 
 
 def dense_mcode(cand: torch.Tensor, raw: torch.Tensor,

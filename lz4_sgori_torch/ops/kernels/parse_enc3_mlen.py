@@ -10,6 +10,13 @@ Contract: K7's (``parse_enc3.py``), per block
 ``golden.compress_dense(block, accel, hashlog=16)``, over the verified
 candidates and match codes of ``mcode.dense_mcode``, with K7's outputs:
 out, out_len, err, tails, nseq.
+
+The CUDA kernel is K7's warp walk (``csrc/parse_enc3_warp.cuh`` at one
+candidate) in the mlen mode, a CTA a block: the codes stream through the
+``cp.async`` ring beside ``cand_v``; a probe hits on ``0 < cand_v``
+with no read32, the catch-up goes back ``cu`` bytes from the hit's code
+(the 32-byte steps only when ``cu`` is 4), and the extension starts
+``lcp`` bytes on (the 128-byte steps only when ``lcp`` is 8).
 """
 
 from __future__ import annotations
@@ -23,12 +30,12 @@ from .parse_enc3 import (block_outputs, check_block_size,
 from .parse_seg import check_parse_args
 
 launches = 0
+ENTRIES = {"lz4t_parse_enc3_mlen": "pppppppppiiiiip"}  # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_enc3_mlen.cu."""
-    return _build.load("parse_enc3_mlen",
-                       {"lz4t_parse_enc3_mlen": "pppppppppiiiiip"})
+    return _build.load("parse_enc3_mlen", ENTRIES)
 
 
 def parse_blocks_enc3_mlen(raw: torch.Tensor, cand_v: torch.Tensor,
@@ -46,8 +53,8 @@ def parse_blocks_enc3_mlen(raw: torch.Tensor, cand_v: torch.Tensor,
                                    (raw, cand_v, mcode, raw_len))
     nb, bs = raw.shape
     cap = F.compress_bound(bs)
-    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     lib = load_kernel()
+    out, out_len, err, tails, nseq = block_outputs(nb, bs, raw.device)
     _build.check(lib.lz4t_parse_enc3_mlen(
         raw.data_ptr(), cand_v.data_ptr(), mcode.data_ptr(),
         raw_len.data_ptr(), out.data_ptr(), out_len.data_ptr(),

@@ -128,7 +128,7 @@ def parse_segments_plain(raw, cand, raw_len, seg: int = 4096,
     ``mcode`` (and ``cand`` the verified candidates of
     ``mcode.dense_mcode``) it is the mlen parse of K10: no read32 at the
     probe, the catch-up and the first extension bytes from the code
-    (greedy_parse.cuh, MLEN)."""
+    (``parse_seg_warp.cuh``'s and ``parse_enc3_warp.cuh``'s ``Mlen``)."""
     nb, bs = raw.shape
     dev = raw.device
     nseg = bs // seg

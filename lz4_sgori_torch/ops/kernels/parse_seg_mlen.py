@@ -12,6 +12,13 @@ candidates and match codes of ``mcode.dense_mcode``: the parse reads the
 probe's verify, the catch-up and the first extension bytes from the code
 and writes the same stream. Returns K3's outputs: streams, slen, err,
 last_end, nseq, p1, m1h.
+
+The CUDA kernel is K3's warp walk (``csrc/parse_seg_warp.cuh``) in the
+mlen mode: a warp a segment, K3's CTAs and bytes in shared memory; a
+probe hits on ``0 < cand_v <= wlim`` with no read32, the hit's code
+leaves its lane by a shuffle, the catch-up goes back ``cu`` bytes from
+the code (the 32-byte steps only when ``cu`` is 4), and the extension
+starts ``lcp`` bytes on (the 128-byte steps only when ``lcp`` is 8).
 """
 
 from __future__ import annotations
@@ -24,12 +31,12 @@ from .parse_seg import (check_parse_args, check_seg, parse_segments_plain,
                         segment_outputs, window_limit)
 
 launches = 0
+ENTRIES = {"lz4t_parse_seg_mlen": "pppppppppppiiiiiip"}  # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/parse_seg_mlen.cu."""
-    return _build.load("parse_seg_mlen",
-                       {"lz4t_parse_seg_mlen": "pppppppppppiiiiiip"})
+    return _build.load("parse_seg_mlen", ENTRIES)
 
 
 def parse_segments_mlen(raw: torch.Tensor, cand_v: torch.Tensor,
@@ -47,8 +54,8 @@ def parse_segments_mlen(raw: torch.Tensor, cand_v: torch.Tensor,
                                          window, accel)
     raw, cand_v, mcode, raw_len = (t.contiguous() for t in
                                    (raw, cand_v, mcode, raw_len))
-    outs = segment_outputs(nb * (bs // seg), seg, raw.device)
     lib = load_kernel()
+    outs = segment_outputs(nb * (bs // seg), seg, raw.device)
     _build.check(lib.lz4t_parse_seg_mlen(
         raw.data_ptr(), cand_v.data_ptr(), mcode.data_ptr(),
         raw_len.data_ptr(), *(t.data_ptr() for t in outs), nb, bs, seg,

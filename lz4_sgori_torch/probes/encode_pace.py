@@ -1,18 +1,22 @@
 """What sets the pace of the split-table candidates, K2
 (``csrc/cand.cu``) and K9 (``csrc/cand_piecewise.cu``), of the warp
-segment parses, K3 (``csrc/parse_seg.cu``) and K8-seg
-(``csrc/parse_seg_deep.cu``, depth 3), and of K7's warp block parse
-(``csrc/parse_enc3.cu``), on the card, on the main paths' cells
+segment parses, K3 (``csrc/parse_seg.cu``), K8-seg
+(``csrc/parse_seg_deep.cu``, depth 3) and K10b (``csrc/parse_seg_mlen.cu``,
+the mlen mode), and of the warp block parses, K7 (``csrc/parse_enc3.cu``)
+and K10c (``csrc/parse_enc3_mlen.cu``), with the mlen mode's codes
+(mcode, ``csrc/mcode.cu``), on the card, on the main paths' cells
 (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks, seed
 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of 64
 KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55, K9's
 tape, seg 8192; one block of each size, one of 4 MiB at seg 32768,
 config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
-1's first):
+1's first; K10b's on config 1 and one 64 KiB block, K10c's on config 3
+and one 4 KiB block, ``MLEN_CELLS``):
 
 - each kernel's time a call (CUDA events), K9's run length, the
   sequences K3, K8-seg and K7 find a segment or block (their ``nseq``)
   and each cell's encode kernel path (depth 3 too where K8-seg runs);
+  K10b and K10c in turns with K3 and K7 on the same blocks, and mcode;
 - ``--profile``: clock64 breakdowns from instrumented copies of this
   tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
   in the table steps, its steps a warp, the wait for the bytes and the
@@ -20,7 +24,8 @@ config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
   and the boundary's barriers and sweep; K3's and K8-seg's cycles a
   sequence in the search, the previews (K8-seg), the catch-up, the
   extension and the emission, their rounds a sequence, and the busiest
-  warp; K7's the same a block, with the wait for the block's bytes), and
+  warp; K10b's the same; K7's and K10c's the same a block, with the wait
+  for the block's bytes), and
   of the first K2 design's one-warp step (``FIRST_STEP``: cycles a
   32-position step in the loads and hash, the match, the table read, the
   table write and the store);
@@ -31,8 +36,8 @@ config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
   together, K9 a window a CTA, K7 with other blocks a CTA), each timed in
   turns with this tree's build (this, variant, variant, this) and its
   outputs held equal to it;
-- ``--parent DIR``: the same for DIR's five sources (a ``git archive`` of
-  an earlier commit);
+- ``--parent DIR``: the same for DIR's sources of ``MODS`` (a ``git
+  archive`` of an earlier commit; each with DIR's own headers);
 - ``--store ROUNDS`` (with ``--parent``): the median latency of
   ``STORE_REQUESTS`` sequential 4 KiB ``ProxyStore`` writes of config 1's
   bytes with this tree's K2 and with DIR's, and with this tree's K7 and
@@ -61,16 +66,27 @@ from ..ops.kernels import _build
 from ..ops.kernels import cand as K2
 from ..ops.kernels import cand_piecewise as K9
 from ..ops.kernels import gaps as G
+from ..ops.kernels import mcode as M
 from ..ops.kernels import parse_enc3 as K7
+from ..ops.kernels import parse_enc3_mlen as K10C
 from ..ops.kernels import parse_seg as K3
 from ..ops.kernels import parse_seg_deep as K8S
+from ..ops.kernels import parse_seg_mlen as K10B
 from . import device_name, parser, seconds
 
 CALLS = 5             # calls in a timing
 STORE_REQUESTS = 1024  # 4 KiB writes a store timing
 BIG_STORES = ((1 << 20, 32), (4 << 20, 8))   # fio test_1m, test_4m
 MODS = {"cand": K2, "parse_seg": K3, "cand_piecewise": K9,
-        "parse_seg_deep": K8S, "parse_enc3": K7}
+        "parse_seg_deep": K8S, "parse_enc3": K7, "parse_seg_mlen": K10B,
+        "parse_enc3_mlen": K10C, "mcode": M}
+# the mlen mode's cells: K10b's (64 KiB, seg 4096) and K10c's (4 KiB);
+# mcode runs on both
+MLEN_CELLS = {"parse_seg_mlen": ("config 1", "one block of 65536"),
+              "parse_enc3_mlen": ("config 3", "one block of 4096")}
+MLEN_CELLS["mcode"] = MLEN_CELLS["parse_seg_mlen"] + \
+    MLEN_CELLS["parse_enc3_mlen"]
+_TAPES: dict = {}     # cell name -> its mlen tapes (cand_v, mcode)
 
 # variants: the source they build, the header they change and its
 # (text, replacement) pairs, each text found in the header
@@ -335,6 +351,21 @@ PROFILE = {
          "void* stream) {"),
         ("accel, stream);", "accel, prof, stream);"),
     ],
+    # K10b and K10c: K3's and K7's instrumented walks in the mlen mode
+    "parse_seg_mlen.cu": [
+        ('#include "parse_seg_warp.cuh"',
+         '#include "parse_seg_warp_prof.cuh"'),
+        ("lz4t_parse_seg_mlen(", "lz4t_parse_seg_mlen_prof("),
+        ("void* stream) {", "void* prof, void* stream) {"),
+        ("accel, stream);", "accel, prof, stream);"),
+    ],
+    "parse_enc3_mlen.cu": [
+        ('#include "parse_enc3_warp.cuh"',
+         '#include "parse_enc3_warp_prof.cuh"'),
+        ("lz4t_parse_enc3_mlen(", "lz4t_parse_enc3_mlen_prof("),
+        ("void* stream) {", "void* prof, void* stream) {"),
+        ("accel, stream);", "accel, prof, stream);"),
+    ],
 }
 
 # the first K2 design's warp step (as cand.cu ran it before the split
@@ -557,6 +588,15 @@ def cells(dev):
     return out
 
 
+def mlen_tapes(cs, name: str):
+    """cand_v and mcode of cell ``name``: mcode.cu over its candidates,
+    made once."""
+    if name not in _TAPES:
+        r, n, c = cs[name][:3]
+        _TAPES[name] = M.dense_mcode(c, r, n)
+    return _TAPES[name]
+
+
 def ms(fn, dev) -> float:
     """Milliseconds a call of ``fn`` after a warm-up call."""
     fn()
@@ -659,56 +699,42 @@ def profile(cs, dev, stream) -> None:
               f"other warps {float(per[..., 6].mean()):.0f}; the boundary "
               f"(barriers and sweep) {float(per[..., 5].mean()):.0f}",
               flush=True)
-    k7 = _load("parse_enc3_prof", {
-        "parse_enc3.cu": instrumented("parse_enc3.cu",
-                                      _read(os.path.join(_build.CSRC,
-                                                         "parse_enc3.cu"))),
-        "parse_enc3_warp_prof.cuh": instrumented(
-            "parse_enc3_warp.cuh",
-            _read(os.path.join(_build.CSRC, "parse_enc3_warp.cuh")))},
-        "parse_enc3.cu", {"lz4t_parse_enc3_prof": "ppppppppiiiiipp"})
-    for name, (r, n, c, seg, _) in cs.items():
-        nb, bs = r.shape
-        if seg is not None or bs > 65536:
-            continue
-        cap = F.compress_bound(bs)
-        outs = K7.block_outputs(nb, bs, dev)
-        pr = torch.zeros((nb, 8), dtype=torch.int64, device=dev)
-        _build.check(k7.lz4t_parse_enc3_prof(
-            r.data_ptr(), c.data_ptr(), n.data_ptr(),
-            *(t.data_ptr() for t in outs), nb, bs, cap + 8, cap, 1,
-            pr.data_ptr(), stream), "parse_enc3_prof")
-        torch.cuda.synchronize(dev)
-        tot = pr.double().sum(0)
-        nq = tot[4].clamp(min=1)
-        busy = pr[:, :4].double().sum(1) + pr[:, 7].double()
-        print(f"K7 {name} ({nb} blocks, equal "
-              f"{same_blocks(outs, K7.parse_blocks_enc3(r, c, n))}): cycles "
-              f"a sequence: search {float(tot[0] / nq):.0f} "
-              f"({float(tot[6] / nq):.2f} rounds), the match's pick "
-              f"{float(tot[7] / nq):.0f}, catch-up {float(tot[1] / nq):.0f}, "
-              f"extension {float(tot[2] / nq):.0f}, emission "
-              f"{float(tot[3] / nq):.0f}; the wait for the bytes "
-              f"{float(tot[5] / nb):.0f} a warp; the busiest warp "
-              f"{float(busy.max()):.0f} cycles ({int(pr[busy.argmax(), 4])} "
-              f"sequences), the mean {float(busy.mean()):.0f}", flush=True)
+    enc3_prof = instrumented("parse_enc3_warp.cuh", _read(
+        os.path.join(_build.CSRC, "parse_enc3_warp.cuh")))
+    for src, key in (("parse_enc3", "K7"), ("parse_enc3_mlen", "K10c")):
+        lib = _load(f"{src}_prof", {
+            f"{src}.cu": instrumented(f"{src}.cu", _read(
+                os.path.join(_build.CSRC, f"{src}.cu"))),
+            "parse_enc3_warp_prof.cuh": enc3_prof}, f"{src}.cu",
+            {f"lz4t_{src}_prof": ("p" if src in MLEN_CELLS else "")
+             + "ppppppppiiiiipp"})
+        for name, (r, n, c, seg, _) in cs.items():
+            nb, bs = r.shape
+            if seg is not None or bs > 65536 or (
+                    src in MLEN_CELLS and name not in MLEN_CELLS[src]):
+                continue
+            enc3_profile(lib, src, key, name, r, n, c, cs, dev, stream)
     warp_prof = instrumented("parse_seg_warp.cuh",
                              texts["parse_seg_warp.cuh"])
-    for src, key in (("parse_seg", "K3"), ("parse_seg_deep", "K8-seg")):
+    for src, key in (("parse_seg", "K3"), ("parse_seg_deep", "K8-seg"),
+                     ("parse_seg_mlen", "K10b")):
+        texts[f"{src}.cu"] = _read(os.path.join(_build.CSRC, f"{src}.cu"))
         lib = _load(f"{src}_prof", {
             f"{src}.cu": instrumented(f"{src}.cu", texts[f"{src}.cu"]),
             "parse_seg_warp_prof.cuh": warp_prof}, f"{src}.cu",
-            {f"lz4t_{src}_prof": ("p" if src == "parse_seg_deep" else "")
+            {f"lz4t_{src}_prof": ("p" if src != "parse_seg" else "")
              + "ppppppppppiiiiiipp"})
-        deep = src == "parse_seg_deep"
+        deep, mlen = src == "parse_seg_deep", src in MLEN_CELLS
         for name, (r, n, c, seg, g) in cs.items():
-            if seg is None or (deep and g is None):
+            if seg is None or (deep and g is None) or (
+                    mlen and name not in MLEN_CELLS[src]):
                 continue
             nb, bs = r.shape
             ns = nb * (bs // seg)
             outs = K3.segment_outputs(ns, seg, dev)
             pr = torch.zeros((ns, 8), dtype=torch.int64, device=dev)
-            tapes = (c, g) if deep else (c,)
+            tapes = (c, g) if deep else mlen_tapes(cs, name) if mlen \
+                else (c,)
             _build.check(getattr(lib, f"lz4t_{src}_prof")(
                 r.data_ptr(), *(t.data_ptr() for t in tapes), n.data_ptr(),
                 *(t.data_ptr() for t in outs), nb, bs, seg,
@@ -716,7 +742,8 @@ def profile(cs, dev, stream) -> None:
                 pr.data_ptr(), stream), f"{src}_prof")
             torch.cuda.synchronize(dev)
             want = (K8S.parse_segments_deep(r, c, g, n, seg=seg) if deep
-                    else K3.parse_segments(r, c, n, seg=seg))
+                    else K10B.parse_segments_mlen(r, *tapes, n, seg=seg)
+                    if mlen else K3.parse_segments(r, c, n, seg=seg))
             tot = pr.double().sum(0)
             nq = tot[4].clamp(min=1)
             busy = pr[:, :4].double().sum(1) + pr[:, 7].double()
@@ -731,6 +758,34 @@ def profile(cs, dev, stream) -> None:
                   f"{float(busy.max()):.0f} cycles "
                   f"({int(pr[busy.argmax(), 4])} sequences), the mean "
                   f"{float(busy.mean()):.0f}", flush=True)
+
+
+def enc3_profile(lib, src, key, name, r, n, c, cs, dev, stream) -> None:
+    """K7's or K10c's clock64 breakdown on cell ``name``, printed."""
+    nb, bs = r.shape
+    cap = F.compress_bound(bs)
+    outs = K7.block_outputs(nb, bs, dev)
+    pr = torch.zeros((nb, 8), dtype=torch.int64, device=dev)
+    tapes = mlen_tapes(cs, name) if src in MLEN_CELLS else (c,)
+    _build.check(getattr(lib, f"lz4t_{src}_prof")(
+        r.data_ptr(), *(t.data_ptr() for t in tapes), n.data_ptr(),
+        *(t.data_ptr() for t in outs), nb, bs, cap + 8, cap, 1,
+        pr.data_ptr(), stream), f"{src}_prof")
+    torch.cuda.synchronize(dev)
+    want = (K10C.parse_blocks_enc3_mlen(r, *tapes, n) if src in MLEN_CELLS
+            else K7.parse_blocks_enc3(r, c, n))
+    tot = pr.double().sum(0)
+    nq = tot[4].clamp(min=1)
+    busy = pr[:, :4].double().sum(1) + pr[:, 7].double()
+    print(f"{key} {name} ({nb} blocks, equal {same_blocks(outs, want)}): "
+          f"cycles a sequence: search {float(tot[0] / nq):.0f} "
+          f"({float(tot[6] / nq):.2f} rounds), the match's pick "
+          f"{float(tot[7] / nq):.0f}, catch-up {float(tot[1] / nq):.0f}, "
+          f"extension {float(tot[2] / nq):.0f}, emission "
+          f"{float(tot[3] / nq):.0f}; the wait for the bytes "
+          f"{float(tot[5] / nb):.0f} a warp; the busiest warp "
+          f"{float(busy.max()):.0f} cycles ({int(pr[busy.argmax(), 4])} "
+          f"sequences), the mean {float(busy.mean()):.0f}", flush=True)
 
 
 def store_median(data: bytes, dev, chunk: int = 4096,
@@ -760,11 +815,25 @@ def store_median(data: bytes, dev, chunk: int = 4096,
 def runs_of(src: str, cs) -> list:
     """(cell name, call, comparison) of the cells a source's kernel runs
     on: K2 at 64 KiB and less, K9 above, K3 and K8-seg where a segment
-    size (and for K8-seg the gaps) is given, K7 where none is."""
+    size (and for K8-seg the gaps) is given, K7 where none is, mcode, K10b
+    and K10c on ``MLEN_CELLS``."""
     out = []
     for name, (r, n, c, seg, g) in cs.items():
         bs = r.shape[1]
-        if src == "cand" and bs <= 65536:
+        if name in MLEN_CELLS.get(src, ()):
+            t = mlen_tapes(cs, name)
+            fn, same = {
+                "mcode": (lambda r=r, n=n, c=c: M.dense_mcode(c, r, n),
+                          same_blocks),
+                "parse_seg_mlen": (lambda r=r, n=n, t=t, seg=seg:
+                                   K10B.parse_segments_mlen(r, *t, n,
+                                                            seg=seg),
+                                   same_segments),
+                "parse_enc3_mlen": (lambda r=r, n=n, t=t:
+                                    K10C.parse_blocks_enc3_mlen(r, *t, n),
+                                    same_blocks)}[src]
+            out.append((name, fn, same))
+        elif src == "cand" and bs <= 65536:
             out.append((name, lambda r=r, n=n: K2.dense_candidates(r, n),
                         torch.equal))
         elif src == "cand_piecewise" and bs > 65536:
@@ -832,6 +901,19 @@ def main(argv=None) -> int:
                         f"{ns.numel()} blocks (mean "
                         f"{float(ns.double().mean()):.1f}, most "
                         f"{int(ns.max())})")
+        for src, key, base in (
+                ("parse_seg_mlen", "K10b", lambda r=r, c=c, n=n, seg=seg:
+                 K3.parse_segments(r, c, n, seg=seg)),
+                ("parse_enc3_mlen", "K10c", lambda r=r, c=c, n=n:
+                 K7.parse_blocks_enc3(r, c, n))):
+            if name not in MLEN_CELLS[src]:
+                continue
+            (_, fn, _), = runs_of(src, {name: cs[name]})
+            (_, mc, _), = runs_of("mcode", {name: cs[name]})
+            this, other = in_turns(fn, base, dev)
+            line.append(f"mcode {ms(mc, dev):.4f} ms, {key} {this:.4f} ms "
+                        f"in turns with {'K3' if key == 'K10b' else 'K7'} "
+                        f"{other:.4f} ms ({this / other:.4f}x)")
         if "one" not in name and "64 blocks" not in name:
             t = ms(lambda: compress_blocks_device(r, n, bs), dev)
             line.append(f"the encode kernel path {t:.3f} ms")

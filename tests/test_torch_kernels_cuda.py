@@ -562,53 +562,157 @@ def test_k10a_mcode(dev):
         assert not cand_v[j, n:].any() and not mcode[j, n:].any(), j
 
 
-@pytest.mark.parametrize("bs,seg,window", [(16384, 4096, 65536),
-                                           (4096, 512, 4096)])
-def test_k10b_parse(dev, bs, seg, window):
-    """K10b against its plain version, against K3 on the unverified tape
-    (the same outputs) and against golden's segment parts."""
-    blocks = [b[:bs] for b in _blocks(max(bs, 16384))]
+def _mlen_tapes(blocks, bs, dev):
     raw, rlen = _batch(blocks, bs, dev)
     cand = K2.dense_candidates(raw, rlen)
-    cand_v, mcode = M.dense_mcode(cand, raw, rlen)
+    return (raw, rlen, cand) + tuple(M.dense_mcode(cand, raw, rlen))
+
+
+@pytest.mark.parametrize("bs,seg,window,copies,accel", [
+    (16384, 4096, 65536, 1, 1), (4096, 512, 4096, 1, 1),
+    (65536, 4096, 65536, 1, 1), (65536, 4096, 4096, 1, 8),
+    (4096, 4096, 65536, 3, 1)])
+def test_k10b_parse(dev, bs, seg, window, copies, accel):
+    """K10b's warp walk against its plain version, against K3 on the
+    unverified tape (the same outputs) and against golden's segment parts
+    (on every distinct block): at 16 and 64 KiB, seg 4096 and 512,
+    window 65536 and 4096, acceleration 1 and 8, and 30 blocks of 4 KiB,
+    16 to a CTA."""
+    blocks = [b[:bs] for b in _blocks(max(bs, 16384))] * copies
+    raw, rlen, cand, cand_v, mcode = _mlen_tapes(blocks, bs, dev)
     got = K10B.parse_segments_mlen(raw, cand_v, mcode, rlen, seg=seg,
-                                   window=window)
+                                   window=window, accel=accel)
     want = K10B.parse_segments_mlen_plain(raw, cand_v, mcode, rlen, seg=seg,
-                                          window=window)
-    k3 = K3.parse_segments(raw, cand, rlen, seg=seg, window=window)
+                                          window=window, accel=accel)
+    k3 = K3.parse_segments(raw, cand, rlen, seg=seg, window=window,
+                           accel=accel)
     torch.cuda.synchronize()
     assert not got[2].any()
     for a, b, c in zip(got[1:], want[1:], k3[1:]):
         assert torch.equal(a, b) and torch.equal(a, c)
+    inside = (torch.arange(got[0].shape[1], device=dev)[None, :]
+              < got[1][:, None])
+    assert torch.equal(got[0][inside], want[0].to(dev)[inside])
+    assert torch.equal(got[0][inside], k3[0][inside])
     streams, slen = got[0].cpu().numpy(), got[1].cpu().numpy()
     nseg = bs // seg
-    for j, b in enumerate(blocks):
-        for k, pt in enumerate(golden.compress_dense_seg_parts(b, seg,
-                                                               window)):
+    for j, b in enumerate(blocks[:len(blocks) // copies]):
+        for k, pt in enumerate(golden.compress_dense_seg_parts(
+                b, seg, window, acceleration=accel)):
             r = j * nseg + k
             assert streams[r, :slen[r]].tobytes() == pt["stream"], (j, k)
 
 
-@pytest.mark.parametrize("bs", [4096, 60000])
-def test_k10c_parse(dev, bs):
-    """K10c against its plain version, K7 and golden.compress_dense."""
+@pytest.mark.parametrize("bs,accel", [(4096, 1), (4096, 8), (60000, 1),
+                                      (65536, 8)])
+def test_k10c_parse(dev, bs, accel):
+    """K10c's warp walk (the codes through the tape ring) against its
+    plain version, K7 and golden.compress_dense, at 4 KiB, 60,000 bytes
+    and 64 KiB, acceleration 1 and 8."""
     blocks = [b[:bs] for b in _blocks(max(bs, 8192))] + [
         b"", b"a", b"x" * 13]
-    raw, rlen = _batch(blocks, bs, dev)
-    cand = K2.dense_candidates(raw, rlen)
-    cand_v, mcode = M.dense_mcode(cand, raw, rlen)
-    got = K10C.parse_blocks_enc3_mlen(raw, cand_v, mcode, rlen)
-    want = K10C.parse_blocks_enc3_mlen_plain(raw, cand_v, mcode, rlen)
-    k7 = K7.parse_blocks_enc3(raw, cand, rlen)
+    raw, rlen, cand, cand_v, mcode = _mlen_tapes(blocks, bs, dev)
+    got = K10C.parse_blocks_enc3_mlen(raw, cand_v, mcode, rlen, accel)
+    want = K10C.parse_blocks_enc3_mlen_plain(raw, cand_v, mcode, rlen,
+                                             accel)
+    k7 = K7.parse_blocks_enc3(raw, cand, rlen, accel)
     torch.cuda.synchronize()
     for a, b, c in zip(got, want, k7):
         assert torch.equal(a, b) and torch.equal(a, c)
     out, out_len, err, tails, _ = (t.cpu().numpy() for t in got)
     assert not err.any()
     for j, b in enumerate(blocks):
-        w = golden.compress_dense(b, hashlog=16)
+        w = golden.compress_dense(b, accel, hashlog=16)
         assert out[j, :out_len[j]].tobytes() == w, j
         assert int(tails[j]) == golden.tail_offset(w), j
+
+
+def test_k10b_k10c_past_the_cap(dev):
+    """Both C entries at a cap the streams pass: K10b errs on exactly the
+    segments whose plain stream is longer and agrees with K3 at the same
+    cap elsewhere; K10c errs on exactly the blocks whose plain stream is
+    longer, with a zero row and 0 in out_len, tails and nseq, and agrees
+    with K7 at the same cap."""
+    bs, seg = 4096, 1024
+    blocks = [b[:bs] for b in _blocks(16384)]
+    raw, rlen, cand, cand_v, mcode = _mlen_tapes(blocks, bs, dev)
+    nb, stream = len(blocks), torch.cuda.current_stream().cuda_stream
+    want = K10B.parse_segments_mlen_plain(raw, cand_v, mcode, rlen, seg)
+    scap = int(want[1].float().median())
+    segs, ns = [], nb * (bs // seg)
+    for lib, fn, tapes in ((K10B.load_kernel(), "lz4t_parse_seg_mlen",
+                            (cand_v, mcode)),
+                           (K3.load_kernel(), "lz4t_parse_seg", (cand,))):
+        outs = (torch.empty((ns, scap), dtype=torch.uint8, device=dev),
+                *(torch.empty(ns, dtype=torch.int32, device=dev)
+                  for _ in range(6)))
+        assert getattr(lib, fn)(
+            raw.data_ptr(), *(t.data_ptr() for t in tapes),
+            rlen.data_ptr(), *(t.data_ptr() for t in outs), nb, bs, seg,
+            scap, 65535, 1, stream) == 0
+        segs.append(outs)
+    torch.cuda.synchronize()
+    over = want[1] > scap
+    assert over.any() and (~over).any()
+    for outs in segs:
+        assert torch.equal(outs[2].bool(), over)
+        for a, b in zip(outs[1:], want[1:]):
+            assert torch.equal(a[~over], b[~over])
+    ok = (~over).nonzero().flatten().tolist()
+    for t in ok:
+        n = int(want[1][t])
+        assert torch.equal(segs[0][0][t, :n], want[0][t, :n]), t
+    full = K10C.parse_blocks_enc3_mlen_plain(raw, cand_v, mcode, rlen)
+    cap = int(full[1].float().median())
+    rows = []
+    for lib, fn, tapes in ((K10C.load_kernel(), "lz4t_parse_enc3_mlen",
+                            (cand_v, mcode)),
+                           (K7.load_kernel(), "lz4t_parse_enc3", (cand,))):
+        outs = K7.block_outputs(nb, bs, dev)
+        assert getattr(lib, fn)(
+            raw.data_ptr(), *(t.data_ptr() for t in tapes),
+            rlen.data_ptr(), *(t.data_ptr() for t in outs), nb, bs,
+            F.compress_bound(bs) + 8, cap, 1, stream) == 0
+        rows.append(outs)
+    torch.cuda.synchronize()
+    over = full[1] > cap
+    assert over.any() and (~over).any()
+    out, out_len, err, tails, nseq = rows[0]
+    assert torch.equal(err, over)
+    assert not out[over].any() and not out_len[over].any()
+    assert not tails[over].any() and not nseq[over].any()
+    for a, b in zip(rows[0], full):
+        assert torch.equal(a[~over], b[~over])
+    for a, b in zip(rows[0], rows[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["k10b", "k10c"])
+def test_mlen_failed_build_raises_and_never_falls_back(dev, monkeypatch,
+                                                       kernel):
+    """A build that fails raises from the wrapper: no plain version runs
+    in its place and the launch count stays 0."""
+    from lz4_sgori_torch.ops.kernels import _build
+
+    def no_nvcc(*_a, **_k):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    raw, rlen, _, cand_v, mcode = _mlen_tapes(_blocks(4096)[:2], 4096, dev)
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    mod = K10B if kernel == "k10b" else K10C
+    plain = ("parse_segments_mlen_plain" if kernel == "k10b"
+             else "parse_blocks_enc3_mlen_plain")
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(mod, plain, no_plain)
+    mod.launches = 0
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if kernel == "k10b":
+            K10B.parse_segments_mlen(raw, cand_v, mcode, rlen)
+        else:
+            K10C.parse_blocks_enc3_mlen(raw, cand_v, mcode, rlen)
+    assert mod.launches == 0
 
 
 def test_mlen_path_runs_k2_mcode_k10b_k4(dev, monkeypatch):

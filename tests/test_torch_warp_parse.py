@@ -47,6 +47,17 @@ def ffs(x: int) -> int:
     return (x & -x).bit_length()
 
 
+def mlen_seen(seen, back, lit, pmc, mc, lim):
+    """The mlen cases a sequence met: a catch-up whose code reached its
+    cap of 4 bytes, so that the byte steps ran (``cu4``), one stopped by
+    the anchor (``anchor``), an lcp of 8 that ran on past the probe's 12
+    bytes (``lcp8``), a match cut at the match limit (``lim``)."""
+    seen["cu4"] += back >= 4
+    seen["anchor"] += lit == 0 and back > 0
+    seen["lcp8"] += pmc == 8 and mc > back + 8
+    seen["lim"] += mc >= lim
+
+
 class TapeRing:
     """The tape ring of one warp: a chunk's slots hold garbage from its
     issue until a wait lets it land; reads assert the resident window."""
@@ -98,13 +109,19 @@ class TapeRing:
 
 
 class WarpWalk:
-    """One warp's walk (``Walk<N>::run``)."""
+    """One warp's walk (``Walk<N>::run``). ``codes``: the mlen mode
+    (``Walk<1, true>``, ``tapes`` then cand_v alone), the mcode row, read
+    through the ring as a second tape."""
 
-    def __init__(self, block, bs, tapes, accel, depth, rng, cap=None):
+    def __init__(self, block, bs, tapes, accel, depth, rng, cap=None,
+                 codes=None, seen=None):
         self.n, self.bs, self.accel, self.N = len(block), bs, accel, depth
         self.cap = F.compress_bound(bs) if cap is None else cap
         self.s = block + rng.integers(0, 256, SLACK,
                                       dtype=np.uint8).tobytes()
+        self.mlen, self.seen = codes is not None, seen
+        if self.mlen:
+            tapes = list(tapes) + [codes]
         self.tapes = TapeRing(tapes, bs, rng)
         self.d = bytearray(self.cap)
 
@@ -133,10 +150,10 @@ class WarpWalk:
         return m >= 0 and dd <= MAX_D and self.rd32(m) == v
 
     def probe_hits(self, p):
-        if self.N == 1:                  # K3's test
+        if self.N == 1:                  # K3's test (mlen: no read32)
             d = self.tapes.read(0, p)
-            return 0 < d <= MAX_D and d <= p and \
-                self.rd32(p - d) == self.rd32(p)
+            return 0 < d <= MAX_D and d <= p and (
+                self.mlen or self.rd32(p - d) == self.rd32(p))
         ds, live = self.chain(p)
         v = self.rd32(p)
         return any(live[i] and self.usable(p, ds[i], v)
@@ -210,7 +227,8 @@ class WarpWalk:
                 valid = pn <= mfl + 1
                 if not valid[0]:
                     break
-                self.tapes.window(int(min(pk[0], n)))
+                p0 = int(min(pk[0], n))
+                self.tapes.window(p0)
                 act = valid & (pk + 1 < self.tapes.resident_end())
                 hit = [bool(act[j]) and self.probe_hits(int(pk[j]))
                        for j in range(LANES)]
@@ -224,6 +242,9 @@ class WarpWalk:
                 break
             if self.N == 1:              # hp's candidate, no preview
                 pos, mpos, pmc, pcl = hp, hp - self.tapes.read(0, hp), 0, 0
+                if self.mlen:            # the code's lcp, capped at 8
+                    code = self.tapes.read(1, hp)
+                    pmc, pcl = (code >> 1) & 15, 8
             else:
                 lazy = hp + 1 <= mfl
                 mca, mpos, mb, mposb = self.previews(hp, lazy, mlim)
@@ -231,8 +252,11 @@ class WarpWalk:
                 if lazy and mb > mca:
                     pos, mpos, pmc = hp + 1, mposb, mb
                 pcl = min(mlim - pos - 4, 64)
-            back = 0
-            while True:                                    # catch-up
+            back, steps = 0, True
+            if self.mlen:                                  # the code's cu
+                back = min((code >> 6) & 7, pos - anchor, mpos)
+                pos, mpos, steps = pos - back, mpos - back, back == 4
+            while steps:                                   # catch-up
                 ok = [j < pos - anchor and j < mpos
                       and s[pos - 1 - j] == s[mpos - 1 - j]
                       for j in range(LANES)]
@@ -280,6 +304,8 @@ class WarpWalk:
                     break
                 mc += 128
                 more = mc < lim
+            if self.mlen and self.seen is not None:
+                mlen_seen(self.seen, back, lit, pmc, mc, lim)
             mc = min(mc, lim)
             pos = p + mc
             if mc >= 15:
@@ -315,19 +341,23 @@ class WarpWalk:
         return row, o, False, tpos, nseq
 
 
-def emulate(raw, cand, gaps, gaps2, rlen, accel, depth, seed=0, cap=None):
+def emulate(raw, cand, gaps, gaps2, rlen, accel, depth, seed=0, cap=None,
+            mcode=None, seen=None):
     """The kernel's five outputs, one WarpWalk a block (depth 1: K7's
-    walk, gaps and gaps2 None; ``cap``: the stream's limit, by default
+    walk, gaps and gaps2 None; with ``mcode``, ``cand`` the verified
+    candidates, K10c's, the codes through the ring; ``cap``: the stream's limit, by default
     ``compress_bound(block_size)``)."""
     rng = np.random.default_rng(seed)
     nb, bs = raw.shape
     tapes = [t.numpy().astype(np.int64) for t in (cand, gaps, gaps2)
              if t is not None]
+    codes = None if mcode is None else mcode.numpy().astype(np.int64)
     rows, lens, errs, tails, nseqs = [], [], [], [], []
     for j in range(nb):
         n = min(max(int(rlen[j]), 0), bs)
         w = WarpWalk(raw[j, :n].numpy().tobytes(), bs,
-                     [t[j] for t in tapes], accel, depth, rng, cap)
+                     [t[j] for t in tapes], accel, depth, rng, cap,
+                     None if codes is None else codes[j], seen)
         r, o, e, tp, ns = w.run()
         rows.append(r)
         lens.append(o)
@@ -383,8 +413,9 @@ def test_warp_parse_emulation_matches_plain(depth, accel):
 
 
 def test_skip_schedule_closed_form_matches_the_serial_loop():
-    """p_k of the closed form against greedy_parse's fpos / step / smn
-    loop, for accelerations 1, 2, 8 and 65537 and 5000 probes."""
+    """p_k of the closed form against the serial loop's fpos / step /
+    smn (``parse_segments_plain``'s), for accelerations 1, 2, 8 and
+    65537 and 5000 probes."""
     for accel in (1, 2, 8, 65537):
         A = accel << 6
         fpos, step, smn = 100, 1, A

@@ -28,7 +28,7 @@ from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
 from lz4_sgori_torch.ops.kernels import parse_seg as K3
 from test_torch_threads import one_thread  # noqa: F401 (a fixture)
-from test_torch_warp_parse import WarpWalk, ffs, skip_sum
+from test_torch_warp_parse import WarpWalk, ffs, mlen_seen, skip_sum
 
 LANES = 32
 GROUP = 2           # seg_warp::kGroup
@@ -148,9 +148,13 @@ class Previews:
         return m >= 0 and dd <= self.wlim and self.rd32(m) == v
 
 
-def probe_round(res, cd, gp, q, valid, wlim):
+def probe_round(res, cd, gp, q, valid, wlim, mlen=False):
     """The hits of a round of probes at q (``Walk<N>::probe_hits``): read32
-    at a candidate only where it passes the cheaper checks."""
+    at a candidate only where it passes the cheaper checks; in the mlen
+    mode (``cd`` the verified candidates) no read32 at all."""
+    if mlen:
+        d = cd[q]
+        return valid & (d > 0) & (d <= wlim) & (d <= q)
     v = np.zeros(len(q), np.int64)
     v[valid] = res.rd32(q[valid])
     dd = cd[q]
@@ -171,10 +175,17 @@ def probe_round(res, cd, gp, q, valid, wlim):
     return hit
 
 
-def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
+def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None, mcr=None,
+         seen=None):
     """``Walk<N>::run`` on one segment: (stream, o, ok, anchor, nseq, p1,
     m1h); with the gaps row ``gp`` at three candidates a probe, the
-    previews of the hit and of the lazy step (``WarpWalk.previews``)."""
+    previews of the hit and of the lazy step (``WarpWalk.previews``); with
+    the mcode row ``mcr`` (``cd`` then cand_v) the mlen mode
+    (``Walk<1, true>``): no read32 at a probe, the hit's code read with
+    it, the catch-up's cu bytes and the extension's lcp bytes from the
+    code, the byte steps only where the code reached its cap. ``seen``
+    (a Counter) counts the mlen cases met (``mlen_seen``)."""
+    mlen = mcr is not None
     mfl, mlim = min(s1 - 4, n - 12), min(s1, n - 5)
     A = accel << 6
     SA = skip_sum(A)
@@ -192,9 +203,10 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
             if not valid[0]:
                 break
             q = np.where(valid, pk, start)
-            hit = probe_round(res, cd, gp, q, valid, wlim)
+            hit = probe_round(res, cd, gp, q, valid, wlim, mlen)
             if hit.any():
                 hp = int(pk[np.argmax(hit)])
+                code = int(mcr[hp]) if mlen else 0  # shuffled with hp
                 break
             if not valid.all():
                 break
@@ -202,6 +214,8 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
         if hp < 0:
             break
         pos1, mpos, pmc, pcl = hp, hp - int(cd[hp]), 0, 0
+        if mlen:
+            pmc, pcl = (code >> 1) & 15, 8
         if gp is not None:
             lazy = hp + 1 <= mfl
             pmc, mpos, mb, mposb = WarpWalk.previews(
@@ -209,8 +223,11 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
             if lazy and mb > pmc:
                 pos1, mpos, pmc = hp + 1, mposb, mb
             pcl = min(mlim - pos1 - 4, 64)
-        back = 0
-        while True:                                   # catch-up
+        back, steps = 0, True
+        if mlen:                                      # the code's cu
+            back = min((code >> 6) & 7, pos1 - anchor, mpos)
+            pos1, mpos, steps = pos1 - back, mpos - back, back == 4
+        while steps:                                  # catch-up
             c = 0
             while c < LANES and c < pos1 - anchor and c < mpos and \
                     res.byte(pos1 - 1 - c) == res.byte_m(mpos - 1 - c):
@@ -230,6 +247,8 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
                 break
             mc += 128
             more = mc < lim
+        if mlen and seen is not None:
+            mlen_seen(seen, back, pos1 - anchor, pmc, mc, lim)
         mc = min(mc, lim)
         lit = pos1 - anchor
         hl = 0 if frag else 1 + lsic_len(lit)
@@ -263,16 +282,19 @@ def walk(res, cd, s0, s1, n, frag, wlim, accel, cap, gp=None):
 
 
 def emulate(raw, cand, rlen, seg, window, accel, group=None, back=BACK,
-            seed=0, stats=None, gaps=None):
+            seed=0, stats=None, gaps=None, mcode=None, cap=None, seen=None):
     """Every CTA of the launch, each warp's segment walked (with ``gaps``
-    at three candidates a probe); the kernel's seven outputs in
-    block-major segment order."""
+    at three candidates a probe; with ``mcode``, ``cand`` the verified
+    candidates, in the mlen mode); the kernel's seven outputs in
+    block-major segment order. ``cap``: the streams' limit, by default
+    ``compress_bound(seg)``."""
     rng = np.random.default_rng(seed)
     nb, bs = raw.shape
     nseg = bs // seg
     G = Geometry(nb, bs, seg, group, back)
     assert G.bytes <= SMEM_LIMIT
-    cap = F.compress_bound(seg)
+    row = F.compress_bound(seg)
+    cap = row if cap is None else cap
     wlim = K3.window_limit(window)
     outs = {}
     for cta in range(G.ctas):
@@ -291,16 +313,18 @@ def emulate(raw, cand, rlen, seg, window, accel, group=None, back=BACK,
             res = Resident(block, lo, max(hi, lo), rng)
             cd = cand[b].numpy().astype(np.int64)
             gp = None if gaps is None else gaps[b].numpy().astype(np.int64)
+            mcr = None if mcode is None else \
+                mcode[b].numpy().astype(np.int64)
             for k in range(g0, min(g0 + G.segs, nseg)):
                 s0 = k * seg
                 s1 = s0 + min(max(n - s0, 0), seg)
                 outs[b * nseg + k] = walk(res, cd, s0, s1, n, k > 0, wlim,
-                                          accel, cap, gp)
+                                          accel, cap, gp, mcr, seen)
             if stats is not None:
                 stats["global_reads"] = stats.get("global_reads", 0) + \
                     res.global_reads
     assert sorted(outs) == list(range(nb * nseg))
-    streams = np.zeros((nb * nseg, cap), np.uint8)
+    streams = np.zeros((nb * nseg, row), np.uint8)
     cols = [[] for _ in range(6)]
     for t in range(nb * nseg):
         d, o, ok, anchor, ns, p1, m1h = outs[t]
