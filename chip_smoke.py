@@ -34,9 +34,9 @@ seg and v7, kernels K1-K4):
    16, 64 and 128 KiB (its whole-block geometry, and K6's ring above 64
    KiB);
 5. times the kernel path and each kernel against its plain version with
-   CUDA events; K2, K3 and K1 over the corpus and on one block, each in
-   turns with the parent tree's when ``--parent`` names one (its outputs
-   equal first).
+   CUDA events; K2, K3 and K1 over the corpus and on one block, and K4
+   over the corpus, each in turns with the parent tree's when
+   ``--parent`` names one (its outputs equal first).
 
 The 4 KiB block-device path (8192 blocks; engines enc3 and v6, kernels
 K2, K7 and K5), in ``_smoke_4k``:
@@ -47,7 +47,7 @@ K2, K7 and K5), in ``_smoke_4k``:
    on it, at 5,000 bytes (corpus, short, zero and random blocks) and at 64
    KiB (a corpus and a random block), and against K3 then K4 at seg =
    block size; K5 at 4 KiB, 8 KiB, and 256 KiB on blocks of
-   ``native.compress``);
+   ``native.compress``, and on the crafted streams at 4, 8 and 12 KiB);
 7. the golden contract: 64 blocks at 4 KiB and their tails, acceleration 8,
    the non-aligned enc3 sizes 5,000 and 60,000 with edge blocks, and
    seg_splice at 96 and 196 KiB, each decoded through its routed engine;
@@ -64,8 +64,8 @@ K2, K7 and K5), in ``_smoke_4k``:
 11. 1024 corrupted 4 KiB streams through the v6 route against
     golden.decompress's verdict;
 12. times with CUDA events: the 4 KiB kernel path, K2, K7 and K5 beside
-    their plain versions (K2 and K7 over the corpus and on one block in
-    turns with the parent tree's, and with it the median of 1024 4 KiB
+    their plain versions (K2, K7 and K5 over the corpus and on one block
+    in turns with the parent tree's, and with it the median of 1024 4 KiB
     ProxyStore writes with the parent's K2, and with its K7), and the
     ProxyStore's write latency.
 
@@ -102,12 +102,12 @@ blocks run in a pool of worker processes:
 18. 512 corrupted 1 MiB streams through the v8 route against
     golden.decompress's verdict;
 19. times with CUDA events: config 6's encode and decode kernel paths, K9,
-    K3 and K6 over the corpus, K9 and K6 beside their plain versions, and
-    K6 at 4 MiB; K9 and K3 over config 6, K9 on one block of 1 MiB and one
-    of 4 MiB, and K6 on one block of 1 MiB, one of 4 MiB and over config
-    6, each in turns with the parent tree's when ``--parent`` names one
-    (its outputs equal first), and with it the 1 MiB and 4 MiB stores'
-    write medians with this tree's K9 and the parent's in turns.
+    K3, K4 and K6 over the corpus, K9 and K6 beside their plain versions,
+    and K6 at 4 MiB; K9, K3 and K4 over config 6, K9 on one block of 1 MiB
+    and one of 4 MiB, and K6 on one block of 1 MiB, one of 4 MiB and over
+    config 6, each in turns with the parent tree's when ``--parent`` names
+    one (its outputs equal first), and with it the 1 MiB and 4 MiB
+    stores' write medians with this tree's K9 and the parent's in turns.
 
 The deep match modes (K8) on bench.py's config 5 (128 MiB, seed 1234,
 64 KiB blocks; depth 3 on seg, depth 5 on enc3 over the first 8 MiB;
@@ -531,16 +531,17 @@ class _Seqs:
                                   dtype=np.uint8).tobytes())
 
 
-def crafted_streams(out_size: int,
-                    seed: int = 17) -> list[tuple[str, bytes]]:
+def crafted_streams(out_size: int, seed: int = 17,
+                    stage: int = 8192) -> list[tuple[str, bytes]]:
     """Named LZ4 streams for a decoder of ``out_size``-byte blocks, each
     fitting the slot ``compress_bound(out_size) + 8``: valid ones with
     an offset of exactly 65,535 (where the output reaches it), offsets
     1-4, matches across every 128 KiB of output (the history ring's
-    wrap) and from sources across it, LSIC runs over 8 KiB boundaries of
-    the stream (the stage boundaries, whatever the row's alignment; two
-    runs of 40 LSIC bytes from 128 KiB on, below it as many runs of 16
-    as the output holds, and a match whose source is the block's first
+    wrap) and from sources across it, LSIC runs over ``stage``-byte
+    boundaries of the stream (the decoder's stage boundaries, whatever
+    the row's alignment; two runs of 40 LSIC bytes from 128 KiB on, below
+    it as many runs of 16 as the output holds, below 16 KiB runs of
+    out_size / 2048 bytes, and a match whose source is the block's first
     byte); and one of each error of the safe decoder (missing token,
     truncated literal and match LSIC, literals past the input, literals
     and a match past capacity, truncated offset, offset 0, offset past
@@ -549,7 +550,10 @@ def crafted_streams(out_size: int,
     from lz4_sgori_torch import format as F
     rng = np.random.default_rng(seed)
     slot = F.compress_bound(out_size) + 8
-    ring, stage = 1 << 17, 8192
+    ring = 1 << 17
+    # the longest literal run and match of a body's sequence: below 16 KiB
+    # short enough that the last body stays inside the block
+    long_lit, long_ml = (700, 600) if out_size >= 16384 else (200, 200)
 
     def rand(k):
         return rng.integers(0, 256, k, dtype=np.uint8).tobytes()
@@ -575,9 +579,9 @@ def crafted_streams(out_size: int,
                 # a source that starts 17 bytes before the last wrap
                 w.seq(lit, (op + len(lit)) % ring + 17, 50)
             elif r == 3:
-                w.seq(rand(int(rng.integers(15, 700))),
+                w.seq(rand(int(rng.integers(15, long_lit))),
                       int(rng.integers(1, min(op, 65535) + 1)),
-                      int(rng.integers(19, 600)))
+                      int(rng.integers(19, long_ml)))
             else:
                 w.seq(lit, int(rng.integers(1, min(op + len(lit), 65535)
                                              + 1)),
@@ -588,12 +592,18 @@ def crafted_streams(out_size: int,
     small = out_size < ring
     body(w, out_size // (8 if small else 2))
     nff = 16 if small else 40                    # LSIC bytes of 255 a run
+    back = 10 if small else 20                   # the token before a bound
+    reserve = 2000                               # output for the last body
+    if out_size < 16384:
+        nff = max(1, min(16, out_size // 2048))
+        back = min(back, nff)
+        reserve = 512
     for k in range(2):                           # LSIC over stage bounds
         bound = (len(w.stream) // stage + (1 if small else 2)) * stage
-        pad = bound - (10 if small else 20)
+        pad = bound - back
         run = 15 + 255 * nff + 7
         if small and (len(w.out) + (pad - len(w.stream)) * 18 // 17 + run
-                      + 64 > out_size - 2100):
+                      + 64 > out_size - reserve - 100):
             break                                # the output cannot hold it
         w.pad_to(pad, rng)
         if k == 0:
@@ -602,7 +612,7 @@ def crafted_streams(out_size: int,
             w.seq(b"", 3, 4 + run)
     if small:                                    # the source at byte 0
         w.seq(rand(5), len(w.out) + 5, 60)
-    body(w, out_size - 2000)
+    body(w, out_size - reserve)
     w.seq(rand(50), last=True)
     streams.append(("mixed", bytes(w.stream)))
 
@@ -667,6 +677,15 @@ def crafted_streams(out_size: int,
     for name, s in streams:
         assert 0 < len(s) <= slot, (name, len(s), slot)
     return streams
+
+
+def k5_stage(out_size: int) -> int:
+    """The stream stage of K5's geometry at ``out_size`` (decode_v6.cu):
+    ``ring::SmallGeom<L>``'s 2^(L-1) bytes up to 16 KiB (2^L the least
+    power of two at least out_size, L at least 12), else 8 KiB."""
+    if out_size > 16384:
+        return 8192
+    return 1 << (max(12, (out_size - 1).bit_length()) - 1)
 
 
 def load_parent(mod, name: str):
@@ -1248,6 +1267,8 @@ def _smoke(torch, start: float) -> int:
     # parent's kernels
     old2, old3 = load_parent(K2, "cand"), load_parent(K3, "parse_seg")
     old1 = load_parent(K1, "decode_v7")
+    old4 = load_parent(K4, "asm_seg")
+    a4 = S.assembly_inputs(raw, rlen, BLOCK)[:5]
     full = {
         "cand": against_parent(time_ms, K2, old2,
                                lambda: K2.dense_candidates(raw, rlen), 5,
@@ -1261,7 +1282,11 @@ def _smoke(torch, start: float) -> int:
             time_ms, K1, old1,
             lambda: K1.decompress_blocks_v7(fcomp, fclen, BLOCK), 5,
             f"K1 over config 1 ({nb} blocks of {BLOCK})", card),
+        "asm_seg": against_parent(
+            time_ms, K4, old4, lambda: K4.assemble_segments(*a4), 5,
+            f"K4 over config 1 ({nb} blocks of {BLOCK}, seg 4096)", card),
     }
+    del a4
     print(f"[{card}] kernels over the corpus (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
     r1, l1, c1 = raw[:1].contiguous(), rlen[:1].contiguous(), \
@@ -1289,7 +1314,7 @@ def _smoke(torch, start: float) -> int:
             time_ms(lambda: K4.assemble_segments_plain(
                 pk[0], hdr, rs, plan, ocap), 3),
             int(pk[1].sum()) + int(hlen.sum()) + int(plan[..., 3].sum())
-            + int(a_k[1].sum()) + tensor_bytes(plan, a_k[1])),
+            + tensor_bytes(plan, *a_k)),
         "decode_v7": (time_ms(lambda: K1.decompress_blocks_v7(
             comp_s, clen_s, BLOCK), 10),
             time_ms(lambda: K1.decompress_blocks_plain(
@@ -1470,13 +1495,23 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     e5.append(max(maxdiff(x, y) for x, y in zip(
         d5, K1.decompress_blocks_plain(c256, n256, bs256))))
     decodes_to(d5, b256, "K5 at 256 KiB")
+    # the crafted streams in K5's small geometries (LSIC runs over their
+    # stage bounds, each error late in the block, clen == slot)
+    for osz in (4096, 8192, 12288):
+        cc, cl = to_dev(*_pack_streams(
+            [s for _, s in crafted_streams(osz, stage=k5_stage(osz))],
+            F.compress_bound(osz) + 8))
+        e5.append(max(maxdiff(x, y) for x, y in zip(
+            K5.decompress_blocks_v6(cc, cl, osz),
+            K1.decompress_blocks_plain(cc, cl, osz))))
     err5 = max(e5)
     need(err5 == 0, f"K5 differs from its plain version by {err5}")
     print(f"phase K7/K5 == plain: ok; K2 on all {nb} blocks of 4 KiB and on "
           f"{SUBSET4} of 8 KiB; K7 on {SUBSET4} blocks of 4 KiB (all "
           f"five outputs; also at acceleration 8), on 6 of 5,000 bytes and "
           f"2 of 64 KiB, and == K3 then K4 at seg 4096; K5 at 4 KiB, 8 KiB "
-          f"and 256 KiB ({time.perf_counter() - t0:.1f} s)")
+          f"and 256 KiB, and on the crafted streams at 4, 8 and 12 KiB "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 7: the golden contract ----
     t0 = time.perf_counter()
@@ -1678,6 +1713,7 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
           f"{ms_dec:.3f} ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
     fcand = K2.dense_candidates(raw, rlen)
     old2, old7 = load_parent(K2, "cand"), load_parent(K7, "parse_enc3")
+    old5 = load_parent(K5, "decode_v6")
     full = {"cand": against_parent(
                 time_ms, K2, old2, lambda: K2.dense_candidates(raw, rlen), 5,
                 f"K2 over config 3 ({nb} blocks of 4 KiB)", card),
@@ -1685,7 +1721,10 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
                 time_ms, K7, old7,
                 lambda: K7.parse_blocks_enc3(raw, fcand, rlen), 5,
                 f"K7 over config 3 ({nb} blocks of 4 KiB)", card),
-            "decode_v6": ms_dec}
+            "decode_v6": against_parent(
+                time_ms, K5, old5,
+                lambda: K5.decompress_blocks_v6(fc, fl, BLOCK4), 5,
+                f"K5 over config 3 ({nb} blocks of 4 KiB)", card)}
     r1, l1 = raw[:1].contiguous(), rlen[:1].contiguous()
     against_parent(time_ms, K2, old2, lambda: K2.dense_candidates(r1, l1),
                    20, "K2 on one block of 4 KiB", card)
@@ -1693,6 +1732,10 @@ def _smoke_4k(torch, data: bytes, card: str, time_ms, maxdiff, mods) -> dict:
     against_parent(time_ms, K7, old7,
                    lambda: K7.parse_blocks_enc3(r1, c1, l1), 20,
                    "K7 on one block of 4 KiB", card)
+    f1, n1 = fc[:1].contiguous(), fl[:1].contiguous()
+    against_parent(time_ms, K5, old5,
+                   lambda: K5.decompress_blocks_v6(f1, n1, BLOCK4), 20,
+                   "K5 on one block of 4 KiB", card)
     if old2 is not None:
         # a 4 KiB write's latency with this tree's K2 and the parent's
         def store_median():
@@ -1757,7 +1800,9 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
     from lz4_sgori_torch import routing as R
     from lz4_sgori_torch import store as ST
     from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops import seg as S
     from lz4_sgori_torch.ops.encode import compress_blocks_device
+    from lz4_sgori_torch.ops.kernels import asm_seg as K4
     from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
     from lz4_sgori_torch.ops.kernels import lockstep_v7 as K1
     from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
@@ -2038,6 +2083,12 @@ def _smoke_big(torch, card: str, time_ms, maxdiff, mods) -> dict:
                 f"K3 over config 6 ({nb} blocks of {bs}, seg {seg})", card,
                 same_parse(torch, maxdiff)),
             "decode_v8": ms_dec}
+    a4 = S.assembly_inputs(raw, rlen, bs, seg=seg)[:5]
+    full["asm_seg"] = against_parent(
+        time_ms, K4, load_parent(K4, "asm_seg"),
+        lambda: K4.assemble_segments(*a4), 3,
+        f"K4 over config 6 ({nb} blocks of {bs}, seg {seg})", card)
+    del a4
     print(f"[{card}] kernels over config 6 (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in full.items()))
     c1, n1 = k6_in[bs]

@@ -1,6 +1,6 @@
 // Safe LZ4 block decode for the v7 band (16-128 KiB), one CTA a block,
 // the block's output held whole in shared memory
-// (lz4_decode_ring.cuh, the geometry Whole).
+// (lz4_decode_ring.cuh, the geometry WholeGeom).
 //
 // Replaces lz4_sgori_tpu/ops/pallas/lockstep_v7.py:_kernel (with _round
 // and transfer_frames; the pallas_call at :401): the TPU walks 128 blocks
@@ -30,8 +30,8 @@ extern "C" int lz4t_decode_v7(const void* comp, const void* clen, void* out,
                               void* out_len, void* err, int nb, int slot,
                               int out_size, void* stream) {
   if (out_size <= ring::kWholeMax)
-    return launch_decode_ring<true>(comp, clen, out, out_len, err, nb, slot,
-                                    out_size, stream);
-  return launch_decode_ring<false>(comp, clen, out, out_len, err, nb, slot,
-                                   out_size, stream);
+    return launch_decode_ring<ring::WholeGeom>(comp, clen, out, out_len, err,
+                                               nb, slot, out_size, stream);
+  return launch_decode_ring<ring::RingGeom>(comp, clen, out, out_len, err,
+                                            nb, slot, out_size, stream);
 }

@@ -36,6 +36,6 @@
 extern "C" int lz4t_decode_v8(const void* comp, const void* clen, void* out,
                               void* out_len, void* err, int nb, int slot,
                               int out_size, void* stream) {
-  return launch_decode_ring<false>(comp, clen, out, out_len, err, nb, slot,
-                                   out_size, stream);
+  return launch_decode_ring<ring::RingGeom>(comp, clen, out, out_len, err,
+                                            nb, slot, out_size, stream);
 }

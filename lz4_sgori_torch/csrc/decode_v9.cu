@@ -7,16 +7,17 @@
 // block; an offset may not reach before the current block's first byte.
 // Here the wrapper deals the blocks (lz4_sgori_torch/retired/
 // lockstep_v9.py) so that rows c * chain .. c * chain + chain - 1 form
-// chain c, and warp c decodes them in turn with the warp walk of K5
-// (lz4_decode.cuh). Each block has its own output row, so an offset that
-// reaches before it is the walk's own "outside output" error. Per block
-// the result is K1's: golden.decompress, with an error row all zero.
+// chain c, and warp c decodes them in turn with the warp walk of
+// lz4_decode.cuh (K5's first design). Each block has its own output row,
+// so an offset that reaches before it is the walk's own "outside output"
+// error. Per block the result is K1's: golden.decompress, with an error
+// row all zero.
 //
-// What bounds it on the H100: the serial walk, as K5. A chain is `chain`
-// walks long and the batch gives nb / chain warps, so while the warps in
-// flight are fewer than the card holds (512 blocks of 64 KiB are under
-// 4 warps per SM), chaining lengthens the critical path; the deal only
-// evens the chains out.
+// What bounds it on the H100: the serial walk of one warp. A chain is
+// `chain` walks long and the batch gives nb / chain warps, so while the
+// warps in flight are fewer than the card holds (512 blocks of 64 KiB are
+// under 4 warps per SM), chaining lengthens the critical path; the deal
+// only evens the chains out.
 
 #include "lz4_decode.cuh"
 

@@ -1,8 +1,8 @@
-// The safe LZ4 block decode of K5 (decode_v6.cu) and the chained T3
-// (decode_v9.cu): one warp per block (decode_block_warp; T3's warp walks
-// several in turn). K1 (decode_v7.cu) and K6 (decode_v8.cu) walk a block
-// with a CTA of its own (lz4_decode_ring.cuh) under the same contract and
-// checks.
+// The safe LZ4 block decode of the chained T3 (decode_v9.cu, a retired
+// engine), its one user: one warp per block (decode_block_warp; T3's warp
+// walks several in turn). It was the first design of K1, K5 and K6; all
+// three now walk a block with a CTA of their own (lz4_decode_ring.cuh)
+// under the same contract and checks.
 //
 // Contract (golden.decompress, lz4_sgori_tpu/golden.py:194-261):
 //   err = 1 exactly when golden.decompress(comp[:clen], out_size) raises;

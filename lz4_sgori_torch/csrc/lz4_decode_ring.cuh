@@ -1,18 +1,26 @@
-// The safe LZ4 block decode of K6 (decode_v8.cu) and K1 (decode_v7.cu):
-// one CTA a block, the block's output held in shared memory and its
-// compressed stream staged into shared memory by bulk asynchronous
-// copies; warp 0 walks, up to 32 sequences a batch, the CTA's other warps
-// join it for each batch's window pass and write the row's tail (K6) or
-// the whole row (K1) at the end. Two geometries, a template over Whole:
+// The safe LZ4 block decode of K6 (decode_v8.cu), K1 (decode_v7.cu) and
+// K5 (decode_v6.cu): one CTA a block, the block's output held in shared
+// memory and its compressed stream staged into shared memory by bulk
+// asynchronous copies; warp 0 walks, up to 32 sequences a batch, the
+// CTA's other warps join it for each batch's window pass and write the
+// row's tail (K6) or the whole row (K1, K5) at the end. The kernel is a
+// template over its geometry (Geom): the output region, the stream's
+// stage size and count, the CTA's threads and the CTAs an SM.
 //
-// - K6 (Whole false, every out_size): the last 128 KiB of output in a
+// - K6 (RingGeom, every out_size): the last 128 KiB of output in a
 //   history ring, flushed to the row as the walk goes; a CTA an SM.
-// - K1 (Whole true, out_size at most 64 KiB): the block's whole output
+// - K1 (WholeGeom, out_size at most 64 KiB): the block's whole output
 //   in 64 KiB of shared memory, never flushed during the walk; after it
 //   the CTA's 128 threads write the row, decoded bytes and the zeros past
 //   them, in 16-byte stores. About 104 KiB a CTA, so two CTAs share an
 //   SM: while one walks a sequence's dependent steps, the other issues.
 //   K1's blocks of 64-128 KiB take K6's geometry as it stands.
+// - K5 (SmallGeom<L>, out_size at most 2^L, L = 12, 13, 14): K1's whole
+//   block in a region of 2^L bytes, the stream in 4 stages of 2^(L-1)
+//   bytes, which hold a whole block's slot and its head; at 4 KiB about
+//   18 KB a CTA, so 8 CTAs share an SM (the walk's 64 registers a thread;
+//   shared memory would hold 12). K5's blocks above 16 KiB take K1's
+//   geometries.
 //
 // Contract: lz4_decode.cuh's (golden.decompress,
 // lz4_sgori_tpu/golden.py:194-261): err = 1 exactly when
@@ -25,13 +33,15 @@
 // The stream. Stream byte i lies at head + i of the 16-byte-aligned run
 // that starts at the row's address rounded down (head = that address mod
 // 16, as row starts blk * slot are not 16-byte aligned in general). The
-// run is cut into 8 KiB stages; 4 of them live in a ring, each filled by
-// one cp.async.bulk that completes a transaction barrier (mbarrier). The
-// run ends at head + clen rounded up to 16: every 16 bytes copied hold a
-// byte of the row, and the bytes past clen that a copy brings are never
-// used. The walking warp's lane 0 is the producer: when the walk leaves
-// a stage, it refills that slot with the stage 4 ahead, so up to three
-// stages are in flight while the walk reads the fourth.
+// run is cut into stages (8 KiB for K1 and K6); 4 of them live in a ring,
+// each filled by one cp.async.bulk that completes a transaction barrier
+// (mbarrier). The run ends at head + clen rounded up to 16: every 16
+// bytes copied hold a byte of the row, and the bytes past clen that a
+// copy brings are never used. The walking warp's lane 0 is the producer:
+// when the walk leaves a stage, it refills that slot with the stage 4
+// ahead, so up to three stages are in flight while the walk reads the
+// fourth (K5's ring holds the whole run, so all of it is in flight from
+// the start and nothing is refilled).
 //
 // The output. Output byte o lies at ohead + o (ohead: the output row's
 // address mod 16) of the output region, taken mod its size. A match
@@ -48,9 +58,9 @@
 // writes more than 4 KiB (a batch 16 KiB) between two flush checks. On
 // an error found late, the whole row, the flushed part with it, is
 // zeroed, as lz4_decode.cuh's tail loop does.
-// K1: ohead + o < 64 KiB + 16; the few bytes past 64 KiB wrap onto [0,
-// ohead), which no byte below 64 KiB uses, so nothing is overwritten and
-// every source is on chip.
+// K1 and K5: ohead + o < R + 16 for a region of R bytes (R >= out_size);
+// the few bytes past R wrap onto [0, ohead), which no byte below R uses,
+// so nothing is overwritten and every source is on chip.
 //
 // The walk. A warp alone on its SM issues each dependent instruction
 // some cycles after the last, so a sequence walked one at a time costs
@@ -67,34 +77,64 @@
 
 namespace ring {
 
-constexpr int kStageLog = 13;                   // 8 KiB stages
-constexpr int kStage = 1 << kStageLog;
-constexpr int kStages = 4;
-constexpr int kCompRing = kStage * kStages;     // 32 KiB of stream
 constexpr int kWholeMax = 1 << 16;              // K1's whole-block sizes
+constexpr int kSmallMax = 1 << 14;              // K5's small geometries
 constexpr int kFlush = 16384;                   // pending bytes to flush
 constexpr int kPiece = 4096;                    // copy between checks
 constexpr int kWide = 4;                        // general walk: bytes a lane
 constexpr int kStep = 32 * kWide;               //   and a step
-constexpr int kThreads = 128;                   // the walk is warp 0
 constexpr int kTab = 33 * 32;                   // lane mod d, d = 1..32
 constexpr int kWindow = 256;                    // stream bytes a batch
 constexpr int kBatchOut = 16384;                // output bytes a batch
 constexpr int kInvalid = 0xFFFF;
 
-// A geometry's shared memory: the output region (K6's 128 KiB ring, or
-// K1's whole block), the stream ring, the barriers, the batch's fields
-// (int2) a window position and its links (uint16: 1, 2, 4, 8 and 16
-// steps), the table; and the CTAs it fits an SM.
-template <bool Whole>
+// A geometry: the output region (2^OutLog bytes: K6's 128 KiB ring, or a
+// whole block), Stages stream stages of 2^StageLog bytes (at least
+// kWindow), the CTA's Threads (the walk is warp 0; a multiple of 32 that
+// divides kWindow), the CTAs it fits an SM (the launch bound), and
+// whether the region holds the whole block. Its shared memory: the
+// region, the stream ring, the barriers, the batch's fields (int2) a
+// window position and its links (uint16: 1, 2, 4, 8 and 16 steps), the
+// table.
+template <int OutLog, int StageLog, int Stages, int Threads, int Ctas,
+          bool Whole>
 struct Geom {
-  static constexpr int kOutRing = Whole ? kWholeMax : 1 << 17;
+  static constexpr bool kWhole = Whole;
+  static constexpr int kOutRing = 1 << OutLog;
+  static constexpr int kStageLog = StageLog;
+  static constexpr int kStage = 1 << StageLog;
+  static constexpr int kStages = Stages;
+  static constexpr int kCompRing = kStage * Stages;
+  static constexpr int kThreads = Threads;
+  static constexpr int kCtas = Ctas;
   static constexpr int kFld = kOutRing + kCompRing + 8 * kStages;
   static constexpr int kNxt = kFld + 8 * kWindow;
   static constexpr int kTabAt = kNxt + 5 * 2 * kWindow;
   static constexpr int kSmem = kTabAt + kTab;
-  static constexpr int kCtas = Whole ? 2 : 1;
+  static_assert(kStage >= kWindow && kWindow % Threads == 0 &&
+                Threads % 32 == 0, "a batch's window in two stages");
 };
+
+// K6's (and K1's above 64 KiB): a 128 KiB history ring, 32 KiB of stream.
+using RingGeom = Geom<17, 13, 4, 128, 1, false>;
+// K1's: the whole block in 64 KiB, 32 KiB of stream, two CTAs an SM.
+using WholeGeom = Geom<16, 13, 4, 128, 2, true>;
+// K5's up to 16 KiB: the whole block in 2^L bytes, 2^(L+1) of stream
+// (a block's slot and head), as many CTAs an SM as the SM's 228 KiB of
+// shared memory (1 KiB of it reserved a CTA) and the walk's 64 registers
+// a thread allow. At 48 registers (10 CTAs at 4 KiB, 32 bytes spilled)
+// config 3 ran 1.04-1.05x faster but a lone block's walk took 16% more
+// cycles (probes.decode_pace), and a 4 KiB write verifies a lone block.
+constexpr int kSmallThreads = 128;
+constexpr int small_ctas(int L, int threads) {
+  const int smem = (1 << L) + (1 << (L + 1)) + 8 * 4 + 18 * kWindow + kTab;
+  const int by_smem = (228 << 10) / (smem + 1024);
+  const int by_regs = 65536 / (64 * threads);
+  return by_smem < by_regs ? by_smem : by_regs;
+}
+template <int L>
+using SmallGeom = Geom<L, L - 1, 4, kSmallThreads,
+                       small_ctas(L, kSmallThreads), true>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -133,7 +173,10 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
 }
 
 // The stream side of one block: the stage ring and the walk's place in it.
+template <class G>
 struct Stream {
+  static constexpr int kStageLog = G::kStageLog, kStage = G::kStage;
+  static constexpr int kStages = G::kStages, kCompRing = G::kCompRing;
   uint8_t* buf;              // kCompRing bytes
   uint64_t* full;            // kStages barriers
   const uint8_t* gbase;      // the row's address rounded down to 16
@@ -177,9 +220,9 @@ struct Stream {
 
 // The output side: the output region and (K6) the flushed prefix of
 // the row.
-template <bool Whole>
+template <class G>
 struct Out {
-  static constexpr int kOutRing = Geom<Whole>::kOutRing;
+  static constexpr int kOutRing = G::kOutRing;
   uint8_t* ring;             // kOutRing bytes
   uint8_t* gbase;            // the row's address rounded down to 16
   int ohead;                 // the row's address mod 16
@@ -203,9 +246,10 @@ struct Out {
     fx = xe;
   }
 
-  // K6 flushes once kFlush bytes are pending; K1 holds the whole block.
+  // K6 flushes once kFlush bytes are pending; K1 and K5 hold the whole
+  // block.
   __device__ __forceinline__ void check(int op, int lane) {
-    if constexpr (!Whole) {
+    if constexpr (!G::kWhole) {
       const int x = ohead + op;
       if (x - fx >= kFlush) flush_to(x & ~15, lane);
     }
@@ -220,22 +264,26 @@ __device__ __forceinline__ int step_back(const uint8_t* tab, int off,
   return off + lane - tab[min(off, 32) * 32 + lane];
 }
 
+template <int Threads>
 __device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(kThreads) : "memory");
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(Threads) : "memory");
 }
 
-// The window pass of a batch, by all the CTA's threads (tid 0-127, warp
-// 0 the walk's): thread tid parses the window positions tid and tid + 128
-// as if a token began there (its fields and the position after it, or
-// kInvalid), then the links are doubled four times (2, 4, 8, 16 steps; a
-// link to the window's end or past it ends the chain), a barrier after
-// each level. Every load of a step comes before its stores: a store may
-// alias a later load as far as the compiler knows, so interleaved they
-// would run one round trip at a time.
+// The window pass of a batch, by all the CTA's threads (tid 0 to T - 1,
+// T = G::kThreads; warp 0 the walk's): thread tid parses the window
+// positions tid + T k as if a token began there (its fields and the
+// position after it, or kInvalid), then the links are doubled four times
+// (2, 4, 8, 16 steps; a link to the window's end or past it ends the
+// chain), a barrier after each level. Every load of a step comes before
+// its stores: a store may alias a later load as far as the compiler
+// knows, so interleaved they would run one round trip at a time.
+template <class G>
 __device__ void window_pass(const uint8_t* buf, int2* fld, uint16_t* nxt,
                             int a0, int rel, int tid) {
-  constexpr int K = kWindow / kThreads;
-  const auto at = [buf](int a) { return (int)buf[a & (kCompRing - 1)]; };
+  constexpr int kThreads = G::kThreads, K = kWindow / kThreads;
+  const auto at = [buf](int a) {
+    return (int)buf[a & (G::kCompRing - 1)];
+  };
   int t[K], b1[K], ao[K], o0[K], o1[K], b2[K], link[K];
 #pragma unroll
   for (int k = 0; k < K; k++) {
@@ -263,7 +311,7 @@ __device__ void window_pass(const uint8_t* buf, int2* fld, uint16_t* nxt,
     nxt[x] = (uint16_t)link[k];
     fld[x] = make_int2(o0[k] | (o1[k] << 8) | (lit << 16), ml);
   }
-  named_sync(2);
+  named_sync<kThreads>(2);
 #pragma unroll
   for (int l = 1; l < 5; l++) {
     const uint16_t* from = nxt + (l - 1) * kWindow;
@@ -278,23 +326,25 @@ __device__ void window_pass(const uint8_t* buf, int2* fld, uint16_t* nxt,
       link[k] = nx[k];
       nxt[l * kWindow + tid + kThreads * k] = (uint16_t)nx[k];
     }
-    named_sync(2);
+    named_sync<kThreads>(2);
   }
 }
 
 // The other warps' side of the window passes: each batch's command (cmd:
 // a0, rel, the stage, whether the next is read too) comes through barrier
 // 1; a0 < 0 ends the walk.
+template <class G>
 __device__ void window_helper(const uint8_t* buf, uint64_t* full,
                               int2* fld, uint16_t* nxt,
                               const volatile int* cmd) {
+  constexpr int kStages = G::kStages;
   for (;;) {
-    named_sync(1);
+    named_sync<G::kThreads>(1);
     const int a0 = cmd[0], rel = cmd[1], cur = cmd[2], next = cmd[3];
     if (a0 < 0) return;
     bar_wait(&full[cur % kStages], (cur / kStages) & 1);
     if (next) bar_wait(&full[(cur + 1) % kStages], ((cur + 1) / kStages) & 1);
-    window_pass(buf, fld, nxt, a0, rel, threadIdx.x);
+    window_pass<G>(buf, fld, nxt, a0, rel, threadIdx.x);
   }
 }
 
@@ -312,11 +362,12 @@ __device__ void window_helper(const uint8_t* buf, uint64_t* full,
 // through registers and the rest of a longer one by the warp; then the
 // other matches in waves (see there). Returns the sequences taken, 0 for
 // none, with ip and op moved past them.
-template <bool Whole>
-__device__ int decode_batch(Stream& in, Out<Whole>& out, const uint8_t* tab,
+template <class G>
+__device__ int decode_batch(Stream<G>& in, Out<G>& out, const uint8_t* tab,
                             int2* fld, uint16_t* nxt, volatile int* cmd,
                             int& ip, int& op, int ilen, int out_size,
                             int lane) {
+  constexpr int kStageLog = G::kStageLog, kStages = G::kStages;
   const int a0 = in.head + ip;
   if ((a0 >> kStageLog) != in.cur || ip >= ilen) return 0;
   if (((a0 + kWindow - 1) >> kStageLog) != in.cur && in.cur + 1 < in.nst)
@@ -329,8 +380,8 @@ __device__ int decode_batch(Stream& in, Out<Whole>& out, const uint8_t* tab,
     cmd[2] = in.cur;
     cmd[3] = ((a0 + kWindow - 1) >> kStageLog) != in.cur && in.cur + 1 < in.nst;
   }
-  named_sync(1);
-  window_pass(in.buf, fld, nxt, a0, rel, lane);
+  named_sync<G::kThreads>(1);
+  window_pass<G>(in.buf, fld, nxt, a0, rel, lane);
   int mine = 0;
 #pragma unroll
   for (int l = 0; l < 5; l++)
@@ -446,12 +497,13 @@ __device__ int decode_batch(Stream& in, Out<Whole>& out, const uint8_t* tab,
 // The walk of one block by one warp (lz4_decode.cuh's loop, through the
 // stream ring and the output region). Returns the decoded length, or -1
 // on error.
-template <bool Whole>
-__device__ int decode_block_ring(Stream& in, Out<Whole>& out,
+template <class G>
+__device__ int decode_block_ring(Stream<G>& in, Out<G>& out,
                                  const uint8_t* tab,
                                  int2* fld, uint16_t* nxt,
                                  volatile int* cmd, int ilen, int slot,
                                  int out_size, int lane) {
+  constexpr int kStageLog = G::kStageLog;
   bool bad = ilen <= 0 || ilen > slot;   // ilen == 0: golden "empty input"
   int ip = 0, op = 0;
   while (!bad) {
@@ -539,22 +591,22 @@ __device__ int decode_block_ring(Stream& in, Out<Whole>& out,
       out.check(op, lane);
     }
   }
-  if constexpr (!Whole)
+  if constexpr (!G::kWhole)
     if (!bad) out.flush_to(out.ohead + op, lane);
   in.drain();
   return bad ? -1 : op;
 }
 
-// One CTA a block. K6 (Whole false): warp 0's flushes fill the row, and
-// the CTA zeroes its tail; K1 (Whole true): the CTA writes the whole row
-// from the block held on chip.
-template <bool Whole>
-__global__ void __launch_bounds__(kThreads, Geom<Whole>::kCtas)
+// One CTA a block. K6 (RingGeom): warp 0's flushes fill the row, and the
+// CTA zeroes its tail; K1 and K5 (a whole geometry): the CTA writes the
+// whole row from the block held on chip.
+template <class G>
+__global__ void __launch_bounds__(G::kThreads, G::kCtas)
 decode_ring_kernel(const uint8_t* __restrict__ comp,
                    const int* __restrict__ clen, uint8_t* out,
                    int* __restrict__ out_len, uint8_t* __restrict__ err,
                    int slot, int out_size) {
-  using G = Geom<Whole>;
+  constexpr int kThreads = G::kThreads, kStages = G::kStages;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int s_n;
   __shared__ int s_cmd[4];
@@ -568,13 +620,13 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
   if (threadIdx.x < 32) {
     const uint8_t* row = comp + (size_t)blk * slot;
     const int ilen = clen[blk];
-    Stream in;
+    Stream<G> in;
     in.buf = smem + G::kOutRing;
-    in.full = (uint64_t*)(smem + G::kOutRing + kCompRing);
+    in.full = (uint64_t*)(smem + G::kOutRing + G::kCompRing);
     in.gbase = (const uint8_t*)((uintptr_t)row & ~(uintptr_t)15);
     in.head = (int)((uintptr_t)row & 15);
     in.total = ilen > 0 && ilen <= slot ? (in.head + ilen + 15) & ~15 : 0;
-    in.nst = (in.total + kStage - 1) >> kStageLog;
+    in.nst = (in.total + G::kStage - 1) >> G::kStageLog;
     in.cur = 0;
     if (lane == 0) {
       for (int s = 0; s < kStages; s++) bar_init(&in.full[s]);
@@ -583,7 +635,7 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
     }
     __syncwarp();
     if (in.nst > 0) bar_wait(&in.full[0], 0);
-    Out<Whole> o;
+    Out<G> o;
     o.ring = smem;
     o.gbase = (uint8_t*)((uintptr_t)dst & ~(uintptr_t)15);
     o.ohead = (int)((uintptr_t)dst & 15);
@@ -597,17 +649,17 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
       err[blk] = n < 0 ? 1 : 0;
       s_cmd[0] = -1;                     // the other warps' last command
     }
-    named_sync(1);
+    named_sync<kThreads>(1);
   } else {
-    window_helper(smem + G::kOutRing,
-                  (uint64_t*)(smem + G::kOutRing + kCompRing),
+    window_helper<G>(smem + G::kOutRing,
+                  (uint64_t*)(smem + G::kOutRing + G::kCompRing),
                   (int2*)(smem + G::kFld), (uint16_t*)(smem + G::kNxt),
                   s_cmd);
   }
   __syncthreads();
   const int head = (int)((uintptr_t)dst & 15);
-  if constexpr (Whole) {
-    // the row: row byte o is region byte head + o (mod 64 KiB) below the
+  if constexpr (G::kWhole) {
+    // the row: row byte o is region byte head + o (mod its size) below the
     // decoded length n, zero from n on (all of it on an error, n = -1);
     // the unaligned head and tail a byte a thread, 16-byte stores between
     const int n = s_n;
@@ -643,32 +695,30 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
 
 }  // namespace ring
 
-// One CTA a block in geometry Whole (K1's whole block at out_size <=
-// 64 KiB, else K6's ring). A shared-memory size the card refuses is
-// returned as the launch's error. Internal linkage, so that `sized` is
-// this library's own beside another build of this header in the same
-// process.
-template <bool Whole>
+// One CTA a block in geometry G (a whole geometry needs out_size at most
+// its region). A shared-memory size the card refuses is returned as the
+// launch's error. Internal linkage, so that `sized` is this library's own
+// beside another build of this header in the same process.
+template <class G>
 static int launch_decode_ring(const void* comp, const void* clen, void* out,
                               void* out_len, void* err, int nb, int slot,
                               int out_size, void* stream) {
-  using G = ring::Geom<Whole>;
-  if (Whole && out_size > ring::kWholeMax) return (int)cudaErrorInvalidValue;
+  if (G::kWhole && out_size > G::kOutRing) return (int)cudaErrorInvalidValue;
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
-        ring::decode_ring_kernel<Whole>,
+        ring::decode_ring_kernel<G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-    if (e == cudaSuccess && Whole)
-      e = cudaFuncSetAttribute(ring::decode_ring_kernel<Whole>,
+    if (e == cudaSuccess && G::kWhole)
+      e = cudaFuncSetAttribute(ring::decode_ring_kernel<G>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   if (nb > 0)
-    ring::decode_ring_kernel<Whole><<<nb, ring::kThreads, G::kSmem,
-                                      (cudaStream_t)stream>>>(
+    ring::decode_ring_kernel<G><<<nb, G::kThreads, G::kSmem,
+                                  (cudaStream_t)stream>>>(
         (const uint8_t*)comp, (const int*)clen, (uint8_t*)out,
         (int*)out_len, (uint8_t*)err, slot, out_size);
   return (int)cudaGetLastError();

@@ -2,7 +2,10 @@
 
 ``assemble_segments`` launches ``csrc/asm_seg.cu`` (the port of
 ``lz4_sgori_tpu/ops/pallas/asm_seg.py:_asm_kernel``) for a CUDA tensor
-and runs ``assemble_segments_plain`` for a CPU tensor.
+and runs ``assemble_segments_plain`` for a CPU tensor. The kernel writes
+each row in 16-byte words, a CTA an 8 KiB chunk of a row, each word's
+bytes gathered from the piece or pieces it covers (zeros past the
+length).
 
 Contract (``golden.assemble_seg_parts``): block b's output is, for each
 segment k in order, ``streams[b*nseg+k, :slen] + hdr[b*nseg+k, :hlen] +
@@ -19,12 +22,13 @@ import torch
 from . import _build
 
 launches = 0
+ENTRIES = {"lz4t_asm_seg": "ppppppiiiiiip"}   # the C entry's signature
 MAX_SEG = 128
 
 
 def load_kernel():
     """Build (once) and load csrc/asm_seg.cu."""
-    return _build.load("asm_seg", {"lz4t_asm_seg": "ppppppiiiiiip"})
+    return _build.load("asm_seg", ENTRIES)
 
 
 def assemble_segments(streams: torch.Tensor, hdr: torch.Tensor,
@@ -49,11 +53,13 @@ def assemble_segments(streams: torch.Tensor, hdr: torch.Tensor,
         return assemble_segments_plain(streams, hdr, raw, plan, ocap)
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
+    lib = load_kernel()
     streams, hdr, raw, plan = (t.contiguous()
                                for t in (streams, hdr, raw, plan))
+    if plan.data_ptr() % 16:         # the kernel loads plan rows in 16 bytes
+        plan = plan.clone()
     out = torch.empty((nb, ocap), dtype=torch.uint8, device=raw.device)
     out_len = torch.empty(nb, dtype=torch.int32, device=raw.device)
-    lib = load_kernel()
     _build.check(lib.lz4t_asm_seg(
         streams.data_ptr(), hdr.data_ptr(), raw.data_ptr(), plan.data_ptr(),
         out.data_ptr(), out_len.data_ptr(), nb, nseg, streams.shape[1],

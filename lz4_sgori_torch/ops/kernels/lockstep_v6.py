@@ -25,11 +25,12 @@ from .lockstep_v7 import (check_decode_args, decompress_blocks_plain,
                           launch_decode)
 
 launches = 0
+ENTRIES = {"lz4t_decode_v6": "pppppiiip"}   # the C entry's signature
 
 
 def load_kernel():
     """Build (once) and load csrc/decode_v6.cu."""
-    return _build.load("decode_v6", {"lz4t_decode_v6": "pppppiiip"})
+    return _build.load("decode_v6", ENTRIES)
 
 
 def decompress_blocks_v6(comp: torch.Tensor, comp_len: torch.Tensor,

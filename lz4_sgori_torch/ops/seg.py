@@ -104,18 +104,15 @@ def assembly_plan(slen, hlen, last_end, raw_len, seg: int):
                         s1 - le], dim=2).to(torch.int32)
 
 
-def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
-                        block_size: int, seg: int = 4096,
-                        window: int = 65536, accel: int = 1,
-                        depth: int = 1, mlen: bool = False):
-    """Compress ``[nb, >= block_size]`` uint8 blocks on their device;
-    ``mlen`` runs the mlen mode (depth 1, blocks of at most 64 KiB).
+def assembly_inputs(raw: torch.Tensor, raw_len: torch.Tensor,
+                    block_size: int, seg: int = 4096, window: int = 65536,
+                    accel: int = 1, depth: int = 1, mlen: bool = False):
+    """Every step of ``compress_blocks_seg`` before K4: the candidates,
+    the parse, the run headers and the plan.
 
-    Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past the
-    length, comp_len int32 [nb], err bool [nb], nseq int32 [nb]). A block
-    whose parse failed or whose assembly passed COMPRESSBOUND has
-    ``comp_len`` 0 and ``err`` set (the reference's limited-output
-    failure): the framing layer re-encodes it on the host.
+    Returns (streams, hdr, rawm, plan, ocap, serr, nseq): K4's arguments
+    (``assemble_segments(streams, hdr, rawm, plan, ocap)``) and the
+    parse's per-segment error flags and sequence counts.
     """
     if block_size % seg or block_size // seg > 128:
         raise ValueError("seg must divide block_size into at most 128 "
@@ -156,10 +153,27 @@ def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
     hdr, hlen = run_headers(p1.reshape(shp), m1h.reshape(shp), le,
                             raw_len, block_size)
     plan = assembly_plan(slen.reshape(shp), hlen, le, raw_len, seg)
+    ocap = F.compress_bound(block_size) + 8
+    return streams, hdr, rawm, plan, ocap, serr.reshape(shp), \
+        nseq.reshape(shp)
 
-    bound = F.compress_bound(block_size)
-    comp, comp_len = assemble_segments(streams, hdr, rawm, plan, bound + 8)
-    err = (serr.reshape(shp) != 0).any(dim=1) | (comp_len > bound)
+
+def compress_blocks_seg(raw: torch.Tensor, raw_len: torch.Tensor,
+                        block_size: int, seg: int = 4096,
+                        window: int = 65536, accel: int = 1,
+                        depth: int = 1, mlen: bool = False):
+    """Compress ``[nb, >= block_size]`` uint8 blocks on their device;
+    ``mlen`` runs the mlen mode (depth 1, blocks of at most 64 KiB).
+
+    Returns (comp uint8 [nb, compress_bound(block_size) + 8] zero past the
+    length, comp_len int32 [nb], err bool [nb], nseq int32 [nb]). A block
+    whose parse failed or whose assembly passed COMPRESSBOUND has
+    ``comp_len`` 0 and ``err`` set (the reference's limited-output
+    failure): the framing layer re-encodes it on the host.
+    """
+    streams, hdr, rawm, plan, ocap, serr, nseq = assembly_inputs(
+        raw, raw_len, block_size, seg, window, accel, depth, mlen)
+    comp, comp_len = assemble_segments(streams, hdr, rawm, plan, ocap)
+    err = (serr != 0).any(dim=1) | (comp_len > ocap - 8)
     comp_len = torch.where(err, 0, comp_len)
-    nseq_b = nseq.reshape(shp).sum(dim=1, dtype=torch.int32)
-    return comp, comp_len, err, nseq_b
+    return comp, comp_len, err, nseq.sum(dim=1, dtype=torch.int32)

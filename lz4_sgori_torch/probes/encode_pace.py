@@ -4,19 +4,22 @@ segment parses, K3 (``csrc/parse_seg.cu``), K8-seg
 (``csrc/parse_seg_deep.cu``, depth 3) and K10b (``csrc/parse_seg_mlen.cu``,
 the mlen mode), and of the warp block parses, K7 (``csrc/parse_enc3.cu``)
 and K10c (``csrc/parse_enc3_mlen.cu``), with the mlen mode's codes
-(mcode, ``csrc/mcode.cu``), on the card, on the main paths' cells
+(mcode, ``csrc/mcode.cu``), and of the segment assembly, K4
+(``csrc/asm_seg.cu``), on the card, on the main paths' cells
 (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks, seed
 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of 64
 KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55, K9's
 tape, seg 8192; one block of each size, one of 4 MiB at seg 32768,
 config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
 1's first; K10b's on config 1 and one 64 KiB block, K10c's on config 3
-and one 4 KiB block, ``MLEN_CELLS``):
+and one 4 KiB block, ``MLEN_CELLS``; K4's on configs 1, 5 (depth 3) and
+6 and one block of 1 and of 4 MiB, ``K4_CELLS``):
 
 - each kernel's time a call (CUDA events), K9's run length, the
   sequences K3, K8-seg and K7 find a segment or block (their ``nseq``)
   and each cell's encode kernel path (depth 3 too where K8-seg runs);
   K10b and K10c in turns with K3 and K7 on the same blocks, and mcode;
+  K4 with its bound (the pieces read, the whole rows written);
 - ``--profile``: clock64 breakdowns from instrumented copies of this
   tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
   in the table steps, its steps a warp, the wait for the bytes and the
@@ -33,20 +36,27 @@ and one 4 KiB block, ``MLEN_CELLS``):
   (``VARIANTS``: other warps or tiles a round in ``cand_part.cuh``, other
   segments a CTA or bytes held before them in ``parse_seg_warp.cuh``, for
   K3's source or K8-seg's, K8-seg's probe reading its three candidates
-  together, K9 a window a CTA, K7 with other blocks a CTA), each timed in
+  together, K9 a window a CTA, K7 with other blocks a CTA, K4 over 4 or
+  16 KiB chunks of a row in ``asm_seg.cu``), each timed in
   turns with this tree's build (this, variant, variant, this) and its
   outputs held equal to it;
+- ``--device-time``: K4's times and every comparison in turns from
+  calls captured in a CUDA graph (``graph_ms``: the card's time, without
+  the host's dispatch, which sets a short call's time otherwise; a
+  wrapper that waits on the card cannot be captured and raises);
 - ``--parent DIR``: the same for DIR's sources of ``MODS`` (a ``git
-  archive`` of an earlier commit; each with DIR's own headers);
+  archive`` of an earlier commit; each with DIR's own headers), or of
+  those ``--sources`` names;
 - ``--store ROUNDS`` (with ``--parent``): the median latency of
   ``STORE_REQUESTS`` sequential 4 KiB ``ProxyStore`` writes of config 1's
   bytes with this tree's K2 and with DIR's, and with this tree's K7 and
   DIR's, and of ``BIG_STORES``' fio shapes (32 writes of 1 MiB, 8 of 4
-  MiB, config 6's bytes) with this tree's K9 and DIR's, each in turns
-  (this, parent, parent, this) ROUNDS times.
+  MiB, config 6's bytes) with this tree's K9 and DIR's and this tree's
+  K4 and DIR's, each in turns (this, parent, parent, this) ROUNDS times.
 
     python -m lz4_sgori_torch.probes.encode_pace [--profile]
-        [--variants NAME ...] [--parent DIR [--store ROUNDS]]
+        [--variants NAME ...] [--parent DIR [--sources SRC ...]
+        [--store ROUNDS]] [--device-time]
 """
 
 from __future__ import annotations
@@ -62,7 +72,9 @@ import torch
 from .. import format as F
 from ..blocks import resolve_device, split_blocks
 from ..ops.encode import compress_blocks_device
+from ..ops import seg as S
 from ..ops.kernels import _build
+from ..ops.kernels import asm_seg as K4
 from ..ops.kernels import cand as K2
 from ..ops.kernels import cand_piecewise as K9
 from ..ops.kernels import gaps as G
@@ -79,7 +91,7 @@ STORE_REQUESTS = 1024  # 4 KiB writes a store timing
 BIG_STORES = ((1 << 20, 32), (4 << 20, 8))   # fio test_1m, test_4m
 MODS = {"cand": K2, "parse_seg": K3, "cand_piecewise": K9,
         "parse_seg_deep": K8S, "parse_enc3": K7, "parse_seg_mlen": K10B,
-        "parse_enc3_mlen": K10C, "mcode": M}
+        "parse_enc3_mlen": K10C, "mcode": M, "asm_seg": K4}
 # the mlen mode's cells: K10b's (64 KiB, seg 4096) and K10c's (4 KiB);
 # mcode runs on both
 MLEN_CELLS = {"parse_seg_mlen": ("config 1", "one block of 65536"),
@@ -87,6 +99,11 @@ MLEN_CELLS = {"parse_seg_mlen": ("config 1", "one block of 65536"),
 MLEN_CELLS["mcode"] = MLEN_CELLS["parse_seg_mlen"] + \
     MLEN_CELLS["parse_enc3_mlen"]
 _TAPES: dict = {}     # cell name -> its mlen tapes (cand_v, mcode)
+# K4's cells and the match depth of the parse before it
+K4_CELLS = {"config 1": 1, "config 5": 3, "config 6": 1,
+            "one block of 1048576": 1, "one block of 4194304": 1}
+_K4IN: dict = {}      # cell name -> K4's arguments
+HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory rate (data sheet)
 
 # variants: the source they build, the header they change and its
 # (text, replacement) pairs, each text found in the header
@@ -136,6 +153,11 @@ VARIANTS = {
     "enc3_w4": (*_ENC3, [(_K7, _K7.replace("= 1", "= 4"))]),
     "enc3_w8": (*_ENC3, [(_K7, _K7.replace("= 1", "= 8"))]),
     "enc3_w16": (*_ENC3, [(_K7, _K7.replace("= 1", "= 16"))]),
+    # K4's words over 4 or 16 KiB chunks of a row a CTA (8 KiB)
+    "asm_chunk4k": ("asm_seg", "asm_seg.cu", [(
+        "constexpr int kChunk = 8192;", "constexpr int kChunk = 4096;")]),
+    "asm_chunk16k": ("asm_seg", "asm_seg.cu", [(
+        "constexpr int kChunk = 8192;", "constexpr int kChunk = 16384;")]),
     # K9 a window a CTA (runs of one half-piece, its warm half before it)
     "k9_r1": ("cand_piecewise", "cand_piecewise.cu", [(
         "  const Runs R(nb, bs, half, sms);\n",
@@ -597,15 +619,65 @@ def mlen_tapes(cs, name: str):
     return _TAPES[name]
 
 
+def k4_inputs(cs, name: str):
+    """K4's arguments (streams, hdr, raw, plan, ocap) on cell ``name``:
+    the seg engine's steps before it (``seg.assembly_inputs``), made
+    once."""
+    if name not in _K4IN:
+        r, n, _, seg, _ = cs[name]
+        _K4IN[name] = S.assembly_inputs(r, n, r.shape[1], seg=seg,
+                                        depth=K4_CELLS[name])[:5]
+    return _K4IN[name]
+
+
+def k4_bound_ms(inputs) -> float:
+    """K4's bound on ``inputs``: each piece's bytes and the plan read once,
+    every row (``ocap`` bytes, zeros past the length) and the lengths
+    written once, over the device memory rate."""
+    plan, ocap = inputs[3], inputs[4]
+    nb = plan.shape[0]
+    pieces = int(plan[..., 0].sum()) + int(plan[..., 1].sum()) \
+        + int(plan[..., 3].sum())
+    return (pieces + plan.numel() * 4 + nb * ocap + nb * 4) \
+        / HBM_BYTES_PER_MS
+
+
 def ms(fn, dev) -> float:
     """Milliseconds a call of ``fn`` after a warm-up call."""
     fn()
     return seconds(fn, dev, CALLS) * 1e3
 
 
-def in_turns(fa, fb, dev) -> tuple[float, float]:
-    t = [ms(f, dev) for f in (fa, fb, fb, fa)]
+def in_turns(fa, fb, dev, timer=ms) -> tuple[float, float]:
+    t = [timer(f, dev) for f in (fa, fb, fb, fa)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def graph_ms(fn, dev, calls: int = 20) -> float:
+    """Milliseconds a call of ``fn`` takes on the card alone: ``calls``
+    calls captured into one CUDA graph (after a warm-up on a side
+    stream), replayed once, then CUDA events around three replays. No
+    Python runs between the launches, so a call shorter than its dispatch
+    reads as the card's time, not the host's."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(3):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize(dev)
+    return a.elapsed_time(b) / (3 * calls)
+
 
 
 def profile(cs, dev, stream) -> None:
@@ -833,6 +905,9 @@ def runs_of(src: str, cs) -> list:
                                     K10C.parse_blocks_enc3_mlen(r, *t, n),
                                     same_blocks)}[src]
             out.append((name, fn, same))
+        elif src == "asm_seg" and name in K4_CELLS:
+            out.append((name, lambda i=k4_inputs(cs, name):
+                        K4.assemble_segments(*i), same_blocks))
         elif src == "cand" and bs <= 65536:
             out.append((name, lambda r=r, n=n: K2.dense_candidates(r, n),
                         torch.equal))
@@ -859,6 +934,12 @@ def main(argv=None) -> int:
                    choices=sorted(VARIANTS))
     p.add_argument("--parent")
     p.add_argument("--store", type=int, default=0)
+    p.add_argument("--device-time", action="store_true",
+                   help="time K4 and the comparisons in turns from calls "
+                        "captured in a CUDA graph (the card's time)")
+    p.add_argument("--sources", nargs="*", choices=sorted(MODS),
+                   help="compare only these sources' parents (default: "
+                        "all)")
     a = p.parse_args(argv)
     if a.store and not a.parent:
         p.error("--store needs --parent")
@@ -870,6 +951,7 @@ def main(argv=None) -> int:
                            text=True).stdout.strip() or "no power limit read"
     print(f"devices: {device_name(dev)} ({limit})", flush=True)
     stream = _build.stream(dev)
+    timer = graph_ms if a.device_time else ms
     cs = cells(dev)
     for name, (r, n, c, seg, g) in cs.items():
         nb, bs = r.shape
@@ -914,6 +996,11 @@ def main(argv=None) -> int:
             line.append(f"mcode {ms(mc, dev):.4f} ms, {key} {this:.4f} ms "
                         f"in turns with {'K3' if key == 'K10b' else 'K7'} "
                         f"{other:.4f} ms ({this / other:.4f}x)")
+        if name in K4_CELLS:
+            i = k4_inputs(cs, name)
+            t = timer(lambda i=i: K4.assemble_segments(*i), dev)
+            line.append(f"K4 {t:.4f} ms after the depth-{K4_CELLS[name]} "
+                        f"parse (bound {k4_bound_ms(i):.6f} ms)")
         if "one" not in name and "64 blocks" not in name:
             t = ms(lambda: compress_blocks_device(r, n, bs), dev)
             line.append(f"the encode kernel path {t:.3f} ms")
@@ -927,7 +1014,7 @@ def main(argv=None) -> int:
     others = [(v, VARIANTS[v][0], variant(v)) for v in a.variants]
     parents = {}
     if a.parent:
-        parents = {s: parent(a.parent, s) for s in MODS}
+        parents = {s: parent(a.parent, s) for s in a.sources or MODS}
         others += [(f"parent {s}", s, lib) for s, lib in parents.items()]
     if a.store:
         from __graft_entry__ import _synth_corpus
@@ -935,9 +1022,12 @@ def main(argv=None) -> int:
         shapes = [(src, MODS[src], 4096, STORE_REQUESTS, small)
                   for src in ("cand", "parse_enc3")]
         big = _synth_corpus(max(c * k for c, k in BIG_STORES), seed=55)
-        shapes += [("cand_piecewise", K9, c, k, big) for c, k in BIG_STORES]
+        shapes += [(src, MODS[src], c, k, big) for src in
+                   ("cand_piecewise", "asm_seg") for c, k in BIG_STORES]
         for r in range(a.store):
             for src, mod, chunk, nreq, data in shapes:
+                if src not in parents:
+                    continue
                 def own(data=data, chunk=chunk, nreq=nreq):
                     return store_median(data, dev, chunk, nreq)
                 old = with_lib(mod, parents[src], own)
@@ -952,7 +1042,7 @@ def main(argv=None) -> int:
         for name, fn, same in runs_of(src, cs):
             other = with_lib(MODS[src], lib, fn)
             ok = same(other(), fn())
-            this, that = in_turns(fn, other, dev)
+            this, that = in_turns(fn, other, dev, timer)
             print(f"{label} on {name} in turns (this, variant, variant, "
                   f"this): this {this:.4f} ms, variant {that:.4f} ms "
                   f"({that / this:.4f}x); equal: {ok}", flush=True)

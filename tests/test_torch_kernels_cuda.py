@@ -15,7 +15,11 @@ acceleration 1 and 8, window 65536 and 4096 (``-k "k9 or k8_seg"``);
 K1 at 16 and 64 KiB (the whole block in shared memory) and 128 KiB
 (K6's ring) on mutants and the crafted streams, and K7's warp walk at 4
 KiB, 5,000 bytes, 60,000 and 64 KiB, acceleration 1 and 8 (``-k "k1 or
-k7"``). Marked ``cuda``; each test skips itself when no card is present.
+k7"``); K5's small geometries at 4, 8 and 12 KiB and K6's ring at 256 KiB
+on mutants and the crafted streams, a launch a block and 4,096 blocks,
+and K4's words on random plans (nseg 1 and 128, totals past the
+capacity) and the seg_big engine's pieces at 1 and 4 MiB (``-k "k4 or
+k5"``). Marked ``cuda``; each test skips itself when no card is present.
 Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import crafted_streams, make_mutants
+from chip_smoke import crafted_streams, k5_stage, make_mutants
 from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
@@ -53,6 +57,7 @@ from lz4_sgori_torch.retired import lockstep_v9 as T3
 from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden, native
 from lz4_sgori_tpu.utils import oracle
+from test_torch_asm_words import random_case
 from test_torch_seg_big import big_blocks
 from test_torch_warp_parse import _inputs as warp_inputs
 
@@ -144,6 +149,49 @@ def test_k3_parse(dev, bs, seg, accel):
             r = j * nseg + k
             assert streams[r, :slen[r]].tobytes() == pt["stream"], (j, k)
             assert int(got[3][r]) == pt["last_end"], (j, k)
+
+
+@pytest.mark.parametrize("nb,nseg,scap,hmax,bs,ocap", [
+    (17, 1, 300, 20, 600, 401),          # nseg 1, every row alignment
+    (5, 128, 40, 6, 4096, 6001),         # nseg 128, most words span pieces
+    (3, 128, 600, 300, 65536, 40001),    # words inside long pieces
+    (4, 16, 200, 30, 4096, 777),         # totals past ocap
+])
+def test_k4_words(dev, nb, nseg, scap, hmax, bs, ocap):
+    """K4 on random plans against its plain version (all of ``out`` and
+    ``out_len``): empty pieces, words fed by three pieces and more,
+    pieces that cross an 8 KiB chunk, totals past ``ocap``, rows at every
+    16-byte alignment."""
+    t = [a.to(dev) for a in random_case(nb * 1000 + nseg, nb, nseg, scap,
+                                        hmax, bs)]
+    out, out_len = K4.assemble_segments(*t, ocap)
+    pout, plen = K4.assemble_segments_plain(*t, ocap)
+    torch.cuda.synchronize()
+    assert torch.equal(out_len, plen) and torch.equal(out, pout)
+    if ocap == 777:
+        assert bool((plen > ocap).any())
+
+
+@pytest.mark.parametrize("bs,seg", [(1 << 20, 8192), (4 << 20, 32768)])
+def test_k4_big_blocks(dev, bs, seg):
+    """K4 on the seg_big engine's pieces of corpus text and a random
+    block (``seg.assembly_inputs``) at 1 MiB, seg 8192, and 4 MiB, seg
+    32768, against its plain version; and the engine's blocks decode back
+    (K6)."""
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
+    blocks = [_synth_corpus(bs), np.random.default_rng(3).integers(
+        0, 256, bs, dtype=np.uint8).tobytes()]
+    raw, rlen = _batch(blocks, bs, dev)
+    args = S.assembly_inputs(raw, rlen, bs, seg=seg)[:5]
+    got = K4.assemble_segments(*args)
+    want = K4.assemble_segments_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    comp, clen, err, _ = S.compress_blocks_seg(raw, rlen, bs, seg=seg)
+    assert not err.any()
+    out, out_len, derr = K6.decompress_blocks_v8(comp, clen, bs)
+    assert not derr.any() and torch.equal(out, raw)
 
 
 def test_k4_assembly_and_engine_bytes(dev):
@@ -250,12 +298,19 @@ def test_k7_parse(dev, bs, accel):
         assert int(tails[j]) == golden.tail_offset(w), j
 
 
-@pytest.mark.parametrize("bs", [4096, 262144])
+@pytest.mark.parametrize("bs", [4096, 8192, 12288, 262144])
 def test_k5_decode_and_mutants(dev, bs):
+    """K5 at 4, 8 and 12 KiB (the small whole-block geometries) and 256
+    KiB (K6's ring) on golden's streams of ``_blocks``, 128 mutants of
+    them and the crafted streams (LSIC runs over the geometry's stage
+    bounds, overlapping and far offsets, each error late in a long
+    stream, clen == slot), against the plain decoder and
+    golden.decompress; then the first 24 streams again, a launch each."""
     bases = [golden.compress(b[:bs]) for b in _blocks(bs)]
     rng = np.random.default_rng(55)
     slot = F.compress_bound(bs) + 8
-    payloads = bases + make_mutants(bases, rng, 128, slot - 8)
+    payloads = bases + make_mutants(bases, rng, 128, slot - 8) + [
+        s for _, s in crafted_streams(bs, stage=k5_stage(bs))]
     comp = np.zeros((len(payloads), slot), np.uint8)
     clen = np.zeros(len(payloads), np.int32)
     for j, c in enumerate(payloads):
@@ -267,6 +322,11 @@ def test_k5_decode_and_mutants(dev, bs):
     torch.cuda.synchronize()
     assert torch.equal(err, perr) and torch.equal(out_len, plen)
     assert torch.equal(out, pout)
+    for j in range(24):
+        one = K5.decompress_blocks_v6(ct[j:j + 1].contiguous(),
+                                      lt[j:j + 1].contiguous(), bs)
+        for a, b in zip(one, (pout, plen, perr)):
+            assert torch.equal(a[0], b[j]), j
     out, out_len, err = out.cpu().numpy(), out_len.cpu().numpy(), \
         err.cpu().numpy()
     for j, c in enumerate(payloads):
@@ -277,6 +337,23 @@ def test_k5_decode_and_mutants(dev, bs):
         assert bool(err[j]) == (want is None), j
         if want is not None:
             assert out[j, :out_len[j]].tobytes() == want, j
+
+
+def test_k5_config3_blocks_many_ctas_an_sm(dev):
+    """K5 on 4,096 blocks of 4 KiB (the enc3 engine's streams of corpus
+    text, many CTAs an SM in turn) against the plain decoder."""
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch.blocks import split_blocks
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
+    r, n = split_blocks(_synth_corpus(16 << 20), 4096)
+    r, n = torch.from_numpy(r).to(dev), torch.from_numpy(n).to(dev)
+    c, cl = compress_blocks_device(r, n, 4096)
+    got = K5.decompress_blocks_v6(c, cl, 4096)
+    want = K1.decompress_blocks_plain(c, cl, 4096)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], r) and not got[2].any()
 
 
 def test_block_device_path_runs_k2_k7_k5(dev):

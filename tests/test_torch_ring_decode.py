@@ -20,8 +20,12 @@ bytes to an output row that starts as garbage (the wrapper's
 bytes, or all of it on an error. ``emulate(..., whole=True)`` is K1's
 geometry (``test_torch_ring_decode_v7.py``): the block's whole output in
 a 64 KiB region, never flushed during the walk, and the row written
-from it at the end. The card runs the kernel itself on the same streams
-(``test_torch_kernels_cuda.py``)."""
+from it at the end; ``emulate(..., geom=small(L))`` is K5's
+(``test_torch_ring_decode_v6.py``): the whole block in 2^L bytes, the
+stream in 4 stages of 2^(L-1). The card runs the kernel itself on the
+same streams (``test_torch_kernels_cuda.py``)."""
+
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -33,11 +37,11 @@ from lz4_sgori_torch.ops.kernels import lockstep_v8 as K6
 from lz4_sgori_torch.ops.kernels.lockstep_v7 import decompress_blocks_plain
 from test_torch_threads import one_thread  # noqa: F401 (a fixture)
 
-STAGE_LOG = 13      # ring::kStageLog
+STAGE_LOG = 13      # ring::RingGeom's and ring::WholeGeom's kStageLog
 STAGE = 1 << STAGE_LOG
-STAGES = 4          # ring::kStages
-OUT_RING = 1 << 17  # ring::Geom<false>::kOutRing
-WHOLE = 1 << 16     # ring::kWholeMax, ring::Geom<true>::kOutRing
+STAGES = 4          # their kStages
+OUT_RING = 1 << 17  # ring::RingGeom::kOutRing
+WHOLE = 1 << 16     # ring::kWholeMax, ring::WholeGeom::kOutRing
 FLUSH = 16384       # ring::kFlush
 PIECE = 4096        # ring::kPiece
 STEP = 128          # ring::kStep, the general walk's match step
@@ -47,70 +51,95 @@ BATCH_OUT = 16384   # ring::kBatchOut
 INVALID = 0xFFFF
 
 
+class Geom(NamedTuple):
+    """A geometry of ``ring::Geom``: the output region's and a stage's
+    log2 sizes, the stages, whether the region holds the whole block."""
+    out_log: int
+    stage_log: int
+    stages: int
+    whole: bool
+
+
+RING = Geom(17, STAGE_LOG, STAGES, False)     # ring::RingGeom, K6
+WHOLE_GEOM = Geom(16, STAGE_LOG, STAGES, True)  # ring::WholeGeom, K1
+
+
+def small(L: int) -> Geom:
+    """ring::SmallGeom<L>, K5 below 16 KiB."""
+    return Geom(L, L - 1, 4, True)
+
+
 class Stream:
     """The stage ring (``ring::Stream``) over the flat comp buffer."""
 
-    def __init__(self, flat, row_start, ilen, slot, rng):
+    def __init__(self, flat, row_start, ilen, slot, rng, geom=RING):
         self.flat, self.rng = flat, rng
+        self.stage_log, self.stages = geom.stage_log, geom.stages
+        self.stage = 1 << geom.stage_log
         self.gbase = row_start & ~15
         self.head = row_start & 15
         ok = 0 < ilen <= slot
         self.total = (self.head + ilen + 15) & ~15 if ok else 0
-        self.nst = -(-self.total // STAGE)
-        self.buf = rng.integers(0, 256, STAGE * STAGES, dtype=np.uint8)
+        self.nst = -(-self.total // self.stage)
+        self.buf = rng.integers(0, 256, self.stage * self.stages,
+                                dtype=np.uint8)
         self.landed = {}            # slot -> stage whose bytes it holds
         self.issued = set()
-        for s in range(min(STAGES, self.nst)):
+        for s in range(min(self.stages, self.nst)):
             self.issue(s)
+        self.refills = 0            # stages issued after the first ones
         self.cur = 0
         if self.nst:
             self.wait(0)
 
     def issue(self, s):
         self.issued.add(s)
-        k = s % STAGES
-        self.buf[k * STAGE:(k + 1) * STAGE] = self.rng.integers(
-            0, 256, STAGE, dtype=np.uint8)
+        k, st = s % self.stages, self.stage
+        self.buf[k * st:(k + 1) * st] = self.rng.integers(
+            0, 256, st, dtype=np.uint8)
         self.landed.pop(k, None)
 
     def wait(self, s):
         assert s in self.issued, s
-        k = s % STAGES
-        lo = self.gbase + s * STAGE
-        n = min(STAGE, self.total - s * STAGE)
+        k, st = s % self.stages, self.stage
+        lo = self.gbase + s * st
+        n = min(st, self.total - s * st)
         assert n % 16 == 0 and lo % 16 == 0 and lo + n <= len(self.flat)
-        self.buf[k * STAGE:k * STAGE + n] = self.flat[lo:lo + n]
+        self.buf[k * st:k * st + n] = self.flat[lo:lo + n]
         self.landed[k] = s
 
     def advance(self, s):
         while self.cur < s:
-            if self.cur + STAGES < self.nst:
-                self.issue(self.cur + STAGES)
+            if self.cur + self.stages < self.nst:
+                self.issue(self.cur + self.stages)
+                self.refills += 1
             self.cur += 1
             self.wait(self.cur)
 
     def at(self, a):
-        assert self.landed.get((a >> STAGE_LOG) % STAGES) == a >> STAGE_LOG
-        return int(self.buf[a & (STAGE * STAGES - 1)])
+        s = a >> self.stage_log
+        assert self.landed.get(s % self.stages) == s
+        return int(self.buf[a & (self.stage * self.stages - 1)])
 
     def byte(self, i):
         a = self.head + i
-        if a >> STAGE_LOG != self.cur:
-            self.advance(a >> STAGE_LOG)
+        if a >> self.stage_log != self.cur:
+            self.advance(a >> self.stage_log)
         return self.at(a)
 
 
 class Out:
     """The output region and the flushed prefix (``ring::Out``): K6's
-    history ring, or with ``whole`` K1's 64 KiB block, never flushed."""
+    history ring, or in a whole geometry (K1's 64 KiB, K5's 2^L bytes)
+    the block, never flushed."""
 
-    def __init__(self, flat_out, row_start, rng, whole=False):
+    def __init__(self, flat_out, row_start, rng, geom=RING):
         self.g = flat_out
         self.gbase = row_start & ~15
         self.ohead = row_start & 15
         self.fx = self.ohead
-        self.whole = whole
-        self.size = WHOLE if whole else OUT_RING
+        self.whole = geom.whole
+        self.size = 1 << geom.out_log
         self.ring = rng.integers(0, 256, self.size, dtype=np.uint8)
 
     def idx(self, o):
@@ -146,10 +175,10 @@ def batch(inp, out, ip, op, ilen, out_size):
     (ip, op, count) after it, or None when it holds none and the general
     path takes one sequence."""
     a0 = inp.head + ip
-    mask = STAGE * STAGES - 1
-    if a0 >> STAGE_LOG != inp.cur:
+    mask = inp.stage * inp.stages - 1
+    if a0 >> inp.stage_log != inp.cur:
         return None
-    if ((a0 + WINDOW - 1) >> STAGE_LOG != inp.cur
+    if ((a0 + WINDOW - 1) >> inp.stage_log != inp.cur
             and inp.cur + 1 < inp.nst):
         inp.wait(inp.cur + 1)                 # issued, three ahead at most
     rel = min(WINDOW, ilen - ip)
@@ -240,8 +269,8 @@ def walk(inp, out, ilen, slot, out_size):
     bad = ilen <= 0 or ilen > slot
     ip = op = 0
     while not bad:
-        if ip < ilen and (inp.head + ip) >> STAGE_LOG != inp.cur:
-            inp.advance((inp.head + ip) >> STAGE_LOG)
+        if ip < ilen and (inp.head + ip) >> inp.stage_log != inp.cur:
+            inp.advance((inp.head + ip) >> inp.stage_log)
         step = batch(inp, out, ip, op, ilen, out_size)
         if step is not None:
             ip, op, _ = step
@@ -269,9 +298,9 @@ def walk(inp, out, ilen, slot, out_size):
             break
         while lit > 0:
             a = inp.head + ip
-            if a >> STAGE_LOG != inp.cur:
-                inp.advance(a >> STAGE_LOG)
-            piece = min(lit, ((inp.cur + 1) << STAGE_LOG) - a, PIECE)
+            if a >> inp.stage_log != inp.cur:
+                inp.advance(a >> inp.stage_log)
+            piece = min(lit, ((inp.cur + 1) << inp.stage_log) - a, PIECE)
             for i in range(piece):
                 out.ring[out.idx(op + i)] = inp.at(a + i)
             ip += piece
@@ -315,31 +344,42 @@ def walk(inp, out, ilen, slot, out_size):
     return -1 if bad else op
 
 
-def emulate(comp, comp_len, out_size, seed=0, whole=False):
+def emulate(comp, comp_len, out_size, seed=0, whole=False, geom=None,
+            shift=0, refills=None):
     """The kernel's (out, out_len, err) for every row; ``whole``: K1's
-    geometry (``out_size`` at most 64 KiB)."""
-    assert not whole or out_size <= WHOLE
+    geometry (``out_size`` at most 64 KiB), ``geom`` any other. The comp
+    and output tensors start ``shift`` bytes past a 16-byte boundary;
+    ``refills``, a list, gets each row's stages issued after the first
+    ones."""
+    geom = geom or (WHOLE_GEOM if whole else RING)
+    assert not geom.whole or out_size <= 1 << geom.out_log
     rng = np.random.default_rng(seed)
     nb, slot = comp.shape
-    flat = np.concatenate([comp.numpy().reshape(-1),
+    flat = np.concatenate([rng.integers(0, 256, shift, dtype=np.uint8),
+                           comp.numpy().reshape(-1),
                            rng.integers(0, 256, 16, dtype=np.uint8)])
-    flat_out = rng.integers(0, 256, nb * out_size + 16, dtype=np.uint8)
+    flat_out = rng.integers(0, 256, shift + nb * out_size + 16,
+                            dtype=np.uint8)
     lens, errs = [], []
     for j in range(nb):
         ilen = int(comp_len[j])
-        inp = Stream(flat, j * slot, ilen, slot, rng)
-        out = Out(flat_out, j * out_size, rng, whole)
+        r0 = shift + j * out_size
+        inp = Stream(flat, shift + j * slot, ilen, slot, rng, geom)
+        out = Out(flat_out, r0, rng, geom)
         n = walk(inp, out, ilen, slot, out_size)
-        for s in range(inp.cur + 1, min(inp.cur + STAGES, inp.nst)):
+        for s in range(inp.cur + 1, min(inp.cur + inp.stages, inp.nst)):
             inp.wait(s)                                       # drain
+        if refills is not None:
+            refills.append(inp.refills)
         z0 = 0 if n < 0 else n
-        if whole:               # the row from the region, by the CTA
-            row = j * out_size + np.arange(n if n > 0 else 0)
-            flat_out[row] = out.ring[out.idx(row - j * out_size)]
-        flat_out[j * out_size + z0:(j + 1) * out_size] = 0
+        if geom.whole:          # the row from the region, by the CTA
+            row = r0 + np.arange(n if n > 0 else 0)
+            flat_out[row] = out.ring[out.idx(row - r0)]
+        flat_out[r0 + z0:r0 + out_size] = 0
         lens.append(max(n, 0))
         errs.append(n < 0)
-    out = torch.from_numpy(flat_out[:nb * out_size].reshape(nb, out_size))
+    out = torch.from_numpy(
+        flat_out[shift:shift + nb * out_size].reshape(nb, out_size).copy())
     return (out, torch.tensor(lens, dtype=torch.int32),
             torch.tensor(errs, dtype=torch.bool))
 

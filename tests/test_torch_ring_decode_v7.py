@@ -143,7 +143,7 @@ def test_decode_pace_edits_and_variants_apply():
         with open(os.path.join(_build.CSRC, f)) as fh:
             text = fh.read()
         assert D.instrumented(f, text, D.PROFILE) != text, f
-    for name, edits in D.VARIANTS.items():
+    for name, (_, edits) in D.VARIANTS.items():
         texts = D.variant_sources(name)
         for f, _, _ in edits:
             with open(os.path.join(_build.CSRC, f)) as fh:
