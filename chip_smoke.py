@@ -119,7 +119,10 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     random and an all-zero block, K8-enc3 at depth 3 and 5, K8-seg at
     seg 4096; K8-seg also on 2 blocks of 1 MiB at seg 8192 over K9's
     tape, acceleration 1 and 8) against their plain versions exactly, and
-    the tapes against golden; the plain K8 parses are timed here, once;
+    the tapes against golden; the gaps kernel also on hand-made tapes
+    (``hand_gaps_tape``: 3 blocks of 64 KiB at links 4, 1 MiB with and
+    without half, 70,000 blocks of 16 bytes); the plain K8 parses are
+    timed here, once;
 21. the golden contract of each deep row of the routing table: seg at
     depth 2-3, seg_big at depth 3, enc3 at depth 3 (acceleration 1 and 8)
     and 5, and seg_splice capped at depth 1 with its warning;
@@ -131,8 +134,9 @@ kernels K2, gaps, K8-seg, K8-enc3, K4 and K1), in ``_smoke_deep``:
     ratio and sizes against the TPU record of the same bytes;
 23. a ProxyStore at depth 3, a CompressedStore at depth 5 and
     ``lz4j compress --match-depth 3`` and ``5`` round trips;
-24. times with CUDA events: the deep encode paths, K2 and K8-seg over the
-    corpus (in turns with the parent tree's), the gaps kernel, K3 beside
+24. times with CUDA events: the deep encode paths, K2, K8-seg and the
+    gaps kernel (links 2, and links 4 over the depth-5 slice, and on the
+    subset) over the corpus (in turns with the parent tree's), K3 beside
     them, K8-enc3 over the depth-5 slice, and each deep kernel beside its
     plain version (the K8 parses' from phase 20); K8-seg on one block of
     1 MiB at seg 8192, K8-enc3 at depth 5 on the first 1, 32 and 128
@@ -146,9 +150,11 @@ enc3 function's ``mlen`` argument) on config 1's corpus, in
 
 25. mcode and K10b on the 32-block 64 KiB subset, K10c on the 64-block
     4 KiB subset, against their plain versions exactly and against K3 and
-    K7 on the unverified tape; mcode against golden.dense_mcode on 4
-    blocks; K10b and K10c on these subsets in turns with the parent
-    tree's when ``--parent`` names one;
+    K7 on the unverified tape; mcode also on hand-made tapes
+    (``hand_mcode_case``: 5 blocks of 64 KiB and of 4097 bytes, 9 of 5,
+    70,000 of 16) and against golden.dense_mcode on 4 blocks; K10b and
+    K10c on these subsets in turns with the parent tree's when
+    ``--parent`` names one;
 26. all 512 blocks of 64 KiB through the seg engine with and without the
     mode: the same bytes, and 16 blocks equal golden.compress_dense_seg;
 27. ``lz4_sgori_torch.compress`` / ``decompress`` with the variable set
@@ -159,11 +165,14 @@ enc3 function's ``mlen`` argument) on config 1's corpus, in
     4 KiB, the counters reset just before: K2, mcode and K10c launched,
     K7 not, the default bytes;
 28. times, each pair in turns: the compress walls with and without the
-    mode (host clock), and with CUDA events the mlen encode kernel path
-    against the default one on the same blocks, K10b against K3 and K10c
-    against K7 over the corpus, mcode, and each beside its plain version;
-    K10b and K10c over the corpus and on one block, each in turns with the
-    parent tree's when ``--parent`` names one.
+    mode (host clock), and with CUDA events and as device time (CUDA
+    graphs) the mlen encode kernel path against the default one on the
+    same blocks, K10b against K3 and K10c
+    against K7 over the corpus, and each beside its plain version;
+    mcode over configs 1 and 3 and the subset, and both mlen encode
+    paths, K10b and K10c over the corpus and on one block, each in turns
+    with the parent tree's (its mcode, K10b or K10c) when ``--parent``
+    names one.
 
 The retired round-1 engines (``lz4_sgori_torch.retired``: T1 the greedy
 encoder, T2 the scalar decoder, T3 the chained decoder; kernels
@@ -261,9 +270,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
-without it phases 5, 12, 19 and 24 time this tree's kernels alone (with
-it K1, K2, K3, K6, K7, K9, K8-seg and K8-enc3 in turns with the
-parent's).
+without it phases 5, 12, 19, 24, 25 and 28 time this tree's kernels
+alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b and K10c in
+turns with the parent's).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -286,8 +295,8 @@ import numpy as np
 
 DEVICE = "cuda"
 # ``--parent DIR``: a tree of the commit before (``git archive``), whose
-# kernel sources phases 5, 12, 19 and 24 build and time in turns with
-# this tree's; None times this tree's kernels alone
+# kernel sources phases 5, 12, 19, 24, 25 and 28 build and time in turns
+# with this tree's; None times this tree's kernels alone
 PARENT = None
 _PARENT_LIBS = {}       # the parent tree's builds, by source name
 BLOCK = 65536
@@ -457,6 +466,62 @@ def _mutate(b: bytearray, rng) -> bytes:
     else:                                      # garbage tail
         b = b + bytes(rng.integers(0, 256, size=16, dtype=np.uint8))
     return bytes(b)
+
+
+def hand_gaps_tape(nb, bs, half=0, seed=0):
+    """A hand-made candidate tape: live links 1-254, and 0, 254, 255,
+    negatives, values past bs and far links; on K9's geometry (half > 0)
+    q1 exactly at h*half and one below it (the tie), chains ending
+    exactly at the floor."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 10, (nb, bs))
+    c = rng.integers(1, 255, (nb, bs))
+    p = np.arange(bs)[None, :]
+    c = np.where(kind == 5, 0, c)
+    c = np.where(kind == 6, rng.choice([254, 255], (nb, bs)), c)
+    c = np.where(kind == 7, -rng.integers(1, 1000, (nb, bs)), c)
+    c = np.where(kind == 8, bs + rng.integers(0, 1000, (nb, bs)), c)
+    far = rng.integers(0, 1 << 20, (nb, bs)) % np.maximum(p, 1) + 1
+    c = np.where(kind == 9, far, c)
+    c = c.astype(np.int64)
+    if half > 0:
+        for h in range(2, -(-bs // half)):
+            for x in (0, 1, 2, 7):
+                for b in range(nb):
+                    j = h * half + x
+                    if j + 1 < bs:
+                        c[b, j] = x               # q1 == h*half
+                        c[b, j + 1] = x + 2       # q1 == h*half - 1
+            f = (h - 1) * half
+            q1 = f + 3
+            j = min(bs - 1, h * half + 40)
+            if q1 < j:
+                c[:, q1] = 3                      # a chain ending at F
+                c[:, j] = j - q1
+    return np.clip(c, -(1 << 31), (1 << 31) - 1).astype(np.int32)
+
+
+def hand_mcode_case(nb, bs, seed=0):
+    """Bytes from a small alphabet (matches verify, lcp and cu vary),
+    nonzero bytes past n, raw_len negative, zero, short and past bs, and
+    candidates d <= 0, d = 1, d = p, d > p, d >= bs and random."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 3, (nb, bs)).astype(np.uint8)
+    raw[::3] = rng.integers(0, 256, raw[::3].shape, dtype=np.uint8)
+    rlen = rng.integers(-5, bs + 6, nb).astype(np.int32)
+    fixed = min(nb, 4)
+    rlen[:fixed] = [-3, 0, bs, bs + 9][:fixed]
+    p = np.arange(bs)[None, :]
+    kind = rng.integers(0, 8, (nb, bs))
+    c = rng.integers(1, 17, (nb, bs))
+    c = np.where(kind == 1, rng.integers(-3, 1, (nb, bs)), c)
+    c = np.where(kind == 2, 1, c)
+    c = np.where(kind == 3, p, c)
+    c = np.where(kind == 4, p + 1, c)
+    c = np.where(kind == 5, bs + rng.integers(0, 50, (nb, bs)), c)
+    c = np.where(kind == 6, rng.integers(0, 1 << 20, (nb, bs))
+                 % np.maximum(p, 1) + 1, c)
+    return raw, rlen, c.astype(np.int32)
 
 
 def make_mutants(bases, rng, count: int, slot: int) -> list[bytes]:
@@ -1328,7 +1393,7 @@ def _smoke(torch, start: float) -> int:
     rb = _smoke_big(torch, card, time_ms, maxdiff, mods)
     rd = _smoke_deep(torch, card, time_ms, maxdiff, mods)
     rm = _smoke_mlen(torch, data, raw, rlen, container, card, time_ms,
-                     maxdiff, mods)
+                     graph_ms, maxdiff, mods)
     rr = _smoke_retired(torch, data, card, time_ms, maxdiff, mods)
     rp = _smoke_probes(torch, card, time_ms, graph_ms, maxdiff, mods)
     parts = (r4, rb, rd, rm, rr, rp)
@@ -2222,6 +2287,18 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
         pwk, _ = G.chain_gaps(c9, 2, K9.PIECE // 2)
         errg = max(errg, maxdiff(pwk, G.chain_gaps_plain(
             c9, 2, K9.PIECE // 2)[0]))
+        # hand-made tapes (links of 0, 254, 255, negative, past bs, far;
+        # K9's ties and chains ending at the floor): 64 KiB blocks at 4
+        # links, 1 MiB with half (K9's floor, one division a quad) and
+        # without, 70,000 blocks of 16 (the grid's block index)
+        for hn, hbs, half, links in ((3, bs, 0, 4), (2, 1 << 20,
+                                                     K9.PIECE // 2, 2),
+                                     (1, 1 << 20, 0, 4), (70000, 16, 0, 4)):
+            ht = torch.from_numpy(hand_gaps_tape(hn, hbs, half,
+                                                 seed=hbs)).to(dev)
+            got = G.chain_gaps(ht, links, half)
+            for a, b in zip(got, G.chain_gaps_plain(ht, links, half)):
+                errg = max(errg, maxdiff(a, b) if a is not None else 0)
         need(errg == 0, f"gaps differs from its plain version by {errg}")
         tapes = {"dense_gaps": gk.cpu().numpy(),
                  "dense_gaps2": g2k.cpu().numpy()}
@@ -2291,7 +2368,9 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                                             f"K8-seg on {what}"))
         print(f"phase gaps/K8 == plain: ok; gaps (links 2 and 4) on "
               f"{DEEP_SUBSET} blocks of {bs} and == golden on 2, over K9's "
-              f"tape on 4 blocks of 1 MiB and == golden on 1; K8-seg on "
+              f"tape on 4 blocks of 1 MiB and == golden on 1, on hand-made "
+              f"tapes (3 of {bs}, 1 MiB with and without half, 70,000 of "
+              f"16); K8-seg on "
               + ", ".join(seg_cases) + "; K8-enc3 at 4096 (64 blocks) and "
               f"{bs} (8 blocks, a random and a zero block, 4 against the "
               f"plain version), depth 3 and 5; the plain parses once each, "
@@ -2508,11 +2587,14 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     fc = K2.dense_candidates(raw, rlen)
     fg, _ = G.chain_gaps(fc)
     old8s = load_parent(K8S, "parse_seg_deep")
+    oldg = load_parent(G, "gaps")
     full = {"cand": against_parent(
                 time_ms, K2, load_parent(K2, "cand"),
                 lambda: K2.dense_candidates(raw, rlen), 3,
                 f"K2 over config 5 ({nb} blocks of {bs})", card),
-            "gaps": time_ms(lambda: G.chain_gaps(fc), 3),
+            "gaps": against_parent(
+                time_ms, G, oldg, lambda: G.chain_gaps(fc), 5,
+                f"gaps over config 5 ({nb} blocks of {bs}, links 2)", card),
             "parse_seg_deep": against_parent(
                 time_ms, K8S, old8s,
                 lambda: K8S.parse_segments_deep(raw, fc, fg, rlen), 3,
@@ -2522,7 +2604,9 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
                 lambda: K3.parse_segments(raw, fc, rlen), 3)}
     f5c = fc[:n5].contiguous()
     f5g, f5g2 = G.chain_gaps(f5c, 4)
-    full["gaps (links 4, 8 MiB)"] = time_ms(lambda: G.chain_gaps(f5c, 4), 3)
+    full["gaps (links 4, 8 MiB)"] = against_parent(
+        time_ms, G, oldg, lambda: G.chain_gaps(f5c, 4), 5,
+        f"gaps over config 5's first {n5} blocks (links 4)", card)
     full["parse_enc3_deep (depth 5, 8 MiB)"] = time_ms(
         lambda: K8E.parse_blocks_enc3_deep(raw[:n5], f5c, f5g, f5g2,
                                            rlen[:n5], depth=5), 3)
@@ -2549,7 +2633,10 @@ def _smoke_deep(torch, card: str, time_ms, maxdiff, mods) -> dict:
     sub8 = f"4 blocks of {bs}"
     r8, c8, g8, l8, _, _ = seg_cases[sub8]
     sub_times = {
-        "gaps": (time_ms(lambda: G.chain_gaps(cs), 10),
+        "gaps": (against_parent(time_ms, G, oldg,
+                                lambda: G.chain_gaps(cs), 10,
+                                f"gaps on {DEEP_SUBSET} blocks of {bs} "
+                                "(links 2)", card),
                  time_ms(lambda: G.chain_gaps_plain(cs), 3),
                  tensor_bytes(cs, g3k)),
         "parse_seg_deep": (
@@ -2641,7 +2728,7 @@ def in_turns(time_ms, fa, fb, reps: int):
 
 
 def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
-                time_ms, maxdiff, mods) -> dict:
+                time_ms, graph_ms, maxdiff, mods) -> dict:
     """Phases 25-28: the mlen mode (K10) on config 1's corpus: its 64 KiB
     blocks (``raw``, ``rlen``, on the card) through ``seg`` (K2, mcode,
     K10b, K4), and its 4 KiB blocks through the enc3 function's ``mlen``
@@ -2683,6 +2770,14 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
         cv, mc = M.dense_mcode(cs, rs, ls)
         errm = max(maxdiff(a, b) for a, b in
                    zip((cv, mc), M.dense_mcode_plain(cs, rs, ls)))
+        # hand-made tapes (d <= 0, d = 1, d = p, d > p, d >= bs; nonzero
+        # bytes past n, raw_len negative and past bs) at odd block sizes,
+        # rows off the 16-byte grid, and 70,000 blocks of 16
+        for hn, hbs in ((5, BLOCK), (5, 4097), (9, 5), (70000, 16)):
+            hr, hl, hc = (torch.from_numpy(a).to(dev)
+                          for a in hand_mcode_case(hn, hbs, seed=hbs))
+            errm = max(errm, max(maxdiff(a, b) for a, b in zip(
+                M.dense_mcode(hc, hr, hl), M.dense_mcode_plain(hc, hr, hl))))
         need(errm == 0, f"mcode differs from its plain version by {errm}")
         pk = K10B.parse_segments_mlen(rs, cv, mc, ls)
         err10b = segment_diff(torch, maxdiff, pk,
@@ -2715,7 +2810,8 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
         print(f"phase mcode/K10b/K10c == plain: ok; mcode and K10b on "
               f"{SUBSET} blocks of {BLOCK} (K10b == K3 on the unverified "
               f"tape), K10c on {SUBSET4} blocks of {BLOCK4} (== K7); mcode "
-              f"== golden.dense_mcode on {len(msel)} "
+              f"on hand-made tapes (5 of {BLOCK} and of 4097, 9 of 5, 70,000 "
+              f"of 16) and == golden.dense_mcode on {len(msel)} "
               f"({time.perf_counter() - t0:.1f} s)")
         # K10b and K10c on the subsets, in turns with the parent's
         old10b = load_parent(K10B, "parse_seg_mlen")
@@ -2830,10 +2926,33 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
           f"({len(data) / ms_m / 1e6:.4f} GB/s), mlen/default "
           f"{ms_m / ms_d:.4f}; 4 KiB enc3 default {ms4_d:.3f} ms, mlen "
           f"{ms4_m:.3f} ms, mlen/default {ms4_m / ms4_d:.4f}")
+    # the same on the card alone: three calls a CUDA graph, so the host's
+    # launches between the kernels do not set the pace
+    dv_d, dv_m = in_turns(graph_ms, seg_path(False), seg_path(True), 3)
+    dv4_d, dv4_m = in_turns(graph_ms, enc3_path(False), enc3_path(True), 3)
+    print(f"[{card}] the same paths' device time (CUDA graphs), in turns: "
+          f"64 KiB seg default {dv_d:.4f} ms, mlen {dv_m:.4f} ms, "
+          f"mlen/default {dv_m / dv_d:.4f}; 4 KiB enc3 default "
+          f"{dv4_d:.4f} ms, mlen {dv4_m:.4f} ms, mlen/default "
+          f"{dv4_m / dv4_d:.4f}")
     fc = K2.dense_candidates(raw, rlen)
     fcv, fmc = M.dense_mcode(fc, raw, rlen)
     f4 = K2.dense_candidates(raw4, rlen4)
     f4v, f4m = M.dense_mcode(f4, raw4, rlen4)
+    # mcode and the mlen paths with the parent's mcode, in turns
+    oldm = load_parent(M, "mcode")
+    mcode_ms = {
+        "mcode (64 KiB)": against_parent(
+            time_ms, M, oldm, lambda: M.dense_mcode(fc, raw, rlen), 5,
+            f"mcode over config 1 ({nb} blocks of {BLOCK})", card),
+        "mcode (4 KiB)": against_parent(
+            time_ms, M, oldm, lambda: M.dense_mcode(f4, raw4, rlen4), 5,
+            f"mcode over config 3 ({nb4} blocks of {BLOCK4})", card)}
+    against_parent(time_ms, M, oldm, seg_path(True), 5,
+                   "the mlen encode kernel path over config 1", card)
+    against_parent(time_ms, M, oldm, enc3_path(True), 5,
+                   "the 4 KiB enc3 mlen encode kernel path over config 3",
+                   card)
     k3_ms, k10b_ms = in_turns(
         time_ms, lambda: K3.parse_segments(raw, fc, rlen),
         lambda: K10B.parse_segments_mlen(raw, fcv, fmc, rlen), 5)
@@ -2859,10 +2978,7 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
     against_parent(time_ms, K10C, old10c,
                    lambda: K10C.parse_blocks_enc3_mlen(*one4), 20,
                    f"K10c on one block of {BLOCK4}", card)
-    full = {"mcode (64 KiB)": time_ms(lambda: M.dense_mcode(fc, raw, rlen),
-                                      5),
-            "mcode (4 KiB)": time_ms(lambda: M.dense_mcode(f4, raw4, rlen4),
-                                     5),
+    full = {**mcode_ms,
             "parse_seg_mlen": k10b_ms, "parse_seg (in turns)": k3_ms,
             "parse_enc3_mlen (4 KiB)": k10c_ms,
             "parse_enc3 (4 KiB, in turns)": k7_ms}
@@ -2872,7 +2988,10 @@ def _smoke_mlen(torch, data: bytes, raw, rlen, container: bytes, card: str,
                           lambda: K10B.parse_segments_mlen(rs, cv, mc, ls),
                           10)
     sub_times = {
-        "mcode": (time_ms(lambda: M.dense_mcode(cs, rs, ls), 10),
+        "mcode": (against_parent(time_ms, M, oldm,
+                                 lambda: M.dense_mcode(cs, rs, ls), 10,
+                                 f"mcode on {SUBSET} blocks of {BLOCK}",
+                                 card),
                   time_ms(lambda: M.dense_mcode_plain(cs, rs, ls), 3),
                   tensor_bytes(cs, rs, ls, cv, mc)),
         "parse_seg_mlen": (

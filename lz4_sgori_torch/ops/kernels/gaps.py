@@ -10,7 +10,9 @@ Both follow the candidate tape itself along one hash chain instead of
 sorting: q1 = p - cand[p], g2 = cand[q1], q2 = q1 - g2, g3 = cand[q2],
 and so on. A link is kept only while every link so far lies in
 [1, 254] and at or above the floor of the pass that supplied cand[p]
-(see ``csrc/gaps.cu``). Contract:
+(see ``csrc/gaps.cu``). The kernel takes four positions a thread and
+issues their four chains' gathers together, a link step at a time.
+Contract:
 
 - ``half = 0``, over K2's tape: ``golden.dense_gaps`` (g2 | g3 << 8) and,
   with ``links = 4``, ``golden.dense_gaps2`` (g4 | g5 << 8);
@@ -29,11 +31,12 @@ from . import _build
 
 launches = 0
 MAX_GAP = 254
+ENTRIES = {"lz4t_gaps": "pppiiip"}     # the C entry
 
 
 def load_kernel():
     """Build (once) and load csrc/gaps.cu."""
-    return _build.load("gaps", {"lz4t_gaps": "pppiiip"})
+    return _build.load("gaps", ENTRIES)
 
 
 def chain_gaps(cand: torch.Tensor, links: int = 2, half: int = 0):

@@ -12,7 +12,9 @@ p with d = cand[p] in [1, p] and q = p - d, the candidate is kept when
 read32(p) == read32(q), and its code packs the equal bytes of
 [p+4, p+12) against [q+4, q+12) (lcp, up to 8) and the trailing equal
 bytes of [p-4, p) against [q-4, q) (cu, up to 4); every byte outside
-[0, raw_len) reads 0 on both sides. Contract: ``golden.dense_mcode``
+[0, raw_len) reads 0 on both sides. The kernel holds each block's
+bytes in shared memory, zero-padded, and compares them a 32-bit word at
+a time, four positions a thread. Contract: ``golden.dense_mcode``
 (``lz4_sgori_tpu/golden.py:735-792``) for every row. Returns
 
   cand_v int32 [B, block_size]  cand with each unverified candidate 0;

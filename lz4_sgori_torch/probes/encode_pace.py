@@ -4,7 +4,8 @@ segment parses, K3 (``csrc/parse_seg.cu``), K8-seg
 (``csrc/parse_seg_deep.cu``, depth 3) and K10b (``csrc/parse_seg_mlen.cu``,
 the mlen mode), and of the warp block parses, K7 (``csrc/parse_enc3.cu``)
 and K10c (``csrc/parse_enc3_mlen.cu``), with the mlen mode's codes
-(mcode, ``csrc/mcode.cu``), and of the segment assembly, K4
+(mcode, ``csrc/mcode.cu``), of the deep modes' chain gaps
+(``csrc/gaps.cu``) and of the segment assembly, K4
 (``csrc/asm_seg.cu``), on the card, on the main paths' cells
 (``chip_smoke.py``'s corpora: config 1, 32 MiB of 64 KiB blocks, seed
 42; config 3, the same bytes in 4 KiB blocks; config 5, 128 MiB of 64
@@ -12,14 +13,19 @@ KiB blocks, seed 1234; config 6, 128 MiB of 1 MiB blocks, seed 55, K9's
 tape, seg 8192; one block of each size, one of 4 MiB at seg 32768,
 config 1's bytes in 1 MiB blocks, and K7's 64 blocks of 64 KiB, config
 1's first; K10b's on config 1 and one 64 KiB block, K10c's on config 3
-and one 4 KiB block, ``MLEN_CELLS``; K4's on configs 1, 5 (depth 3) and
-6 and one block of 1 and of 4 MiB, ``K4_CELLS``):
+and one 4 KiB block, ``MLEN_CELLS``, mcode's also on config 1's 32-block
+subset; the gaps' on config 5 and its 32-block subset at 2 links, its
+first 8 MiB at 4 and one 1 MiB block on K9's tape, ``gaps_runs``; K4's
+on configs 1, 5 (depth 3) and 6 and one block of 1 and of 4 MiB,
+``K4_CELLS``):
 
 - each kernel's time a call (CUDA events), K9's run length, the
   sequences K3, K8-seg and K7 find a segment or block (their ``nseq``)
   and each cell's encode kernel path (depth 3 too where K8-seg runs);
-  K10b and K10c in turns with K3 and K7 on the same blocks, and mcode;
-  K4 with its bound (the pieces read, the whole rows written);
+  K10b and K10c in turns with K3 and K7 on the same blocks, mcode and
+  the gaps with their bounds, and the mlen encode kernel paths in turns
+  with the default ones (configs 1 and 3, one block of each size); K4
+  with its bound (the pieces read, the whole rows written);
 - ``--profile``: clock64 breakdowns from instrumented copies of this
   tree's sources (``PROFILE``: K2's cycles a block a warp in the scan and
   in the table steps, its steps a warp, the wait for the bytes and the
@@ -37,11 +43,13 @@ and one 4 KiB block, ``MLEN_CELLS``; K4's on configs 1, 5 (depth 3) and
   segments a CTA or bytes held before them in ``parse_seg_warp.cuh``, for
   K3's source or K8-seg's, K8-seg's probe reading its three candidates
   together, K9 a window a CTA, K7 with other blocks a CTA, K4 over 4 or
-  16 KiB chunks of a row in ``asm_seg.cu``), each timed in
-  turns with this tree's build (this, variant, variant, this) and its
-  outputs held equal to it;
-- ``--device-time``: K4's times and every comparison in turns from
-  calls captured in a CUDA graph (``graph_ms``: the card's time, without
+  16 KiB chunks of a row in ``asm_seg.cu``; K10a's rows, splits, loads
+  in flight and threads, the gaps' threads), each
+  timed in turns with this tree's build (this, variant, variant, this)
+  and its outputs held equal to it;
+- ``--device-time``: K4's, mcode's and the gaps' times, the mlen
+  paths' and every comparison in turns from calls captured in a CUDA
+  graph (``graph_ms``: the card's time, without
   the host's dispatch, which sets a short call's time otherwise; a
   wrapper that waits on the card cannot be captured and raises);
 - ``--parent DIR``: the same for DIR's sources of ``MODS`` (a ``git
@@ -71,7 +79,9 @@ import torch
 
 from .. import format as F
 from ..blocks import resolve_device, split_blocks
+from ..ops.enc3 import compress_blocks_enc3
 from ..ops.encode import compress_blocks_device
+from ..ops.seg import compress_blocks_seg
 from ..ops import seg as S
 from ..ops.kernels import _build
 from ..ops.kernels import asm_seg as K4
@@ -91,18 +101,23 @@ STORE_REQUESTS = 1024  # 4 KiB writes a store timing
 BIG_STORES = ((1 << 20, 32), (4 << 20, 8))   # fio test_1m, test_4m
 MODS = {"cand": K2, "parse_seg": K3, "cand_piecewise": K9,
         "parse_seg_deep": K8S, "parse_enc3": K7, "parse_seg_mlen": K10B,
-        "parse_enc3_mlen": K10C, "mcode": M, "asm_seg": K4}
+        "parse_enc3_mlen": K10C, "mcode": M, "asm_seg": K4, "gaps": G}
 # the mlen mode's cells: K10b's (64 KiB, seg 4096) and K10c's (4 KiB);
 # mcode runs on both
 MLEN_CELLS = {"parse_seg_mlen": ("config 1", "one block of 65536"),
               "parse_enc3_mlen": ("config 3", "one block of 4096")}
 MLEN_CELLS["mcode"] = MLEN_CELLS["parse_seg_mlen"] + \
-    MLEN_CELLS["parse_enc3_mlen"]
+    MLEN_CELLS["parse_enc3_mlen"] + ("32 blocks of config 1",)
 _TAPES: dict = {}     # cell name -> its mlen tapes (cand_v, mcode)
 # K4's cells and the match depth of the parse before it
 K4_CELLS = {"config 1": 1, "config 5": 3, "config 6": 1,
             "one block of 1048576": 1, "one block of 4194304": 1}
 _K4IN: dict = {}      # cell name -> K4's arguments
+# the gaps kernel's cells: (links, half); and the first 8 MiB of config 5
+# at 4 links (the depth-5 slice)
+GAPS_CELLS = {"config 5": (2, 0), "32 blocks of config 5": (2, 0),
+              "one block of 1048576": (2, K9.PIECE // 2)}
+GAPS5_BLOCKS = (8 << 20) // 65536
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory rate (data sheet)
 
 # variants: the source they build, the header they change and its
@@ -116,6 +131,8 @@ _U = "constexpr int kUnroll = 16;"
 _G = "constexpr int kGroup = 2;"
 _B = "constexpr int kBack = 0;"
 _K7 = "constexpr int kMaxWarps1 = 1;"
+_MR = "constexpr int kRowBytes = 16384;"
+_MW = "constexpr int kWaveCtas = 4;"
 VARIANTS = {
     "cand_w1": (*_CAND, [(_W, _W.replace("8", "1"))]),
     "cand_w4": (*_CAND, [(_W, _W.replace("8", "4"))]),
@@ -158,6 +175,21 @@ VARIANTS = {
         "constexpr int kChunk = 8192;", "constexpr int kChunk = 4096;")]),
     "asm_chunk16k": ("asm_seg", "asm_seg.cu", [(
         "constexpr int kChunk = 8192;", "constexpr int kChunk = 16384;")]),
+    # K10a with 32 KiB of whole rows a CTA (16); never splitting rows, or
+    # splitting them below 2 or 8 CTAs an SM (4); 8 loads in flight a
+    # thread (4); 512 threads a CTA (256)
+    "mcode_rows32k": ("mcode", "mcode.cu", [(_MR, _MR.replace("16384",
+                                                              "32768"))]),
+    "mcode_nosplit": ("mcode", "mcode.cu", [(_MW, _MW.replace("4", "0"))]),
+    "mcode_wave2": ("mcode", "mcode.cu", [(_MW, _MW.replace("4", "2"))]),
+    "mcode_wave8": ("mcode", "mcode.cu", [(_MW, _MW.replace("4", "8"))]),
+    "mcode_u8": ("mcode", "mcode.cu", [(
+        "constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")]),
+    "mcode_t512": ("mcode", "mcode.cu", [(
+        "constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+    # the gaps with 512 threads a CTA (256)
+    "gaps_t512": ("gaps", "gaps.cu", [(
+        "constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
     # K9 a window a CTA (runs of one half-piece, its warm half before it)
     "k9_r1": ("cand_piecewise", "cand_piecewise.cu", [(
         "  const Runs R(nb, bs, half, sms);\n",
@@ -604,6 +636,14 @@ def cells(dev):
     r, n = out["config 1"][:2]
     out["64 blocks of 65536"] = cell(r[:64].contiguous(),
                                      n[:64].contiguous(), None)
+    # the smoke's subsets: every 16th block of config 1 (mcode's) and
+    # every 64th of config 5 (the gaps')
+    for src, k in (("config 1", 32), ("config 5", 32)):
+        r, n = out[src][:2]
+        sel = torch.arange(0, r.shape[0], r.shape[0] // k, device=dev)[:k]
+        out[f"{k} blocks of {src}"] = cell(r[sel].contiguous(),
+                                           n[sel].contiguous(), None)
+    r, n = out["config 1"][:2]
     # config 1's bytes in 1 MiB blocks: K9 on the bytes K2 profiles
     out["config 1 in blocks of 1048576"] = cell(
         r.reshape(-1, 1 << 20), n.reshape(-1, 16).sum(1).int(), 8192)
@@ -884,11 +924,48 @@ def store_median(data: bytes, dev, chunk: int = 4096,
     return 1e3 * float(np.median(lat))
 
 
+def same_gaps(a, b) -> bool:
+    """Two gaps calls agree (gaps, and gaps2 where there is one)."""
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def gaps_bound_ms(cand, links: int) -> float:
+    """The gaps kernel's bound: the tape read once, gaps (and gaps2)
+    written once, over the device memory rate."""
+    return cand.numel() * 4 * (3 if links == 4 else 2) / HBM_BYTES_PER_MS
+
+
+def mcode_bound_ms(raw) -> float:
+    """K10a's bound: the tape and the bytes read once, cand_v and mcode
+    written once (13 bytes a position), and the lengths."""
+    nb, bs = raw.shape
+    return (nb * bs * 13 + nb * 4) / HBM_BYTES_PER_MS
+
+
+def gaps_runs(cs) -> list:
+    """(cell name, call, links, tape) of the gaps kernel: ``GAPS_CELLS``
+    and the first 8 MiB of config 5 at 4 links."""
+    out = []
+    for name, (links, half) in GAPS_CELLS.items():
+        if name in cs:
+            c = cs[name][2]
+            out.append((name, lambda c=c, k=links, h=half:
+                        G.chain_gaps(c, k, h), links, c))
+    if "config 5" in cs:
+        c = cs["config 5"][2][:GAPS5_BLOCKS].contiguous()
+        out.append((f"{GAPS5_BLOCKS} blocks of config 5 at 4 links",
+                    lambda c=c: G.chain_gaps(c, 4), 4, c))
+    return out
+
+
 def runs_of(src: str, cs) -> list:
     """(cell name, call, comparison) of the cells a source's kernel runs
     on: K2 at 64 KiB and less, K9 above, K3 and K8-seg where a segment
     size (and for K8-seg the gaps) is given, K7 where none is, mcode, K10b
-    and K10c on ``MLEN_CELLS``."""
+    and K10c on ``MLEN_CELLS``, the gaps on ``gaps_runs``."""
+    if src == "gaps":
+        return [(name, fn, same_gaps) for name, fn, _, _ in gaps_runs(cs)]
     out = []
     for name, (r, n, c, seg, g) in cs.items():
         bs = r.shape[1]
@@ -935,8 +1012,9 @@ def main(argv=None) -> int:
     p.add_argument("--parent")
     p.add_argument("--store", type=int, default=0)
     p.add_argument("--device-time", action="store_true",
-                   help="time K4 and the comparisons in turns from calls "
-                        "captured in a CUDA graph (the card's time)")
+                   help="time K4, mcode, the gaps, the mlen paths and "
+                        "the comparisons in turns from calls captured in a "
+                        "CUDA graph (the card's time)")
     p.add_argument("--sources", nargs="*", choices=sorted(MODS),
                    help="compare only these sources' parents (default: "
                         "all)")
@@ -983,6 +1061,16 @@ def main(argv=None) -> int:
                         f"{ns.numel()} blocks (mean "
                         f"{float(ns.double().mean()):.1f}, most "
                         f"{int(ns.max())})")
+        if name in ("config 1", "config 3", "one block of 65536",
+                    "one block of 4096"):
+            # the mlen path in turns with the default path on these blocks
+            def path(flag, r=r, n=n, bs=bs):
+                if bs == 4096:
+                    return lambda: compress_blocks_enc3(r, n, bs, mlen=flag)
+                return lambda: compress_blocks_seg(r, n, bs, mlen=flag)
+            d, m = in_turns(path(False), path(True), dev, timer)
+            line.append(f"the encode kernel path {d:.4f} ms and with the "
+                        f"mlen mode {m:.4f} ms in turns ({m / d:.4f}x)")
         for src, key, base in (
                 ("parse_seg_mlen", "K10b", lambda r=r, c=c, n=n, seg=seg:
                  K3.parse_segments(r, c, n, seg=seg)),
@@ -993,7 +1081,8 @@ def main(argv=None) -> int:
             (_, fn, _), = runs_of(src, {name: cs[name]})
             (_, mc, _), = runs_of("mcode", {name: cs[name]})
             this, other = in_turns(fn, base, dev)
-            line.append(f"mcode {ms(mc, dev):.4f} ms, {key} {this:.4f} ms "
+            line.append(f"mcode {timer(mc, dev):.4f} ms (bound "
+                        f"{mcode_bound_ms(r):.6f}), {key} {this:.4f} ms "
                         f"in turns with {'K3' if key == 'K10b' else 'K7'} "
                         f"{other:.4f} ms ({this / other:.4f}x)")
         if name in K4_CELLS:
@@ -1001,6 +1090,9 @@ def main(argv=None) -> int:
             t = timer(lambda i=i: K4.assemble_segments(*i), dev)
             line.append(f"K4 {t:.4f} ms after the depth-{K4_CELLS[name]} "
                         f"parse (bound {k4_bound_ms(i):.6f} ms)")
+        for gname, fn, links, c5 in gaps_runs({name: cs[name]}):
+            line.append(f"gaps at {links} links {timer(fn, dev):.4f} ms "
+                        f"(bound {gaps_bound_ms(c5, links):.6f})")
         if "one" not in name and "64 blocks" not in name:
             t = ms(lambda: compress_blocks_device(r, n, bs), dev)
             line.append(f"the encode kernel path {t:.3f} ms")

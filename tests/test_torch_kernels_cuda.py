@@ -19,7 +19,11 @@ k7"``); K5's small geometries at 4, 8 and 12 KiB and K6's ring at 256 KiB
 on mutants and the crafted streams, a launch a block and 4,096 blocks,
 and K4's words on random plans (nseg 1 and 128, totals past the
 capacity) and the seg_big engine's pieces at 1 and 4 MiB (``-k "k4 or
-k5"``). Marked ``cuda``; each test skips itself when no card is present.
+k5"``); the gaps' four chains a thread and K10a's shared rows on
+``chip_smoke``'s hand-made tapes at block sizes 1 to 4 MiB (K9's half
+at 1 and 4 MiB), 70,000 blocks of 16 bytes and tapes off the 16-byte
+grid (``-k "gaps or k10a"``). Marked ``cuda``; each test skips itself
+when no card is present.
 Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -29,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import crafted_streams, k5_stage, make_mutants
+from chip_smoke import (crafted_streams, hand_gaps_tape, hand_mcode_case,
+                        k5_stage, make_mutants)
 from lz4_sgori_torch.ops import seg as S
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
@@ -517,6 +522,47 @@ def test_gaps_kernel(dev, mode):
              golden.dense_gaps(b, 16))
         assert np.array_equal(tape[j, :len(b)], w) and \
             not tape[j, len(b):].any(), j
+    # hand-made tapes of the mode's shape: links of 0, 254, 255, negative,
+    # past bs and far, q1 at and below each even half-piece's start
+    nb = 1 if mode == "piecewise" else 3
+    hand = torch.from_numpy(hand_gaps_tape(nb, bs, args[1], seed=7)).to(dev)
+    got = G.chain_gaps(hand, *args)
+    want = G.chain_gaps_plain(hand, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _offset_view(t, elems):
+    """``t`` copied into a contiguous view that starts ``elems`` elements
+    into its storage (rows off the 16-byte grid)."""
+    flat = torch.zeros(t.numel() + elems, dtype=t.dtype, device=t.device)
+    v = flat[elems:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("bs,nb,half", [
+    (1, 9, 0), (5, 9, 0), (4096, 9, 0), (4097, 5, 0), (16384, 4, 0),
+    (65536, 3, 0), (1 << 20, 2, 0), (1 << 20, 2, 32768), (4 << 20, 1, 0),
+    (4 << 20, 1, 32768), (16, 70000, 0)])
+@pytest.mark.parametrize("links", [2, 4])
+def test_gaps_kernel_sizes(dev, bs, nb, half, links):
+    """The four chains a thread on hand-made tapes: CTAs over (block, 256
+    aligned quads) at block sizes 1 to 4 MiB, int4 loads of the quad's
+    candidates, K9's floor from one division a quad (half 32768 at 1 and
+    4 MiB), 70,000 blocks of 16 bytes (the grid's block index), and a
+    tape off the 16-byte grid (element loads); bit for bit against the
+    plain version."""
+    cand = torch.from_numpy(hand_gaps_tape(nb, bs, half, seed=bs)).to(dev)
+    for c in (cand, _offset_view(cand, 1)):
+        got = G.chain_gaps(c, links, half)
+        want = G.chain_gaps_plain(c, links, half)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (links == 2)
+        if links == 4:
+            assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("bs,seg,accel,window", [(16384, 4096, 1, 65536),
@@ -637,6 +683,34 @@ def test_k10a_mcode(dev):
         assert np.array_equal(cand_v[j, :n], wd), j
         assert np.array_equal(mcode[j, :n], wm), j
         assert not cand_v[j, n:].any() and not mcode[j, n:].any(), j
+    # hand-made tapes: d <= 0, d = 1, d = p, d > p, d >= bs, nonzero bytes
+    # past n, raw_len negative and past bs
+    raw, rlen, c = (torch.from_numpy(a).to(dev)
+                    for a in hand_mcode_case(5, bs, seed=3))
+    for a, b in zip(M.dense_mcode(c, raw, rlen),
+                    M.dense_mcode_plain(c, raw, rlen)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bs,nb", [(1, 9), (3, 9), (5, 9), (4096, 9),
+                                   (4097, 5), (12345, 3), (16384, 4),
+                                   (65536, 3), (4096, 1000), (65536, 300),
+                                   (16, 70000)])
+def test_k10a_mcode_sizes(dev, bs, nb):
+    """The shared-memory rows read in words on hand-made tapes at odd
+    block sizes (rows 0-15 bytes off the 16-byte grid): a few blocks split
+    into runs of quads over the SMs, many in whole rows (several a CTA
+    below 64 KiB), 70,000 blocks of 16 bytes (the grid's block index), and
+    bytes and candidates off the grid in their storage (element loads);
+    bit for bit against the plain version."""
+    raw, rlen, c = (torch.from_numpy(a).to(dev)
+                    for a in hand_mcode_case(nb, bs, seed=bs))
+    for r, cc in ((raw, c), (_offset_view(raw, 5), _offset_view(c, 1))):
+        got = M.dense_mcode(cc, r, rlen)
+        want = M.dense_mcode_plain(cc, r, rlen)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def _mlen_tapes(blocks, bs, dev):
