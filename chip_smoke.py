@@ -8,13 +8,13 @@ kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
 T14a's 15 harness bodies and T14b's 5 tensor-core readings two: 14
 bodies on one SM in ``probe_harness``, ``ohbuild`` and the five
 tensor-core readings on every SM in ``probe_harness_wg``) and
-drives seven paths: two on a
+drives eight paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
 seed 55, 1 MiB blocks), the deep modes on its config 5 (128 MiB, seed
 1234, 64 KiB blocks), the mlen mode and the retired engines on the 32
-MiB corpus again, and the design probes of ``tools/`` at their own
-shapes and seeds.
+MiB corpus again, the design probes of ``tools/`` at their own shapes
+and seeds, and the xla engine on the 32 MiB corpus.
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -269,6 +269,23 @@ tools' shapes and seeds, in ``_smoke_probes``:
     the next, nor T13 (a capacity probe), nor three of T14a's bodies:
     ``vpu``, ``sroll`` and ``lroll`` are chains of operations.
 
+The xla engine, the portable and exhaustive max-ratio mode (PyTorch
+tensor ops on the card, no kernel of its own), in ``_smoke_xla``:
+
+37. with every counter reset just before, the 32 MiB corpus through
+    ``compress_blocks_device(impl="xla")`` on the card at its default
+    depth 3, then through the routed decode (K1, its one launch) and the
+    ``impl="xla"`` decode, equal to each other, every block its input,
+    and no other kernel launched; its ratio and its size against liblz4
+    (and the native LZ4_compress_default); the card's bytes equal the
+    engine's CPU bytes on 8 blocks of 64 KiB at depths 1 and 3, 16 of 4
+    KiB at depth 5 and one of 128 KiB at depth 1; phase 4's mutants
+    through the ``impl="xla"`` decode on the card, equal to K1's (so to
+    golden's verdict); bench.py's config 5b, the first 16 blocks of
+    config 5's corpus, at depth 3 against liblz4
+    (``deep_xla_size_vs_lz4``); encode and decode GB/s from CUDA events
+    after a warm-up, and the peak memory a call takes.
+
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
 without it phases 5, 12, 19, 24, 25 and 28 time this tree's kernels
 alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b and K10c in
@@ -346,7 +363,20 @@ DEEP_STORE_CHUNKS = 256
 # LZ4_compress_default): the same bytes, so the same numbers
 TPU_DEEP_RECORD = {"ratio": 2.8231, "size_vs_lz4": 0.9304,
                    "deep5_size_vs_lz4": 0.9171}
+# TPU record of bench.py's config 5b (BENCH_r05.json deep_xla_size_vs_lz4:
+# the xla engine at depth 3 on the first 16 blocks of config 5's corpus,
+# against liblz4's LZ4_compress_default): the same bytes, the same number
+TPU_XLA_SIZE_VS_LZ4 = 0.9141
 
+# the xla engine (phase 37): blocks of the corpus it encodes on the CPU
+# too at 64 KiB (depths 1 and 3) and at 4 KiB (depth 5), the 128 KiB
+# blocks it encodes there at depth 1, config 5b's blocks (bench.py:508-
+# 520), and the timed reps
+XLA_CPU_64K = 8
+XLA_CPU_4K = 16
+XLA_CPU_128K = 1
+XLA_5B_BLOCKS = 16
+XLA_REPS = 2
 RETIRED_SUBSET = 8          # 64 KiB blocks of check 29 (and SUBSET4 at 4 KiB)
 RETIRED_ACC = 8
 RETIRED_MUTANTS = (248, 1024)   # at 64 KiB and at 4 KiB
@@ -1396,6 +1426,8 @@ def _smoke(torch, start: float) -> int:
                      graph_ms, maxdiff, mods)
     rr = _smoke_retired(torch, data, card, time_ms, maxdiff, mods)
     rp = _smoke_probes(torch, card, time_ms, graph_ms, maxdiff, mods)
+    _smoke_xla(torch, data, raw, rlen, (mc, ml, mo, mlen, merr), card,
+               time_ms, mods)
     parts = (r4, rb, rd, rm, rr, rp)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
@@ -3748,6 +3780,184 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
     return {"errs": errs, "counts": counts, "sub_times": sub_times,
             "library": library, "library_eager": library_eager,
             "library_of": library_of, "op_bound": op_bound}
+
+
+def _smoke_xla(torch, data: bytes, raw, rlen, mutants, card: str, time_ms,
+               mods) -> None:
+    """Phase 37: the xla engine (PyTorch tensor ops, no kernel of its
+    own) on the card. ``raw``, ``rlen``: config 1's corpus on the card;
+    ``mutants``: phase 4's streams and lengths and K1's (out, out_len,
+    err) on them, numpy arrays."""
+    from __graft_entry__ import _synth_corpus
+    from lz4_sgori_torch import native
+    from lz4_sgori_torch.ops import encode as E
+    from lz4_sgori_torch.ops import primitives as P
+    from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.utils import oracle
+
+    dev = raw.device
+    nb = raw.shape[0]
+
+    def enc(r, n, bs, depth=None):
+        return E.compress_blocks_device(r, n, bs, match_depth=depth,
+                                        impl="xla")
+
+    def lz4_size(blocks) -> int:
+        """Bytes of liblz4's LZ4_compress_default, or of the native
+        codec's (the same function) where liblz4 is absent."""
+        lib = oracle.compress if oracle.available() else native.compress
+        return sum(len(lib(b)) for b in blocks)
+
+    def same_bytes(r, n, bs, depth, got=None) -> None:
+        """The engine's card bytes (``got``, or a call on the card) equal
+        its CPU bytes on the same blocks."""
+        got = enc(r, n, bs, depth) if got is None else got
+        want = enc(r.cpu(), n.cpu(), bs, depth)
+        need(torch.equal(got[1].cpu(), want[1])
+             and torch.equal(got[0].cpu(), want[0]),
+             f"the xla engine's card bytes differ from its CPU bytes at "
+             f"{bs} bytes, depth {depth}")
+
+    # ---- phase 37: the xla engine, the counters reset just before ----
+    t0 = time.perf_counter()
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    comp, clen = enc(raw, rlen, BLOCK)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t1
+    peak_enc = torch.cuda.max_memory_allocated() - held
+    routed = decompress_blocks_device(comp, clen, BLOCK)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xla = decompress_blocks_device(comp, clen, BLOCK, impl="xla")
+    torch.cuda.synchronize()
+    peak_dec = torch.cuda.max_memory_allocated() - held
+    counts = {k: m.launches for k, m in mods.items()}
+    check_launches(counts, "xla", ("decode_v7",),
+                   [k for k in mods if k != "decode_v7"])
+    need(counts["decode_v7"] == 1, f"K1 launched {counts['decode_v7']} "
+                                   "times on the xla path, not once")
+    need(comp.device == dev and xla[0].device == dev,
+         "the xla engine left the card")
+    for a, b in zip(xla, routed):
+        need(torch.equal(a, b), "the xla decode differs from K1's on the "
+                                "xla engine's bytes")
+    out, out_len, err = xla
+    pos = torch.arange(BLOCK, device=dev)[None, :]
+    same = ((pos >= rlen[:, None]) | (out == raw)).all(dim=1)
+    need(bool((~err & (out_len == rlen) & same).all()),
+         "a block of the xla engine does not decode to its input")
+    total = int(clen.sum())
+    blocks = [data[j * BLOCK:(j + 1) * BLOCK] for j in range(nb)]
+    vs_lz4 = total / lz4_size(blocks)
+    vs_native = total / sum(len(native.compress(b)) for b in blocks)
+    print(f"[{card}] xla engine, config 1 ({nb} blocks of {BLOCK}, depth "
+          f"3): round trip ok through K1 (launched once, no other kernel) "
+          f"and through the xla decode, equal; ratio "
+          f"{len(data) / total:.4f}, size {vs_lz4:.4f}x "
+          f"{'liblz4' if oracle.available() else 'native (liblz4 absent)'}"
+          f", {vs_native:.4f}x native LZ4_compress_default; first call "
+          f"{t_enc:.3f} s (host clock)")
+    print(f"[{card}] xla engine peak memory over the {held / 2**20:.1f} "
+          f"MiB held: encode {peak_enc / 2**20:.1f} MiB, decode "
+          f"{peak_dec / 2**20:.1f} MiB (batches of "
+          f"{max(1, P.BATCH_POSITIONS // BLOCK)} blocks)")
+
+    # the card's bytes against the CPU's: 64 KiB at depths 1 and 3, 4 KiB
+    # at depth 5, 128 KiB at depth 1
+    t1 = time.perf_counter()
+    si = torch.from_numpy(
+        np.linspace(0, nb - 1, XLA_CPU_64K).astype(np.int64)).to(dev)
+    rs, ls = raw[si].contiguous(), rlen[si].contiguous()
+    same_bytes(rs, ls, BLOCK, 3, (comp[si], clen[si]))
+    same_bytes(rs, ls, BLOCK, 1)
+    offs = np.linspace(0, len(data) - 4096, XLA_CPU_4K).astype(int)
+    b4 = [data[o:o + 4096] for o in offs]
+    b4[-1] = b4[-1][:1234]
+    r4, l4 = (torch.from_numpy(a).to(dev) for a in _batch(b4, 4096))
+    same_bytes(r4, l4, 4096, 5)
+    b128 = [data[o:o + 131072] for o in
+            np.linspace(0, len(data) - 131072, XLA_CPU_128K).astype(int)]
+    r128, l128 = (torch.from_numpy(a).to(dev) for a in _batch(b128, 131072))
+    same_bytes(r128, l128, 131072, 1)
+    print(f"phase xla: card bytes == CPU bytes on {XLA_CPU_64K} blocks of "
+          f"{BLOCK} at depths 1 and 3, {XLA_CPU_4K} of 4096 at depth 5, "
+          f"{XLA_CPU_128K} of 131072 at depth 1 "
+          f"({time.perf_counter() - t1:.1f} s)")
+
+    # phase 4's mutants through the xla decode on the card
+    mc, ml, mo, mlen, merr = mutants
+    mx = [t.cpu().numpy() for t in decompress_blocks_device(
+        torch.from_numpy(mc).to(dev), torch.from_numpy(ml).to(dev), BLOCK,
+        impl="xla")]
+    need(np.array_equal(mx[2], merr), "the xla decode's err differs from "
+                                      "K1's (golden's verdict) on a mutant")
+    need(np.array_equal(mx[1], mlen) and np.array_equal(mx[0], mo),
+         "the xla decode's bytes differ from K1's on a mutant")
+
+    # bench.py's config 5b: the first 16 blocks of config 5's corpus
+    d5 = _synth_corpus(XLA_5B_BLOCKS * BLOCK, seed=DEEP_SEED)
+    b5 = [d5[j * BLOCK:(j + 1) * BLOCK] for j in range(XLA_5B_BLOCKS)]
+    r5, l5 = (torch.from_numpy(a).to(dev) for a in _batch(b5, BLOCK))
+    c5, cl5 = enc(r5, l5, BLOCK, 3)
+    decodes_to(decompress_blocks_device(c5, cl5, BLOCK), b5, "config 5b")
+    vs5 = int(cl5.sum()) / lz4_size(b5)
+    print(f"[{card}] xla engine: deep_xla_size_vs_lz4 {vs5:.4f} (config "
+          f"5b, {XLA_5B_BLOCKS} blocks of {BLOCK} at depth 3; TPU record of "
+          f"the same bytes {TPU_XLA_SIZE_VS_LZ4}), config 1 {vs_lz4:.4f}; "
+          f"{len(mc)} mutants: err, out_len and bytes == K1's")
+    need(round(vs5, 4) == TPU_XLA_SIZE_VS_LZ4,
+         f"config 5b size {vs5:.4f} differs from the TPU record")
+
+    ms_enc = time_ms(lambda: enc(raw, rlen, BLOCK), XLA_REPS)
+    ms_dec = time_ms(lambda: decompress_blocks_device(comp, clen, BLOCK,
+                                                      impl="xla"), XLA_REPS)
+    print(f"[{card}] xla engine over config 1 ({len(data)} bytes, CUDA "
+          f"events, {XLA_REPS} runs after a warm-up): encode {ms_enc:.3f} "
+          f"ms ({len(data) / ms_enc / 1e6:.4f} GB/s), decode {ms_dec:.3f} "
+          f"ms ({len(data) / ms_dec / 1e6:.4f} GB/s)")
+    # where one batch's time goes: torch.profiler over its encode
+    nbat = max(1, P.BATCH_POSITIONS // BLOCK)
+    rb, lb = raw[:nbat].contiguous(), rlen[:nbat].contiguous()
+    ops = profile_ops(torch, lambda: enc(rb, lb, BLOCK))
+    print(f"[{card}] xla engine, one batch of {nbat} blocks under "
+          f"torch.profiler: device {ops['device_ms']:.3f} ms, host "
+          f"{ops['host_ms']:.3f} ms, {ops['launches']} launches; by device "
+          "time: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ops["top"]))
+    print(f"phase xla: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def profile_ops(torch, fn, top: int = 6) -> dict:
+    """One call of ``fn`` (after a warm-up) under ``torch.profiler``:
+    its device milliseconds (the aten ops' self device times, which hold
+    the kernels each op launched), its host milliseconds (every event's
+    self host time), its kernel launches, and the ``top`` aten ops by
+    self device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    aten = sorted((e for e in ev if e.key.startswith("aten::")),
+                  key=dev_us, reverse=True)
+    return {"device_ms": sum(dev_us(e) for e in aten) / 1e3,
+            "host_ms": sum(e.self_cpu_time_total for e in ev) / 1e3,
+            "launches": sum(e.count for e in ev
+                            if e.key == "cudaLaunchKernel"),
+            "top": [(e.key[6:], dev_us(e) / 1e3) for e in aten[:top]]}
 
 
 def library_product(torch, a, b):

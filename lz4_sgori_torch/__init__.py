@@ -11,13 +11,18 @@ Layer map (top-down):
 - ``cli`` / ``store``        — the lz4j CLI, ProxyStore and CompressedStore
 - ``blocks``                 — framing, write verify, container
 - ``routing``                — the engine table (kernel column)
-- ``ops.encode`` / ``ops.decode`` — batched device encode and decode
+- ``ops.encode`` / ``ops.decode`` — batched device encode and decode; the
+  ``xla`` engine (``impl="xla"``, the portable and exhaustive max-ratio
+  mode) is PyTorch tensor ops here, with no kernel of its own
 - ``ops.seg`` / ``ops.enc3`` — the seg, seg_big and enc3 engines' glue
   between kernels
 - ``ops.kernels``            — one wrapper + plain version per CUDA kernel
 - ``csrc``                   — the CUDA C++ kernels for sm_90a
 - ``format`` / ``golden`` / ``native`` / ``utils`` — format constants, the
-  scalar oracle, the C++ host codec, stats and the liblz4 oracle
+  scalar oracle, the C++ host codec, stats, the liblz4 oracle, and
+  ``utils.logging`` (leveled logging from ``LZ4J_LOG``, a
+  ``torch.profiler`` trace scope)
+- ``config``                 — ``CodecConfig``, the codec's knobs
 """
 
 from . import blocks, routing  # noqa: F401

@@ -64,3 +64,23 @@ def segment_ids(starts: torch.Tensor, valid: torch.Tensor,
     counts.scatter_add_(-1, clipped, valid.to(torch.int64))
     seg = torch.cumsum(counts[..., :n], dim=-1) - 1
     return seg.clamp(min=0)
+
+
+
+# Positions (rows x row width) a batched plain engine takes at a time: the
+# xla encode's int64 temporaries peak near 300 bytes a position (some 2.4
+# GB a batch), its decode's near 170.
+BATCH_POSITIONS = 1 << 23
+
+
+def in_batches(fn, *tensors):
+    """``fn(*tensors)`` on runs of rows of at most ``BATCH_POSITIONS``
+    positions of ``tensors[0]`` (one row at least), its outputs (a tuple
+    of tensors) concatenated along dim 0."""
+    nb, width = tensors[0].shape[:2]
+    rows = max(1, BATCH_POSITIONS // max(1, width))
+    if nb <= rows:
+        return fn(*tensors)
+    parts = [fn(*(t[s:s + rows] for t in tensors))
+             for s in range(0, nb, rows)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))

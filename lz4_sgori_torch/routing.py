@@ -9,9 +9,12 @@ versions), so callers pass ``kernel=True`` for every device.
 
 Every kernel engine runs at every depth its cap allows (the deep modes
 are K8: ``seg``/``seg_big`` at depth 3, ``enc3`` at 3 and 5), and ``seg``
-runs the mlen mode (K10) where the JAX package does. The one engine this
-port does not have yet, ``xla``, raises ``NotImplementedError`` naming
-the ROADMAP item that ports it. Nothing reroutes silently.
+runs the mlen mode (K10) where the JAX package does. ``xla``, the
+portable and exhaustive engine, serves ``impl="xla"`` on any device and
+at every block size, as PyTorch tensor ops. Every engine of the JAX
+table is ported, so ``UNPORTED`` is empty; ``require_ported`` stays the
+one place that would refuse an engine the port lacked, naming its
+ROADMAP item. Nothing reroutes silently.
 """
 
 from __future__ import annotations
@@ -25,9 +28,7 @@ DECODE_IMPLS = ("auto", "xla", "lockstep", "lockstep_v6", "lockstep_v7",
                 "lockstep_v8")
 
 # engine -> ROADMAP item that ports it (Queue 1 / Queue 2 numbering)
-UNPORTED = {
-    "xla": "Queue 1 item 7 (portable and exhaustive encode/decode)",
-}
+UNPORTED: dict[str, str] = {}
 
 
 def seg_for(block_size: int) -> int | None:

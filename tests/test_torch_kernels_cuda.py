@@ -22,8 +22,10 @@ capacity) and the seg_big engine's pieces at 1 and 4 MiB (``-k "k4 or
 k5"``); the gaps' four chains a thread and K10a's shared rows on
 ``chip_smoke``'s hand-made tapes at block sizes 1 to 4 MiB (K9's half
 at 1 and 4 MiB), 70,000 blocks of 16 bytes and tapes off the 16-byte
-grid (``-k "gaps or k10a"``). Marked ``cuda``; each test skips itself
-when no card is present.
+grid (``-k "gaps or k10a"``); and the xla engine (PyTorch tensor ops,
+no kernel of its own) on CUDA tensors against its CPU bytes, its decode
+on the card against K1's (``-k xla``). Marked ``cuda``; each test skips
+itself when no card is present.
 Run on a CUDA machine with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -36,6 +38,8 @@ import torch
 from chip_smoke import (crafted_streams, hand_gaps_tape, hand_mcode_case,
                         k5_stage, make_mutants)
 from lz4_sgori_torch.ops import seg as S
+from lz4_sgori_torch.ops.decode import decompress_blocks_device
+from lz4_sgori_torch.ops.encode import compress_blocks_device
 from lz4_sgori_torch.ops.kernels import asm_seg as K4
 from lz4_sgori_torch.ops.kernels import cand as K2
 from lz4_sgori_torch.ops.kernels import cand_piecewise as K9
@@ -1214,3 +1218,30 @@ def test_t9_t15_mains_launch_every_kernel(dev, capsys):
     assert "rows=16384 (+4096 ring): FAIL" in out
     assert "rows=20480" not in out
     assert "the largest scratch that fits" in out and ": OK" in out
+
+
+@pytest.mark.parametrize("bs,depth", [(4096, 5), (65536, 3)])
+def test_xla_engine_card_bytes_equal_cpu(dev, bs, depth):
+    """The xla engine on CUDA tensors (its sort, scans and gathers on the
+    card) writes the bytes it writes on the CPU; ``impl="xla"`` decode on
+    the card equals K1's on those streams, and the blocks come back."""
+    blocks = [b[:bs] for b in _blocks(bs)]
+    raw, rlen = _batch(blocks, bs, dev)
+    comp, clen = compress_blocks_device(raw, rlen, bs, match_depth=depth,
+                                        impl="xla")
+    torch.cuda.synchronize()
+    assert comp.device.type == "cuda"
+    want = compress_blocks_device(raw.cpu(), rlen.cpu(), bs,
+                                  match_depth=depth, impl="xla")
+    assert torch.equal(clen.cpu(), want[1])
+    assert torch.equal(comp.cpu(), want[0])
+    before = K1.launches
+    k1 = K1.decompress_blocks_v7(comp, clen, bs)
+    assert K1.launches == before + 1
+    got = decompress_blocks_device(comp, clen, bs, impl="xla")
+    assert K1.launches == before + 1
+    for a, b in zip(got, k1):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    out, out_len, err = (t.cpu().numpy() for t in got)
+    for j, b in enumerate(blocks):
+        assert not err[j] and out[j, :out_len[j]].tobytes() == b, j

@@ -1,7 +1,8 @@
 """The port's routing table against the JAX package's, on the kernel
 column (the JAX table's TPU column), across the fio block-size envelope;
-the engine the port lacks (xla) raises NotImplementedError instead of
-rerouting, and every depth of the kernel engines and the mlen mode run."""
+every engine is ported (an engine the port lacked would raise
+NotImplementedError instead of rerouting), the xla engine gives JAX's
+bytes, and every depth of the kernel engines and the mlen mode run."""
 
 import numpy as np
 import pytest
@@ -46,16 +47,28 @@ def test_unknown_impls_raise():
         R.select_encode_engine(65536, 1, True, "scalar")
 
 
-@pytest.mark.parametrize("engine", sorted(R.UNPORTED))
-def test_unported_engines_raise(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.require_ported(engine)
-    for ported in ("enc3", "seg", "seg_big", "seg_splice"):
+@pytest.mark.parametrize("engine", ["xla"])
+def test_unported_engines_raise(monkeypatch, engine):
+    """The table of unported engines is empty, and an engine entered in
+    it (here by monkeypatch) is refused with its ROADMAP item."""
+    assert R.UNPORTED == {}
+    for ported in ("xla", "enc3", "seg", "seg_big", "seg_splice", "v6",
+                   "v7", "v8"):
         R.require_ported(ported)
+    monkeypatch.setitem(R.UNPORTED, engine, "Queue 1 item 7")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        R.require_ported(engine)
+    raw = torch.zeros((1, 4096), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compress_blocks_device(raw, torch.tensor([4096]), 4096, impl=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decompress_blocks_device(raw, torch.tensor([1], dtype=torch.int32),
+                                 4096, impl=engine)
 
 
 def test_unported_requests_raise_end_to_end(monkeypatch):
-    """What the port lacks raises: the xla engine (Queue 1 item 7). The
+    """impl="xla" runs the xla engine (Queue 1 item 7): JAX's bytes, and
+    its xla decode equals the routed one (K1). The
     deep modes (K8) route, run and equal golden: seg_big, seg and enc3 at
     depth 3, enc3 at depth 5, and a depth past seg_big's cap warns and
     runs depth 3. LZ4J_ENC_MLEN=1 at depth 1 and 64 KiB runs the mlen
@@ -94,14 +107,26 @@ def test_unported_requests_raise_end_to_end(monkeypatch):
     comp, clen = compress_blocks_device(raw, rl, 65536)
     assert mlen_calls and comp[0, :clen[0]].numpy().tobytes() == \
         golden.compress_dense_seg(block, 4096, 65536, 16)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        compress_blocks_device(raw, rl, 65536, impl="xla")
+    from lz4_sgori_tpu.ops.encode import compress_blocks_device as jax_enc
+    monkeypatch.delenv("LZ4J_ENC_MLEN")
+    comp, clen = compress_blocks_device(raw, rl, 65536, impl="xla")
+    jc, jl = jax_enc(raw.numpy(), rl.numpy(), 65536, impl="xla")
+    assert int(clen[0]) == int(jl[0]) and \
+        comp[0, :clen[0]].numpy().tobytes() == \
+        np.asarray(jc)[0, :int(jl[0])].tobytes()
+    for a, b in zip(decompress_blocks_device(comp, clen, 65536, impl="xla"),
+                    decompress_blocks_device(comp, clen, 65536)):
+        assert torch.equal(a, b)
+    out, out_len, err = decompress_blocks_device(comp, clen, 65536,
+                                                 impl="xla")
+    assert out[0, :out_len[0]].numpy().tobytes() == block
     comp = torch.from_numpy(np.zeros((1, 64), np.uint8))
     clen = torch.tensor([1], dtype=torch.int32)
     out, out_len, err = decompress_blocks_device(comp, clen, 1 << 20)  # v8
     assert not bool(err[0]) and int(out_len[0]) == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        decompress_blocks_device(comp, clen, 65536, impl="xla")
+    for a, b in zip(decompress_blocks_device(comp, clen, 65536, impl="xla"),
+                    decompress_blocks_device(comp, clen, 65536)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("block_size,encode,decode", [
