@@ -8,13 +8,14 @@ kernels, T6 and T7, T9 and T10, T11 and T12 sharing a source each,
 T14a's 15 harness bodies and T14b's 5 tensor-core readings two: 14
 bodies on one SM in ``probe_harness``, ``ohbuild`` and the five
 tensor-core readings on every SM in ``probe_harness_wg``) and
-drives eight paths: two on a
+drives nine paths: two on a
 32 MiB synthetic corpus (``__graft_entry__._synth_corpus``, seed 42,
 held on the card), the big-block path on bench.py's config 6 (128 MiB,
 seed 55, 1 MiB blocks), the deep modes on its config 5 (128 MiB, seed
 1234, 64 KiB blocks), the mlen mode and the retired engines on the 32
 MiB corpus again, the design probes of ``tools/`` at their own shapes
-and seeds, and the xla engine on the 32 MiB corpus.
+and seeds, the xla engine on the 32 MiB corpus, and the block-sharded
+write path on it, over NCCL at world size 1.
 
 The 64 KiB compress -> verify -> decompress path (512 blocks; engines
 seg and v7, kernels K1-K4):
@@ -286,6 +287,24 @@ tensor ops on the card, no kernel of its own), in ``_smoke_xla``:
     (``deep_xla_size_vs_lz4``); encode and decode GB/s from CUDA events
     after a warm-up, and the peak memory a call takes.
 
+The block-sharded write path (``lz4_sgori_torch.parallel``) on
+``torch.distributed``, in ``_smoke_parallel``:
+
+38. a process group of one rank on NCCL (the card's host has one card,
+    and NCCL takes one rank a device) and ``make_mesh()`` on the card;
+    with every counter reset just before, config 1 through
+    ``write_pipeline_sharded`` (compress, decode-verify, the stats'
+    all_reduce), ``decompress_blocks_sharded`` and
+    ``assemble_container_sharded`` (the all_gathers and the ordered
+    pack): K1-K4 launched and no other kernel, comp and comp_len equal to
+    the unsharded ``compress_blocks_device`` byte for byte, every block
+    ok, the stats equal to the host's sums, the blocks decoded back, and
+    the payload equal to the host's concatenation of the rows; then, with
+    CUDA events in turns, the sharded write pipeline, the same on a mesh
+    with no process group (no all_reduce), the unsharded compress and
+    decode-verify, and the assembly, and one call of each under
+    ``torch.profiler`` (device and host time).
+
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
 without it phases 5, 12, 19, 24, 25 and 28 time this tree's kernels
 alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b and K10c in
@@ -377,6 +396,8 @@ XLA_CPU_4K = 16
 XLA_CPU_128K = 1
 XLA_5B_BLOCKS = 16
 XLA_REPS = 2
+# runs of each timing of the sharded write path (phase 38)
+PARALLEL_REPS = 20
 RETIRED_SUBSET = 8          # 64 KiB blocks of check 29 (and SUBSET4 at 4 KiB)
 RETIRED_ACC = 8
 RETIRED_MUTANTS = (248, 1024)   # at 64 KiB and at 4 KiB
@@ -1428,7 +1449,8 @@ def _smoke(torch, start: float) -> int:
     rp = _smoke_probes(torch, card, time_ms, graph_ms, maxdiff, mods)
     _smoke_xla(torch, data, raw, rlen, (mc, ml, mo, mlen, merr), card,
                time_ms, mods)
-    parts = (r4, rb, rd, rm, rr, rp)
+    rs = _smoke_parallel(torch, raw, rlen, card, time_ms, mods)
+    parts = (r4, rb, rd, rm, rr, rp, rs)
     errs = {"decode_v7": err1, "cand": max(err2, r4["errs"]["cand"]),
             "parse_seg": err3, "asm_seg": err4}
     for r in parts:
@@ -3930,6 +3952,115 @@ def _smoke_xla(torch, data: bytes, raw, rlen, mutants, card: str, time_ms,
           f"{ops['host_ms']:.3f} ms, {ops['launches']} launches; by device "
           "time: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ops["top"]))
     print(f"phase xla: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def _smoke_parallel(torch, raw, rlen, card: str, time_ms, mods) -> dict:
+    """Phase 38: the block-sharded write path on NCCL at world size 1.
+    ``raw``, ``rlen``: config 1's corpus on the card. Returns the phase's
+    launch counts (``counts``), as the other paths do."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from lz4_sgori_torch import format as F
+    from lz4_sgori_torch.ops.decode import decompress_blocks_device
+    from lz4_sgori_torch.ops.encode import compress_blocks_device
+    from lz4_sgori_torch.parallel import (decompress_blocks_sharded,
+                                          make_mesh, stats_totals,
+                                          write_pipeline_sharded)
+    from lz4_sgori_torch.parallel.dist import (assemble_container_sharded,
+                                               shard_rows)
+
+    nb = raw.shape[0]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        # ---- phase 38: the sharded path, the counters reset just before
+        t0 = time.perf_counter()
+        mesh = make_mesh()
+        need((mesh.size, mesh.rank, mesh.device.type) == (1, 0, "cuda")
+             and dist.get_backend(mesh.group) == "nccl",
+             f"the mesh is not one rank on the card over NCCL: {mesh}")
+        # the rank's rows (at world 1, the whole batch as a view), each
+        # call's shard passed straight to the next
+        r, rl = shard_rows(raw, mesh), shard_rows(rlen, mesh)
+        for m in mods.values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        comp, clen, ok, stats = write_pipeline_sharded(r, rl, BLOCK, mesh)
+        out, olen, err = decompress_blocks_sharded(comp, clen, BLOCK, mesh)
+        payload, sizes, total = assemble_container_sharded(comp, clen, mesh)
+        torch.cuda.synchronize()
+        counts = {k: m.launches for k, m in mods.items()}
+        check_launches(counts, "sharded", PATH64,
+                       [k for k in mods if k not in PATH64])
+        ucomp, uclen = compress_blocks_device(raw, rlen, BLOCK)
+        need(torch.equal(clen, uclen) and torch.equal(comp, ucomp),
+             "the sharded write pipeline's bytes differ from the unsharded "
+             "compress_blocks_device's")
+        need(bool(ok.all()), f"{int((~ok).sum())} blocks not ok in the "
+                             "sharded write pipeline")
+        want = (nb, 0, int(rlen.sum()), int(uclen.sum()))
+        need(stats_totals(stats) == want,
+             f"sharded stats {stats_totals(stats)} != host sums {want}")
+        pos = torch.arange(BLOCK, device=raw.device)[None, :]
+        same = ((pos >= rlen[:, None]) | (out == raw[:, :BLOCK])).all(dim=1)
+        need(bool((~err & (olen == rlen) & same).all()),
+             "a block of decompress_blocks_sharded differs from its input")
+        ch, lh = ucomp.cpu().numpy(), uclen.cpu().numpy()
+        body = b"".join(ch[j, :lh[j]].tobytes() for j in range(nb))
+        t = int(total)
+        p = payload.cpu().numpy()
+        need(torch.equal(sizes, uclen) and t == len(body)
+             and p[:t].tobytes() == body and not p[t:].any(),
+             "the sharded assembly differs from the host concatenation")
+        print(f"phase sharded: NCCL world 1, config 1 ({nb} blocks of "
+              f"{BLOCK}): write pipeline == unsharded compress byte for "
+              f"byte, {nb} blocks ok, stats == host sums {want}, decode "
+              f"round trip ok, assembly == host concatenation ({t} bytes); "
+              f"launches {counts} ({time.perf_counter() - t0:.1f} s)")
+
+        def unsharded():
+            c, n = compress_blocks_device(raw, rlen, BLOCK)
+            o, on, e = decompress_blocks_device(c, n, BLOCK)
+            s = ((pos >= rlen[:, None]) | (o == raw[:, :BLOCK])).all(dim=1)
+            return ~e & (on == rlen) & s
+
+        # the same rank with no process group: the pipeline without its
+        # all_reduce, which prices the collective
+        solo = dataclasses.replace(mesh, group=None)
+        calls = {
+            "sharded": lambda: write_pipeline_sharded(r, rl, BLOCK, mesh),
+            "no group": lambda: write_pipeline_sharded(r, rl, BLOCK, solo),
+            "unsharded": unsharded,
+            "assembly": lambda: assemble_container_sharded(comp, clen, mesh)}
+        ms = dict(zip(calls, turns(*(lambda f=f: time_ms(f, PARALLEL_REPS)
+                                     for f in calls.values()))))
+        mb = nb * BLOCK / 1e6
+        print(f"[{card}] sharded write pipeline (NCCL, world 1) over config "
+              f"1 ({nb} blocks of {BLOCK}, CUDA events, {PARALLEL_REPS} "
+              f"runs, twice in turns): {ms['sharded']:.3f} ms "
+              f"({mb / ms['sharded']:.4f} GB/s); with no process group (no "
+              f"all_reduce) {ms['no group']:.3f} ms; unsharded compress + "
+              f"decode-verify {ms['unsharded']:.3f} ms "
+              f"({mb / ms['unsharded']:.4f} GB/s), sharded/unsharded "
+              f"{ms['sharded'] / ms['unsharded']:.4f}; "
+              f"assemble_container_sharded {ms['assembly']:.3f} ms "
+              f"({nb * (F.compress_bound(BLOCK) + 8)} bytes of payload "
+              f"capacity)")
+        for k, fn in calls.items():
+            ops = profile_ops(torch, fn, top=4)
+            print(f"[{card}] {k}, one call under torch.profiler: device "
+                  f"{ops['device_ms']:.3f} ms, host {ops['host_ms']:.3f} "
+                  f"ms, {ops['launches']} launches; by device time: "
+                  + ", ".join(f"{n} {v:.3f} ms" for n, v in ops["top"]))
+    finally:
+        dist.destroy_process_group()
+    return {"counts": counts, "errs": {}, "sub_times": {}}
 
 
 def profile_ops(torch, fn, top: int = 6) -> dict:

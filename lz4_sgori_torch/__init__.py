@@ -9,6 +9,9 @@ names.
 Layer map (top-down):
 
 - ``cli`` / ``store``        — the lz4j CLI, ProxyStore and CompressedStore
+- ``parallel``               — block-sharded encode, decode, write pipeline
+  (verify and all-reduced stats) and ordered assembly over the ranks of a
+  ``torch.distributed`` process group; not imported with the package
 - ``blocks``                 — framing, write verify, container
 - ``routing``                — the engine table (kernel column)
 - ``ops.encode`` / ``ops.decode`` — batched device encode and decode; the

@@ -24,7 +24,9 @@ k5"``); the gaps' four chains a thread and K10a's shared rows on
 at 1 and 4 MiB), 70,000 blocks of 16 bytes and tapes off the 16-byte
 grid (``-k "gaps or k10a"``); and the xla engine (PyTorch tensor ops,
 no kernel of its own) on CUDA tensors against its CPU bytes, its decode
-on the card against K1's (``-k xla``). Marked ``cuda``; each test skips
+on the card against K1's (``-k xla``); and ``parallel``'s write pipeline
+and assembly on a process group of one rank over NCCL against the
+unsharded port (``-k parallel``). Marked ``cuda``; each test skips
 itself when no card is present.
 Run on a CUDA machine with
 
@@ -1245,3 +1247,46 @@ def test_xla_engine_card_bytes_equal_cpu(dev, bs, depth):
     out, out_len, err = (t.cpu().numpy() for t in got)
     for j, b in enumerate(blocks):
         assert not err[j] and out[j, :out_len[j]].tobytes() == b, j
+
+
+@pytest.mark.parametrize("bs", [4096, 65536])
+def test_parallel_nccl_world_one(dev, bs):
+    """A process group of one rank on NCCL (one card, one rank): the
+    sharded write pipeline's bytes are the unsharded port's, every block
+    is ok, the all-reduced stats are the host's sums, and the assembly
+    (all_gathers, ordered pack) is the host's concatenation of the rows."""
+    import socket
+
+    import torch.distributed as dist
+
+    from lz4_sgori_torch.parallel import (make_mesh, stats_totals,
+                                          write_pipeline_sharded)
+    from lz4_sgori_torch.parallel.dist import (assemble_container_sharded,
+                                               shard_rows)
+
+    blocks = [b[:bs] for b in _blocks(bs)] * 4
+    raw, rlen = _batch(blocks, bs, dev)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert (mesh.size, mesh.rank, mesh.device.type) == (1, 0, "cuda")
+        comp, clen, ok, stats = write_pipeline_sharded(
+            shard_rows(raw, mesh), shard_rows(rlen, mesh), bs, mesh)
+        payload, sizes, total = assemble_container_sharded(comp, clen, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    want, wlen = compress_blocks_device(raw, rlen, bs)
+    assert torch.equal(clen, wlen) and torch.equal(comp, want)
+    assert bool(ok.all())
+    assert stats_totals(stats) == (len(blocks), 0, int(rlen.sum()),
+                                   int(wlen.sum()))
+    ch, lh = want.cpu().numpy(), wlen.cpu().numpy()
+    body = b"".join(ch[j, :lh[j]].tobytes() for j in range(len(blocks)))
+    p = payload.cpu().numpy()
+    assert torch.equal(sizes, wlen) and int(total) == len(body)
+    assert p[:len(body)].tobytes() == body and not p[len(body):].any()
