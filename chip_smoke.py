@@ -192,7 +192,11 @@ retired_encode, retired_decode and decode_v9) on config 1's corpus cut to
     where present), 16 of each cut equal golden.compress at acceleration
     1 and 8 (and LZ4_compress_fast), and the size is 1.0000x;
 32. times with CUDA events: T1 over each cut, T2 and T3 in turns with K1
-    (64 KiB) and K5 (4 KiB), and each on K1's 32-block subset.
+    (64 KiB) and K5 (4 KiB), and each on K1's 32-block subset; with
+    ``--parent``, T1 over each cut and the subset and T3 at chain 2 and
+    4 over each cut in turns with the parent tree's kernel, whose
+    outputs must equal this tree's; T3's kernel alone on the dealt
+    batch beside its call.
 
 The design probes (``lz4_sgori_torch.probes``: T4 the bitonic column
 sort, T5 per-lane async row copies, T6 pass-1 get / put rounds, T7
@@ -306,9 +310,9 @@ The block-sharded write path (``lz4_sgori_torch.parallel``) on
     ``torch.profiler`` (device and host time).
 
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
-without it phases 5, 12, 19, 24, 25 and 28 time this tree's kernels
-alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b and K10c in
-turns with the parent's).
+without it phases 5, 12, 19, 24, 25, 28 and 32 time this tree's kernels
+alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b, K10c, T1
+and T3 in turns with the parent's).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -331,7 +335,7 @@ import numpy as np
 
 DEVICE = "cuda"
 # ``--parent DIR``: a tree of the commit before (``git archive``), whose
-# kernel sources phases 5, 12, 19, 24, 25 and 28 build and time in turns
+# kernel sources phases 5, 12, 19, 24, 25, 28 and 32 build and time in turns
 # with this tree's; None times this tree's kernels alone
 PARENT = None
 _PARENT_LIBS = {}       # the parent tree's builds, by source name
@@ -3214,11 +3218,27 @@ def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
     print(f"phase T1 contract: ok ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 32: times ----
+    old1 = load_parent(T1, "retired_encode")
+    old3 = load_parent(T3, "decode_v9")
     for bs, (_, _, raw, rlen) in cuts.items():
         ref = ("K1", K1.decompress_blocks_v7) if bs == BLOCK else \
             ("K5", K5.decompress_blocks_v6)
-        ms1 = time_ms(lambda: T1.compress_blocks_retired(raw, rlen, bs), 5)
+        ms1 = against_parent(
+            time_ms, T1, old1,
+            lambda: T1.compress_blocks_retired(raw, rlen, bs), 5,
+            f"T1 over the {bs}-byte cut", card)
         comp, clen = enc[bs]
+        for chain in (2, 4):
+            ms3 = against_parent(
+                time_ms, T3, old3,
+                lambda c=chain: T3.decompress_blocks_lockstep_v9(
+                    comp, clen, bs, chain=c), 5,
+                f"T3 chain {chain} over the {bs}-byte cut", card)
+            dc, dl, _ = T3.dealt(comp, clen, chain)
+            msk = time_ms(lambda c=chain: T3.decode_dealt(dc, dl, bs, c), 5)
+            print(f"[{card}] T3 chain {chain} over the {bs}-byte cut: the "
+                  f"kernel alone on the dealt batch {msk:.4f} ms, the deal's "
+                  f"torch ops {ms3 - msk:.4f} ms of the call")
         pairs = {"T2": lambda: T2.decompress_blocks_retired(comp, clen, bs)}
         for chain in (2, 4):
             pairs[f"T3 chain {chain}"] = (
@@ -3239,6 +3259,9 @@ def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
     rs, ls = raw[sub].contiguous(), rlen[sub].contiguous()
     cs, lc = T1.compress_blocks_retired(rs, ls, BLOCK)
     d2 = T2.decompress_blocks_retired(cs, lc, BLOCK)
+    against_parent(time_ms, T1, old1,
+                   lambda: T1.compress_blocks_retired(rs, ls, BLOCK), 10,
+                   f"T1 on {SUBSET} blocks of {BLOCK}", card)
     sub_times = {
         "retired_encode": (
             time_ms(lambda: T1.compress_blocks_retired(rs, ls, BLOCK), 10),

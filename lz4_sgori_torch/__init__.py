@@ -31,5 +31,7 @@ Layer map (top-down):
 from . import blocks, routing  # noqa: F401
 from .blocks import compress, decompress, from_device, to_device  # noqa: F401
 
+__version__ = "0.1.0"
+
 __all__ = ["blocks", "routing", "compress", "decompress", "to_device",
-           "from_device"]
+           "from_device", "__version__"]

@@ -13,8 +13,9 @@ JAX CLI's ``--platform``.
 The default ``verify`` sweep is the fio envelope, 4 KiB-4 MiB; every
 size of it runs on the port's kernels, and ``compress --match-depth 3``
 or ``5`` runs the deep modes, and ``LZ4J_ENC_MLEN=1`` the mlen mode where
-it applies. A request the port does not serve yet (the ``xla`` engine)
-ends with a ``lz4j: error: ... ROADMAP ...`` line and exit code 1.
+it applies. Every engine of the routing table, ``xla`` included, runs
+in the port. A malformed container, a bad size or an I/O fault ends with
+a ``lz4j: error: ...`` line and exit code 1.
 """
 
 from __future__ import annotations
@@ -174,8 +175,9 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except (ValueError, OSError, NotImplementedError) as e:
-        # a clean error surface (malformed container, bad sizes, io, an
-        # engine not ported yet); unexpected exceptions still traceback
+        # a clean error surface (malformed container, bad sizes, io, a
+        # request the routing refuses); unexpected exceptions still
+        # traceback
         print(f"lz4j: error: {e}", file=sys.stderr)
         return 1
 

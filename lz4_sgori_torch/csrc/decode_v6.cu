@@ -24,7 +24,7 @@
 // batch. Config 3's 8192 blocks of 4 KiB fill the 132 SMs' CTA places in
 // some 8 waves, each SM's walks sharing its issue slots; a lone block
 // (a 4 KiB write's verify) is one walk. The first design (a warp a block
-// through global memory, lz4_decode.cuh's loop) ran some 900 cycles a
+// through global memory) ran some 900 cycles a
 // sequence and hid it only behind 64 warps an SM.
 
 #include "lz4_decode_ring.cuh"

@@ -21,7 +21,7 @@
 // 264 CTA places in two waves, so the time is about two blocks' walks on
 // an SM that two walks share, bound by the walk's instructions and the
 // block count, not by bandwidth. The first design (a warp a block, four a
-// CTA, lz4_decode.cuh's loop through global memory) ran some 900 cycles a
+// CTA, a warp loop through global memory) ran some 900 cycles a
 // sequence.
 
 #include "lz4_decode_ring.cuh"

@@ -17,7 +17,7 @@
 //
 // What bounds it on the H100: one walk a block, a warp alone on its SM,
 // each sequence a chain of dependent steps (token, LSIC, offset, the
-// match's source). The warp loop (lz4_decode.cuh) ran that chain through
+// match's source). The first design, a warp loop, ran that chain through
 // global memory one sequence at a time, about 900 cycles a sequence on
 // config 6. Here every byte the walk reads is in shared memory (the
 // stream arrives in 8 KiB stages three ahead of the walk, the match

@@ -22,13 +22,13 @@
 //   shared memory would hold 12). K5's blocks above 16 KiB take K1's
 //   geometries.
 //
-// Contract: lz4_decode.cuh's (golden.decompress,
+// Contract (golden.decompress,
 // lz4_sgori_tpu/golden.py:194-261): err = 1 exactly when
 // golden.decompress(comp[:clen], out_size) raises, and then out_len = 0
 // and the row is all zero; otherwise out_len is the decoded length and
 // the bytes past it are zero; clen outside [1, slot] is an error. The
-// walk's checks are lz4_decode.cuh's, in its order, and no decision uses
-// a byte of comp at or past clen.
+// walk makes golden's checks in golden's order, and no decision uses a
+// byte of comp at or past clen.
 //
 // The stream. Stream byte i lies at head + i of the 16-byte-aligned run
 // that starts at the row's address rounded down (head = that address mod
@@ -49,7 +49,7 @@
 // waves, kStep = 128 in the general walk, 4 bytes a lane): with an offset
 // d >= S byte i of a step copies from o - d; with d < S from d - (i mod
 // d) bytes before the step's start (the overlap rule src(o) = m - d + (o
-// - m) mod d of lz4_decode.cuh, rebased on each step, so that a match
+// - m) mod d, rebased on each step, so that a match
 // longer than the ring never reads a slot it has overwritten). Either way
 // a step reads only bytes written before it.
 // K6: every source lies at most 65,535 bytes back, so 128 KiB holds it
@@ -57,7 +57,7 @@
 // row with 16-byte stores (bytes at the row's unaligned head); no copy
 // writes more than 4 KiB (a batch 16 KiB) between two flush checks. On
 // an error found late, the whole row, the flushed part with it, is
-// zeroed, as lz4_decode.cuh's tail loop does.
+// zeroed.
 // K1 and K5: ohead + o < R + 16 for a region of R bytes (R >= out_size);
 // the few bytes past R wrap onto [0, ohead), which no byte below R uses,
 // so nothing is overwritten and every source is on chip.
@@ -66,7 +66,7 @@
 // some cycles after the last, so a sequence walked one at a time costs
 // hundreds of cycles whatever memory it reads. decode_batch takes up to
 // 32 sequences at once (see there); the general walk (decode_block_ring,
-// lz4_decode.cuh's loop and checks) takes one sequence whenever a batch
+// a sequence at a time) takes one sequence whenever a batch
 // cannot: a length with two LSIC bytes or more, a sequence past the
 // window or the stage after the current one, a terminal or faulty one.
 
@@ -494,7 +494,7 @@ __device__ int decode_batch(Stream<G>& in, Out<G>& out, const uint8_t* tab,
   return count;
 }
 
-// The walk of one block by one warp (lz4_decode.cuh's loop, through the
+// The walk of one block by one warp (a sequence at a time, through the
 // stream ring and the output region). Returns the decoded length, or -1
 // on error.
 template <class G>
@@ -597,72 +597,63 @@ __device__ int decode_block_ring(Stream<G>& in, Out<G>& out,
   return bad ? -1 : op;
 }
 
-// One CTA a block. K6 (RingGeom): warp 0's flushes fill the row, and the
-// CTA zeroes its tail; K1 and K5 (a whole geometry): the CTA writes the
-// whole row from the block held on chip.
+// The stream of a block whose row starts at `row`: its run's stages,
+// none issued yet (see the note at the top).
 template <class G>
-__global__ void __launch_bounds__(G::kThreads, G::kCtas)
-decode_ring_kernel(const uint8_t* __restrict__ comp,
-                   const int* __restrict__ clen, uint8_t* out,
-                   int* __restrict__ out_len, uint8_t* __restrict__ err,
-                   int slot, int out_size) {
-  constexpr int kThreads = G::kThreads, kStages = G::kStages;
-  extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ int s_n;
-  __shared__ int s_cmd[4];
-  const int blk = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  uint8_t* dst = out + (size_t)blk * out_size;
-  uint8_t* tab = smem + G::kTabAt;
-  for (int i = threadIdx.x; i < kTab; i += kThreads)
-    tab[i] = (uint8_t)((i & 31) % max(i >> 5, 1));
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const uint8_t* row = comp + (size_t)blk * slot;
-    const int ilen = clen[blk];
-    Stream<G> in;
-    in.buf = smem + G::kOutRing;
-    in.full = (uint64_t*)(smem + G::kOutRing + G::kCompRing);
-    in.gbase = (const uint8_t*)((uintptr_t)row & ~(uintptr_t)15);
-    in.head = (int)((uintptr_t)row & 15);
-    in.total = ilen > 0 && ilen <= slot ? (in.head + ilen + 15) & ~15 : 0;
-    in.nst = (in.total + G::kStage - 1) >> G::kStageLog;
-    in.cur = 0;
-    if (lane == 0) {
-      for (int s = 0; s < kStages; s++) bar_init(&in.full[s]);
-      bar_init_fence();
-      for (int s = 0; s < min(kStages, in.nst); s++) in.issue(s);
-    }
-    __syncwarp();
-    if (in.nst > 0) bar_wait(&in.full[0], 0);
-    Out<G> o;
-    o.ring = smem;
-    o.gbase = (uint8_t*)((uintptr_t)dst & ~(uintptr_t)15);
-    o.ohead = (int)((uintptr_t)dst & 15);
-    o.fx = o.ohead;
-    const int n = decode_block_ring(in, o, tab, (int2*)(smem + G::kFld),
-                                    (uint16_t*)(smem + G::kNxt), s_cmd, ilen,
-                                    slot, out_size, lane);
-    if (lane == 0) {
-      s_n = n;
-      out_len[blk] = n < 0 ? 0 : n;
-      err[blk] = n < 0 ? 1 : 0;
-      s_cmd[0] = -1;                     // the other warps' last command
-    }
-    named_sync<kThreads>(1);
-  } else {
-    window_helper<G>(smem + G::kOutRing,
-                  (uint64_t*)(smem + G::kOutRing + G::kCompRing),
-                  (int2*)(smem + G::kFld), (uint16_t*)(smem + G::kNxt),
-                  s_cmd);
+__device__ Stream<G> stream_of(uint8_t* smem, const uint8_t* row, int ilen,
+                               int slot) {
+  Stream<G> in;
+  in.buf = smem + G::kOutRing;
+  in.full = (uint64_t*)(smem + G::kOutRing + G::kCompRing);
+  in.gbase = (const uint8_t*)((uintptr_t)row & ~(uintptr_t)15);
+  in.head = (int)((uintptr_t)row & 15);
+  in.total = ilen > 0 && ilen <= slot ? (in.head + ilen + 15) & ~15 : 0;
+  in.nst = (in.total + G::kStage - 1) >> G::kStageLog;
+  in.cur = 0;
+  return in;
+}
+
+// Lane 0: the barriers initialised (once invalidated, when `again`: a
+// CTA's later block, every phase of its last one complete) and the
+// first kStages stages issued.
+template <class G>
+__device__ void start_stream(const Stream<G>& in, bool again) {
+  if (again) {
+    // the walk's reads of the ring (generic proxy) before the bulk copies
+    // that overwrite it (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int s = 0; s < G::kStages; s++)
+      asm volatile("mbarrier.inval.shared::cta.b64 [%0];"
+                   :: "r"(smem_u32(&in.full[s])) : "memory");
   }
-  __syncthreads();
+  for (int s = 0; s < G::kStages; s++) bar_init(&in.full[s]);
+  bar_init_fence();
+  for (int s = 0; s < min(G::kStages, in.nst); s++) in.issue(s);
+}
+
+template <class G>
+__device__ Out<G> out_of(uint8_t* smem, uint8_t* dst) {
+  Out<G> o;
+  o.ring = smem;
+  o.gbase = (uint8_t*)((uintptr_t)dst & ~(uintptr_t)15);
+  o.ohead = (int)((uintptr_t)dst & 15);
+  o.fx = o.ohead;
+  return o;
+}
+
+// The end of a block, by the CTA's threads, once its walk has returned n
+// (-1 on an error). A whole geometry writes the whole row from the block
+// held on chip; K6's ring (its flushes have filled the row) zeroes the
+// row past the decoded bytes.
+template <class G>
+__device__ void write_row(const uint8_t* smem, uint8_t* dst, int n,
+                          int out_size) {
+  constexpr int kThreads = G::kThreads;
   const int head = (int)((uintptr_t)dst & 15);
   if constexpr (G::kWhole) {
     // the row: row byte o is region byte head + o (mod its size) below the
     // decoded length n, zero from n on (all of it on an error, n = -1);
     // the unaligned head and tail a byte a thread, 16-byte stores between
-    const int n = s_n;
     uint8_t* g = dst - head;
     const int xe = head + out_size;
     const int v0 = min((head + 15) & ~15, xe), v1 = max(xe & ~15, v0);
@@ -683,7 +674,7 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
     for (int x = v1 + threadIdx.x; x < xe; x += kThreads) g[x] = at(x);
   } else {
     // zero the row past the decoded bytes (all of it on an error)
-    const int z0 = s_n < 0 ? 0 : s_n;
+    const int z0 = n < 0 ? 0 : n;
     const int v0 = min(z0 + ((16 - ((head + z0) & 15)) & 15), out_size);
     const int v1 = max(v0, ((head + out_size) & ~15) - head);
     for (int o = z0 + threadIdx.x; o < v0; o += kThreads) dst[o] = 0;
@@ -693,29 +684,83 @@ decode_ring_kernel(const uint8_t* __restrict__ comp,
   }
 }
 
+// One CTA a block.
+template <class G>
+__global__ void __launch_bounds__(G::kThreads, G::kCtas)
+decode_ring_kernel(const uint8_t* __restrict__ comp,
+                   const int* __restrict__ clen, uint8_t* out,
+                   int* __restrict__ out_len, uint8_t* __restrict__ err,
+                   int slot, int out_size) {
+  constexpr int kThreads = G::kThreads;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int s_n;
+  __shared__ int s_cmd[4];
+  const int blk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  uint8_t* dst = out + (size_t)blk * out_size;
+  uint8_t* tab = smem + G::kTabAt;
+  for (int i = threadIdx.x; i < kTab; i += kThreads)
+    tab[i] = (uint8_t)((i & 31) % max(i >> 5, 1));
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int ilen = clen[blk];
+    Stream<G> in = stream_of<G>(smem, comp + (size_t)blk * slot, ilen, slot);
+    if (lane == 0) start_stream(in, false);
+    __syncwarp();
+    if (in.nst > 0) bar_wait(&in.full[0], 0);
+    Out<G> o = out_of<G>(smem, dst);
+    const int n = decode_block_ring(in, o, tab, (int2*)(smem + G::kFld),
+                                    (uint16_t*)(smem + G::kNxt), s_cmd, ilen,
+                                    slot, out_size, lane);
+    if (lane == 0) {
+      s_n = n;
+      out_len[blk] = n < 0 ? 0 : n;
+      err[blk] = n < 0 ? 1 : 0;
+      s_cmd[0] = -1;                     // the other warps' last command
+    }
+    named_sync<kThreads>(1);
+  } else {
+    window_helper<G>(smem + G::kOutRing,
+                  (uint64_t*)(smem + G::kOutRing + G::kCompRing),
+                  (int2*)(smem + G::kFld), (uint16_t*)(smem + G::kNxt),
+                  s_cmd);
+  }
+  __syncthreads();
+  write_row<G>(smem, dst, s_n, out_size);
+}
+
 }  // namespace ring
+
+// Size `kernel`'s dynamic shared memory to G's, once (a whole geometry
+// also asks for the largest carveout). Internal linkage, so that `sized`
+// is this library's own beside another build of this header in the same
+// process.
+template <class G, class Kernel>
+static cudaError_t size_ring_kernel(Kernel kernel) {
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e == cudaSuccess && G::kWhole)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  return cudaSuccess;
+}
 
 // One CTA a block in geometry G (a whole geometry needs out_size at most
 // its region). A shared-memory size the card refuses is returned as the
-// launch's error. Internal linkage, so that `sized` is this library's own
-// beside another build of this header in the same process.
+// launch's error.
 template <class G>
 static int launch_decode_ring(const void* comp, const void* clen, void* out,
                               void* out_len, void* err, int nb, int slot,
                               int out_size, void* stream) {
   if (G::kWhole && out_size > G::kOutRing) return (int)cudaErrorInvalidValue;
-  static bool sized = false;
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ring::decode_ring_kernel<G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-    if (e == cudaSuccess && G::kWhole)
-      e = cudaFuncSetAttribute(ring::decode_ring_kernel<G>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e = size_ring_kernel<G>(ring::decode_ring_kernel<G>);
+  if (e != cudaSuccess) return (int)e;
   if (nb > 0)
     ring::decode_ring_kernel<G><<<nb, G::kThreads, G::kSmem,
                                   (cudaStream_t)stream>>>(

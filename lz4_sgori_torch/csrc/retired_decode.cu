@@ -19,7 +19,7 @@
 // A sequence whose literals end at clen ends the block; clen == 0 and a
 // walk that ends without that sequence are errors.
 //
-// What bounds it on the H100: as T3 (lz4_decode.cuh), a serial chain of
+// What bounds it on the H100: a serial chain of
 // dependent byte loads per block, so a block is latency-bound and the
 // kernel is bound by the warps in flight. The walk is uniform across the
 // warp (broadcast loads); the lanes split the literal and match copies,

@@ -9,8 +9,9 @@ the 132-256 KiB band.
 
 v6 computes the same function as v7: on the TPU only the staging
 geometry differs (``lockstep_v6.py:1-25``). So the CUDA source runs K1's
-one-warp-per-block loop (``csrc/lz4_decode.cuh``) from its own library,
-with its own launch counter, and the plain version is K1's
+walk (``csrc/lz4_decode_ring.cuh``) in geometries sized to the block,
+from its own library, with its own launch counter, and the plain version
+is K1's
 (``lockstep_v7.decompress_blocks_plain``). The return contract is K1's:
 ``(out uint8 [B, out_size], out_len int32 [B], err bool [B])``, ``err``
 exactly when ``golden.decompress`` raises.

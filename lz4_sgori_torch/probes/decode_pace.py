@@ -153,9 +153,9 @@ PROFILE = {
          "    if (!bad) out.flush_to(out.ohead + op, lane);\n"
          "  acc[5] += clk(op) - tf;"),
         ("                   int slot, int out_size) {\n  constexpr int "
-         "kThreads = G::kThreads, kStages = G::kStages;",
+         "kThreads = G::kThreads;",
          "                   int slot, int out_size, long long* prof) {\n"
-         "  constexpr int kThreads = G::kThreads, kStages = G::kStages;"),
+         "  constexpr int kThreads = G::kThreads;"),
         ("    const int n = decode_block_ring(in, o, tab, (int2*)(smem + "
          "G::kFld),\n                                    (uint16_t*)(smem + "
          "G::kNxt), s_cmd, ilen,\n                                    slot, "
@@ -168,14 +168,11 @@ PROFILE = {
          "out_size, lane, acc);\n    acc[7] = clk(n) - tw;\n"
          "    if (lane == 0)\n      for (int i = 0; i < 12; i++)\n"
          "        if (i != 6) prof[(size_t)blk * 12 + i] = acc[i];"),
-        ("  __syncthreads();\n  const int head = (int)((uintptr_t)dst & 15);",
+        ("  __syncthreads();\n  write_row<G>(smem, dst, s_n, out_size);\n}",
          "  __syncthreads();\n  const long long te = clk(s_n);\n"
-         "  const int head = (int)((uintptr_t)dst & 15);"),
-        ("    for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) "
-         "dst[o] = 0;\n  }\n}",
-         "    for (int o = v1 + threadIdx.x; o < out_size; o += kThreads) "
-         "dst[o] = 0;\n  }\n  __syncthreads();\n  if (threadIdx.x == 0) "
-         "prof[(size_t)blk * 12 + 6] = clk(te) - te;\n}"),
+         "  write_row<G>(smem, dst, s_n, out_size);\n  __syncthreads();\n"
+         "  if (threadIdx.x == 0) prof[(size_t)blk * 12 + 6] = clk(te) - te;"
+         "\n}"),
         ("                              int out_size, void* stream) {\n"
          "  if (G::kWhole && out_size > G::kOutRing)",
          "                              int out_size, void* prof, "

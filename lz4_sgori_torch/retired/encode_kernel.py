@@ -25,6 +25,7 @@ from ..ops.kernels import _build
 from ..ops.kernels.cand import check_cand_args
 
 launches = 0
+ENTRIES = {"lz4t_retired_encode": "ppppiiiip"}   # the C entry's signature
 # LZ4_compress_fast's ceiling. Any acceleration above 65,536 gives a step
 # that passes the end of a 64 KiB block after the first probe, so the
 # clamp changes no byte.
@@ -33,7 +34,7 @@ MAX_ACCELERATION = 65537
 
 def load_kernel():
     """Build (once) and load csrc/retired_encode.cu."""
-    return _build.load("retired_encode", {"lz4t_retired_encode": "ppppiiiip"})
+    return _build.load("retired_encode", ENTRIES)
 
 
 def compress_blocks_retired(raw: torch.Tensor, raw_len: torch.Tensor,

@@ -2,9 +2,10 @@
 version.
 
 ``decompress_blocks_lockstep_v9`` deals the blocks into chains of
-``chain`` (torch ops), decodes them with ``csrc/decode_v9.cu`` (the port
-of ``tools/retired/lockstep_v9.py:_kernel``: one warp a chain, the warp
-walk of ``csrc/lz4_decode.cuh`` for each block in turn), and undoes the
+``chain`` (torch ops, ``dealt``), decodes them with ``csrc/decode_v9.cu``
+(``decode_dealt``; the port of ``tools/retired/lockstep_v9.py:_kernel``:
+one CTA a chain, K1's walk of ``csrc/lz4_decode_ring.cuh`` for each block
+in turn, in K5's and K1's geometry for ``out_size``), and undoes the
 deal, for a CUDA tensor; for a CPU tensor it runs
 ``decompress_blocks_lockstep_v9_plain``, which decodes the dealt rows
 with K1's plain decoder.
@@ -29,11 +30,12 @@ from ..ops.kernels.lockstep_v7 import (check_decode_args,
                                       decompress_blocks_plain)
 
 launches = 0
+ENTRIES = {"lz4t_decode_v9": "pppppiiiip"}   # the C entry's signature
 
 
 def load_kernel():
     """Build (once) and load csrc/decode_v9.cu."""
-    return _build.load("decode_v9", {"lz4t_decode_v9": "pppppiiiip"})
+    return _build.load("decode_v9", ENTRIES)
 
 
 def deal(comp_len: torch.Tensor, chain: int, sort: bool = True,
@@ -61,8 +63,8 @@ def deal(comp_len: torch.Tensor, chain: int, sort: bool = True,
     return flat, torch.argsort(flat)
 
 
-def _dealt(comp: torch.Tensor, comp_len: torch.Tensor, chain: int,
-           sort: bool, sort_key: torch.Tensor | None):
+def dealt(comp: torch.Tensor, comp_len: torch.Tensor, chain: int,
+          sort: bool = True, sort_key: torch.Tensor | None = None):
     """The dealt batch (padded with empty blocks) and the rows of the
     dealt results that hold blocks 0 to B - 1."""
     nb, slot = comp.shape
@@ -77,8 +79,7 @@ def decompress_blocks_lockstep_v9(comp: torch.Tensor, comp_len: torch.Tensor,
                                   out_size: int, chain: int = 4,
                                   sort: bool = True,
                                   sort_key: torch.Tensor | None = None):
-    """Decode a batch of LZ4 blocks, ``chain`` blocks per warp (T3)."""
-    global launches
+    """Decode a batch of LZ4 blocks, ``chain`` blocks a CTA (T3)."""
     check_decode_args(comp, comp_len, out_size)
     if out_size % F.V9_OUT_ALIGN:
         raise ValueError("chained decode needs out_size aligned to the "
@@ -94,8 +95,21 @@ def decompress_blocks_lockstep_v9(comp: torch.Tensor, comp_len: torch.Tensor,
     if comp.device.type == "cpu":
         return decompress_blocks_lockstep_v9_plain(comp, comp_len, out_size,
                                                    chain, sort, sort_key)
+    load_kernel()               # a failed build raises before the deal runs
+    comp, comp_len, keep = dealt(comp, comp_len, chain, sort, sort_key)
+    out, out_len, err = decode_dealt(comp, comp_len, out_size, chain)
+    return out[keep], out_len[keep], err[keep]
+
+
+def decode_dealt(comp: torch.Tensor, comp_len: torch.Tensor, out_size: int,
+                 chain: int):
+    """The kernel alone on a dealt batch (``dealt``: rows c * chain to c *
+    chain + chain - 1 are chain c): the results in the dealt rows' order.
+    A CPU batch runs K1's plain decoder."""
+    global launches
+    if comp.device.type == "cpu":
+        return decompress_blocks_plain(comp, comp_len, out_size)
     lib = load_kernel()
-    comp, comp_len, keep = _dealt(comp, comp_len, chain, sort, sort_key)
     rows, slot = comp.shape
     out = torch.empty((rows, out_size), dtype=torch.uint8, device=comp.device)
     out_len = torch.empty(rows, dtype=torch.int32, device=comp.device)
@@ -105,7 +119,7 @@ def decompress_blocks_lockstep_v9(comp: torch.Tensor, comp_len: torch.Tensor,
         out_len.data_ptr(), err.data_ptr(), rows // chain, chain, slot,
         out_size, _build.stream(comp.device)), "decode_v9")
     launches += 1
-    return out[keep], out_len[keep], err[keep]
+    return out, out_len, err
 
 
 def decompress_blocks_lockstep_v9_plain(comp: torch.Tensor,
@@ -114,6 +128,6 @@ def decompress_blocks_lockstep_v9_plain(comp: torch.Tensor,
                                         sort_key: torch.Tensor | None = None):
     """Plain version (on the input's device): the deal, K1's plain
     decoder over the dealt rows, then the inverse permutation."""
-    comp, comp_len, keep = _dealt(comp, comp_len, chain, sort, sort_key)
-    out, out_len, err = decompress_blocks_plain(comp, comp_len, out_size)
+    comp, comp_len, keep = dealt(comp, comp_len, chain, sort, sort_key)
+    out, out_len, err = decode_dealt(comp, comp_len, out_size, chain)
     return out[keep], out_len[keep], err[keep]

@@ -143,7 +143,9 @@ class CompressedStore:
         with open(path, "rb") as f:
             container = f.read()
         data = B.decompress(container, stats=self.stats, device=self.device)
-        return data + bytes(self.chunk_size - len(data))
+        if len(data) < self.chunk_size:
+            data = data + bytes(self.chunk_size - len(data))
+        return data
 
     def close(self) -> None:
         pass

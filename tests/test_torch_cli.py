@@ -35,6 +35,16 @@ def test_verify_sweep(tmp_path, fixtures, capsys):
         assert f"bs={kib}k: ok" in out
 
 
+def test_docstring_says_every_engine_runs():
+    """The module's own account of what it serves is true: the routing
+    table leaves nothing unported (the xla engine included), and the
+    docstring no longer sends an xla request to the ROADMAP."""
+    from lz4_sgori_torch import routing
+    assert not routing.UNPORTED
+    assert "ROADMAP" not in cli.__doc__
+    assert "``xla`` included" in " ".join(cli.__doc__.split())
+
+
 def test_verify_unported_size_is_a_clean_error(tmp_path, fixtures, capsys,
                                                monkeypatch):
     """Every fio size, depth and mode is ported: LZ4J_ENC_MLEN=1 at

@@ -917,6 +917,42 @@ def test_t1_retired_encode(dev, bs, acc):
                 b, acc), j
 
 
+@pytest.mark.parametrize("bs,acc", [(16384, 1), (16384, 8), (16384, 65537),
+                                    (65536, 1), (4096, 8)])
+def test_t1_search_rows(dev, bs, acc):
+    """T1 on the CPU search model's rows (``test_torch_retired_search``:
+    random, text, zeros, short periods, hash4 collisions within a round)
+    cut to 13, 14, 31, 4096 and 16384 bytes (at 64 KiB: the kinds at
+    full length), random bytes past raw_len, the rows 3 bytes off the
+    16-byte grid: equal to its plain version and to LZ4_compress_fast."""
+    from test_torch_retired_search import LENGTHS, _rows
+    kinds = _rows(7, n=bs).values()
+    lens = [bs] if bs == 65536 else [n for n in LENGTHS if n <= bs]
+    blocks = [r[:n] for r in kinds for n in lens]
+    raw_np, rlen_np = (t.numpy() for t in _batch(blocks, bs, "cpu"))
+    rng = np.random.default_rng(acc)
+    noise = rng.integers(0, 256, raw_np.shape, dtype=np.uint8)
+    raw_np = np.where(np.arange(bs)[None, :] < rlen_np[:, None], raw_np,
+                      noise)
+    flat = torch.zeros(raw_np.size + 16, dtype=torch.uint8, device=dev)
+    raw = flat[3:3 + raw_np.size].view(raw_np.shape)     # head 3
+    raw.copy_(torch.from_numpy(raw_np))
+    rlen = torch.from_numpy(rlen_np).to(dev)
+    assert raw.data_ptr() % 16 == 3
+    T1.launches = 0
+    got = T1.compress_blocks_retired(raw, rlen, bs, acc)
+    want = T1.compress_blocks_retired_plain(raw.cpu(), rlen.cpu(), bs, acc)
+    torch.cuda.synchronize()
+    assert T1.launches == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    if oracle.available():
+        comp, clen = got[0].cpu().numpy(), got[1].cpu().numpy()
+        for j, b in enumerate(blocks):
+            assert comp[j, :clen[j]].tobytes() == oracle.compress_fast(
+                b, acc), j
+
+
 def _retired_payloads(bs, seed, dev):
     bases = [golden.compress(b[:bs]) for b in _blocks(bs)]
     rng = np.random.default_rng(seed)
@@ -951,24 +987,30 @@ def test_t2_retired_decode_and_mutants(dev, bs):
     assert bool(got[0][got[2]].any())
 
 
-@pytest.mark.parametrize("chain", [1, 2, 4])
-def test_t3_chained_decode(dev, chain):
-    """T3 against its plain version and K1 on the card, with and without
-    the sort and under a sort key."""
-    _, ct, lt = _retired_payloads(65536, 92, dev)
-    want = K1.decompress_blocks_v7(ct, lt, 65536)
+@pytest.mark.parametrize("bs", [4096, 8192, 65536, 131072])
+@pytest.mark.parametrize("chain", [1, 2, 3, 4])
+def test_t3_chained_decode(dev, chain, bs):
+    """T3 against K1 on the card, whole rows (error rows all zero), with
+    and without the sort and under a sort key, on valid streams and
+    mutants with random bytes past comp_len, in each geometry of the
+    walk (K5's at 4 and 8 KiB, K1's at 64 KiB, K6's ring at 128 KiB);
+    with the sort also against its plain version."""
+    _, ct, lt = _retired_payloads(bs, 92, dev)
+    want = K1.decompress_blocks_v7(ct, lt, bs)
     keys = torch.randint(0, 100, lt.shape, dtype=torch.int32, device=dev)
     for sort, key in ((True, None), (False, None), (True, keys)):
         T3.launches = 0
-        got = T3.decompress_blocks_lockstep_v9(ct, lt, 65536, chain=chain,
+        got = T3.decompress_blocks_lockstep_v9(ct, lt, bs, chain=chain,
                                                sort=sort, sort_key=key)
-        plain = T3.decompress_blocks_lockstep_v9(
-            ct.cpu(), lt.cpu(), 65536, chain=chain, sort=sort,
-            sort_key=None if key is None else key.cpu())
         torch.cuda.synchronize()
         assert T3.launches == 1
-        for a, b, c in zip(got, want, plain):
-            assert torch.equal(a, b) and torch.equal(a.cpu(), c), sort
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), sort
+    plain = T3.decompress_blocks_lockstep_v9(ct.cpu(), lt.cpu(), bs,
+                                             chain=chain)
+    for a, b in zip(want, plain):
+        assert torch.equal(a.cpu(), b)
+    assert bool(want[2].any()) and not bool(want[0][want[2]].any())
 
 
 @pytest.mark.parametrize("logn", [1, 4, 10, 12, 13, 16, 17])

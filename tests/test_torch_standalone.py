@@ -102,6 +102,23 @@ def test_every_port_module_imports_with_jax_blocked():
 PORT_ONLY = ("RETIRED_MAX_BLOCK", "V9_OUT_ALIGN")
 
 
+def test_import_surface_matches_the_jax_package():
+    """The names JAX's callers import from the package and its ``ops``
+    exist in the port: ``__version__`` (the same string, the port's own)
+    and the batch codecs re-exported by ``ops``."""
+    import lz4_sgori_tpu
+    import lz4_sgori_tpu.ops as JOPS
+
+    import lz4_sgori_torch.ops as TOPS
+    from lz4_sgori_torch.ops import decode, encode
+    assert lz4_sgori_torch.__version__ == lz4_sgori_tpu.__version__ == "0.1.0"
+    assert "__version__" in lz4_sgori_torch.__all__
+    assert TOPS.compress_blocks_device is encode.compress_blocks_device
+    assert TOPS.decompress_blocks_device is decode.decompress_blocks_device
+    for name in ("compress_blocks_device", "decompress_blocks_device"):
+        assert hasattr(JOPS, name) and hasattr(TOPS, name)
+
+
 def test_format_copy_equals_the_jax_package(monkeypatch):
     names = [n for n in dir(JF) if n.isupper()]
     assert names and names == [n for n in dir(TF)

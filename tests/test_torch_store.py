@@ -126,6 +126,19 @@ def test_compressed_store_containers_cross_packages(tmp_path, fixtures):
     assert port.read_chunk(1) == fixtures["structured"][:3000] + bytes(1096)
 
 
+def test_compressed_store_pads_only_a_short_chunk(tmp_path, fixtures):
+    """A chunk written at 16 KiB and read back through a store reopened
+    at 4 KiB comes back whole, as the JAX store returns it: the port pads
+    only a chunk shorter than chunk_size."""
+    root = str(tmp_path / "cstore")
+    data = (fixtures["text_small"] * 8)[:16384]
+    S.CompressedStore(root, chunk_size=16384, device="cpu").write_chunk(
+        0, data)
+    want = JS.CompressedStore(root, chunk_size=4096).read_chunk(0)
+    got = S.CompressedStore(root, chunk_size=4096, device="cpu").read_chunk(0)
+    assert got == want == data
+
+
 def test_cuda_store_without_cuda_raises(backing, monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
