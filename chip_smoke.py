@@ -244,8 +244,13 @@ tools' shapes and seeds, in ``_smoke_probes``:
     T14a's fewest lane operations, T14b's tensor FLOPs) over the card's
     SMs x ``Body.rate`` (128 lanes; 4096 dense bf16 or 2048 TF32 FLOP) x
     its maximum SM clock; each T14 body no faster than that figure on
-    the SMs it uses (one; every SM for ``probe_harness_wg``'s); each
-    row that one PyTorch call computes in turns with that call on its
+    the SMs it uses (one; every SM for ``probe_harness_wg``'s); T9's and
+    T10's kernel times are device times (CUDA graphs of the calls), the
+    eager beside them; T9 and T10 at R 1024 and 16384 at the tool's two
+    counts, ms a call against the bound and ns a round by differencing
+    the counts (``per_iter`` and device times), in turns with the parent
+    tree's kernel when ``--parent`` names one (its outputs equal first);
+    each row that one PyTorch call computes in turns with that call on its
     operands, precomputed, on the whole card (T14b: ``torch.mm`` of one
     iteration's product, float32 result; T14a's twelve:
     ``microbench2.library_call``, ``torch.eq`` for ``ohbuild``,
@@ -254,7 +259,9 @@ tools' shapes and seeds, in ``_smoke_probes``:
     conversion; T5, T9 and T10, whose rounds do not depend on one
     another: round 0's ``torch.gather`` or ``index_put_``,
     ``dma_probe.library_call`` and ``microbench3.library_call``, against
-    the kernel's time a round by differencing two round counts), each
+    the kernel's time a round by differencing two round counts: T9's and
+    T10's calls' device times from CUDA graphs, their calls being
+    shorter than their dispatch, T5's eager calls), each
     call timed two ways: its device time, ``LIBRARY_CALLS`` calls
     captured into a CUDA graph and replayed (``graph_ms``, a measuring
     instrument here only; a call that cannot be captured fails the
@@ -310,9 +317,9 @@ The block-sharded write path (``lz4_sgori_torch.parallel``) on
     ``torch.profiler`` (device and host time).
 
 ``--parent DIR`` names a tree of an earlier commit (``git archive``);
-without it phases 5, 12, 19, 24, 25, 28 and 32 time this tree's kernels
-alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b, K10c, T1
-and T3 in turns with the parent's).
+without it phases 5, 12, 19, 24, 25, 28, 32 and 35 time this tree's
+kernels alone (with it K1-K7, K9, K8-seg, K8-enc3, gaps, mcode, K10b,
+K10c, T1, T3, T9 and T10 in turns with the parent's).
 
 Any failure exits non-zero with no result line. It needs a CUDA card
 and the repository beside it; it imports nothing of JAX or of the JAX
@@ -335,8 +342,8 @@ import numpy as np
 
 DEVICE = "cuda"
 # ``--parent DIR``: a tree of the commit before (``git archive``), whose
-# kernel sources phases 5, 12, 19, 24, 25, 28 and 32 build and time in turns
-# with this tree's; None times this tree's kernels alone
+# kernel sources phases 5, 12, 19, 24, 25, 28, 32 and 35 build and time in
+# turns with this tree's; None times this tree's kernels alone
 PARENT = None
 _PARENT_LIBS = {}       # the parent tree's builds, by source name
 BLOCK = 65536
@@ -487,6 +494,7 @@ SOURCES = {"probe_rounds": "probe_table", "probe_kget": "probe_table",
 # bodies do many on a few inputs, so theirs is the larger of the bytes'
 # time and their operations' at Body.rate a clock an SM.
 HBM_BYTES_PER_MS = 3.35e9
+LANE_KEYS = ("probe_gather", "probe_scatter")   # T9, T10: device-timed calls
 PATH64 = ("decode_v7", "cand", "parse_seg", "asm_seg")
 PATH4 = ("cand", "parse_enc3", "decode_v6")
 PATHBIG = ("cand_piecewise", "parse_seg", "asm_seg", "decode_v8")
@@ -3284,6 +3292,87 @@ def _smoke_retired(torch, data: bytes, card: str, time_ms, maxdiff,
     return {"errs": errs, "counts": counts, "sub_times": sub_times}
 
 
+def lane_turns(torch, P3, tapes, card: str, time_ms, graph_ms) -> None:
+    """T9 and T10 at R 1024 and 16384, at the tool's two counts
+    (``lane_reps`` and 5x it), each in turns with the parent tree's
+    kernel when ``--parent`` names one, its outputs equal first: ms a call
+    on the card (a CUDA graph of the calls) and eager, beside the byte
+    bound, and ns a round by differencing the counts, both ways:
+    ``per_iter`` (eager calls, the probe's own reading, which a call
+    shorter than its dispatch reads as the host's time) and device times.
+    The parent's kernel gets a zeroed output, which either design takes
+    (the old T10 wrote only the cells its walk visits, the new T9 adds
+    into row 0). ``tapes``: T9's tape by R."""
+    from lz4_sgori_torch.ops.kernels import _build
+    from lz4_sgori_torch.probes import per_iter
+
+    dev = torch.device(DEVICE)
+    lib = load_parent(P3, "probe_lane")
+
+    def parent(name, R, k):
+        if name == "gather":
+            out = torch.zeros((8, P3.L), dtype=torch.int32, device=dev)
+            rc = lib.lz4t_probe_gather(tapes[R].data_ptr(), out.data_ptr(),
+                                       R, k, _build.stream(dev))
+        else:
+            out = torch.zeros((R, P3.L), dtype=torch.int32, device=dev)
+            rc = lib.lz4t_probe_scatter(out.data_ptr(), R, k,
+                                        _build.stream(dev))
+        _build.check(rc, "the parent's probe_lane")
+        return out
+
+    for name, stride, key in (("gather", P3.GATHER_STRIDE, "T9"),
+                              ("scatter", P3.SCATTER_STRIDE, "T10")):
+        for R in (P3.GATHER_R[0], P3.GATHER_R[-1]):
+            def this(k, R=R):
+                return (P3.gather(tapes[R], k) if name == "gather" else
+                        P3.scatter(R, k, DEVICE, whole=True))
+            lo, hi = P3.lane_reps(R), 5 * P3.lane_reps(R)
+            cells = int((P3.last_visit(R, hi, stride, dev) >= 0).sum())
+            nbytes = 4 * cells + (8 * P3.L * 4 if name == "gather" else 0)
+            bound, _ = bound_ms(nbytes)
+            what = (f"{key} at R {R}, {hi} rounds (bound {bound:.6f} ms: "
+                    f"{cells} cells visited once)")
+
+            def readings(fn):
+                """Device ms, eager ms and ns a round of ``fn(k)`` by
+                ``per_iter`` and by device times."""
+                ms = graph_ms(lambda: fn(hi), 10)
+                return (ms, time_ms(lambda: fn(hi), 10),
+                        1e9 * per_iter(fn, lo, hi, dev),
+                        1e6 * (ms - graph_ms(lambda: fn(lo), 10)) / (hi - lo))
+
+            if lib is None:
+                ms, eager, ns, ns_dev = readings(this)
+                print(f"[{card}] {what}: {ms:.4f} ms on the card "
+                      f"({ms / bound:.1f}x the bound), {eager:.4f} eager; "
+                      f"{ns:.4f} ns a round by per_iter, {ns_dev:.4f} by "
+                      f"device times (rounds {lo} and {hi} differenced; no "
+                      "parent tree given)")
+                continue
+            for k in (lo, hi):
+                need(torch.equal(this(k), parent(name, R, k)),
+                     f"{key} at R {R}, {k} rounds: the parent's kernel "
+                     "gives other outputs")
+            # in turns (this, parent, parent, this), each reading averaged
+            def old(k, R=R):
+                return parent(name, R, k)
+
+            got = [readings(this), readings(old), readings(old),
+                   readings(this)]
+            ms, eager, ns, ns_dev = ((x + y) / 2 for x, y in
+                                     zip(got[0], got[3]))
+            ms_old, eager_old, ns_old, ns_dev_old = (
+                (x + y) / 2 for x, y in zip(got[1], got[2]))
+            print(f"[{card}] {what}: {ms:.4f} ms on the card "
+                  f"({ms / bound:.1f}x the bound), the parent's kernel "
+                  f"{ms_old:.4f} ms in turns ({ms_old / ms:.2f}x); eager "
+                  f"{eager:.4f} against {eager_old:.4f}; ns a round by "
+                  f"per_iter {ns:.4f} against the parent's {ns_old:.4f}, by "
+                  f"device times {ns_dev:.4f} against {ns_dev_old:.4f} "
+                  f"(rounds {lo} and {hi} differenced, in turns)")
+
+
 def path_probes(mods) -> tuple[str, ...]:
     """The probe path's kernels: PATHPROBES and T14a's bodies."""
     return PATHPROBES + tuple(k for k in mods if k.startswith(HARNESS))
@@ -3706,12 +3795,18 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
                                         for k, n in used.items()}}
     sub_times = {}
     for key, (fk, fp, nbytes, shape) in calls.items():
-        sub_times[key] = (time_ms(fk, kernel_calls.get(key, 10)),
-                          time_ms(fp, 1), nbytes)
+        # T9's and T10's calls are shorter than their dispatch: the
+        # record takes their device time from a CUDA graph, the eager
+        # time printed beside it
+        eager = time_ms(fk, kernel_calls.get(key, 10))
+        ms = graph_ms(fk, 10) if key in LANE_KEYS else eager
+        sub_times[key] = (ms, time_ms(fp, 1), nbytes)
         bound, by = bound_ms(nbytes, op_bound.get(key, 0.0))
-        print(f"[{card}] {key} at {shape}: kernel {sub_times[key][0]:.4f} ms,"
-              f" plain {sub_times[key][1]:.4f} ms, bound {bound:.6f} ms by "
-              f"{by} ({nbytes} bytes)")
+        print(f"[{card}] {key} at {shape}: kernel {ms:.4f} ms"
+              + (f" device (CUDA graph), {eager:.4f} eager" if key in
+                 LANE_KEYS else "")
+              + f", plain {sub_times[key][1]:.4f} ms, bound {bound:.6f} ms "
+              f"by {by} ({nbytes} bytes)")
     # a body faster than its operations on the SMs it uses would disprove
     # the count
     fast = {k: (sub_times[k][0], v * sms / used[k], used[k])
@@ -3719,6 +3814,7 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
             if sub_times[k][0] < v * sms / used[k]}
     need(not fast, f"T14 bodies faster than their operations on the SMs "
          f"they use (kernel ms, figure ms, SMs): {fast}")
+    lane_turns(torch, P3, lane_tapes, card, time_ms, graph_ms)
     # each row that one PyTorch call computes, in turns with that call on
     # its operands, precomputed, on the whole card (the port never calls
     # it): the call's device time from a CUDA graph of LIBRARY_CALLS calls
@@ -3775,7 +3871,7 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
     # T5, T9 and T10: their rounds do not depend on one another, and one
     # call computes a round (round 0's, dma_probe and microbench3's
     # library_call); the kernel's time a round by differencing two round
-    # counts (per_iter, as their main()s)
+    # counts (round_ms)
     lo9, lo10 = P3.lane_reps(R9), P3.lane_reps(R10)
     out10 = torch.zeros((R10, P3.L), dtype=torch.int32, device=dev)
     rounds = {
@@ -3789,11 +3885,20 @@ def _smoke_probes(torch, card: str, time_ms, graph_ms, maxdiff, mods
                           P3.library_call("scatter", out10),
                           "round 0's 128 writes", n10),
     }
+
+    def round_ms(key, run, lo, hi):
+        """The kernel's ms a round: T9's and T10's calls are shorter than
+        their dispatch, so their device times (CUDA graphs) differenced;
+        T5's eager calls (``per_iter``)."""
+        if key not in LANE_KEYS:
+            return 1e3 * per_iter(run, lo, hi, dev)
+        return (graph_ms(lambda: run(hi), 10)
+                - graph_ms(lambda: run(lo), 10)) / (hi - lo)
+
     for key, (run, (lo, hi), (fn, how), what, n) in rounds.items():
         ker, dev_ms, eager = price(
-            key, lambda run=run, lo=lo, hi=hi: 1e3 * per_iter(run, lo, hi,
-                                                            dev),
-            fn, how, what, n)
+            key, lambda key=key, run=run, lo=lo, hi=hi: round_ms(
+                key, run, lo, hi), fn, how, what, n)
         print(f"[{card}] {key} at {calls[key][3].split(' (')[0]} in turns "
               f"(kernel, graph, eager, eager, graph, kernel): kernel "
               f"{ker * 1e6:.3f} ns a round (rounds {lo} and {hi} "

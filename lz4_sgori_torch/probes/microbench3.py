@@ -37,9 +37,16 @@ Each launches its CUDA kernel on the card (``csrc/probe_lane.cu`` T9 and
 T10, ``probe_step.cu`` T11 and T12, ``probe_smem.cu`` T13; ports of
 ``tools/microbench3.py``'s ``make_gather``, ``make_scatter``,
 ``make_fifo``, ``make_state`` and ``probe_vmem``) and runs its plain
-version on the CPU. The TPU reads and writes a lane's row with a masked
-reduce or where-write over the whole block; the card with one indexed
-load or store.
+version on the CPU. The TPU holds T9's and T10's whole array in VMEM and
+reads and writes a lane's row with a masked reduce or where-write over
+it; the card holds the array in shared memory in row tiles of
+``tile_rows(R)`` rows, one a CTA over every SM, and serves each round with
+one load or store of its own cell there. A thread owns a strip of
+``STRIP_ROWS`` rows of one lane's column and serves every round of that
+lane landing in it, in round order: the walk is back on a row every R
+rounds, so a strip's rounds are its first ``STRIP_ROWS`` plus multiples
+of R. The tile's bytes (T9 loads every row, T10 writes every cell), the
+launch and the issue of two or three instructions a round bound them.
 
 ``library_call`` gives the one PyTorch call that computes a round of T9
 or T10 (the rounds' rows do not depend on the data): round 0's 128
@@ -74,6 +81,10 @@ RING = 4096                 # the tool's second scratch, (4096, 128)
 FIT_RING = 128              # the ring of the size that fits the card
 CHUNK = 4096                # rounds a plain gather or scatter takes at once
 INT32_MAX = (1 << 31) - 1
+STRIP_ROWS = 8              # T9, T10: rows of a thread's strip (csrc kStrip)
+TILE_ROWS_MAX = 64          # rows of a CTA's tile at most (csrc kTileMax)
+ENTRIES = {"lz4t_probe_gather": "ppiip",     # probe_lane.cu's C entries
+           "lz4t_probe_scatter": "piip"}
 gather_launches = 0
 scatter_launches = 0
 fifo_launches = 0
@@ -84,8 +95,7 @@ _smem_limits: dict[int, int] = {}
 
 def load_lane_kernel():
     """Build (once) and load csrc/probe_lane.cu (T9 and T10)."""
-    return _build.load("probe_lane", {"lz4t_probe_gather": "ppiip",
-                                      "lz4t_probe_scatter": "piip"})
+    return _build.load("probe_lane", ENTRIES)
 
 
 def load_step_kernel():
@@ -103,6 +113,12 @@ def load_smem_kernel():
 def lane_reps(R: int) -> int:
     """The tool's lower round count of T9 and T10 at R (the higher is 5x)."""
     return max(20_000, 40_000_000 // R)
+
+
+def tile_rows(R: int) -> int:
+    """The rows of a CTA's tile of T9's and T10's array at R: ``R / 128``
+    (128 CTAs) within ``[STRIP_ROWS, TILE_ROWS_MAX]``."""
+    return min(TILE_ROWS_MAX, max(STRIP_ROWS, R // L))
 
 
 def check_rows(R: int) -> None:
@@ -165,7 +181,7 @@ def gather(tape: torch.Tensor, reps: int) -> torch.Tensor:
         return gather_plain(tape, reps)
     lib = load_lane_kernel()
     tape = tape.contiguous()
-    out = torch.empty((8, L), dtype=torch.int32, device=dev)
+    out = torch.zeros((8, L), dtype=torch.int32, device=dev)
     _build.check(lib.lz4t_probe_gather(tape.data_ptr(), out.data_ptr(),
                                        tape.shape[0], reps,
                                        _build.stream(dev)), "probe_lane")
@@ -198,7 +214,7 @@ def scatter(R: int, reps: int, device="cuda", whole: bool = False
     if dev.type == "cpu":
         return scatter_plain(R, reps, dev, whole)
     lib = load_lane_kernel()
-    out = torch.zeros((R, L), dtype=torch.int32, device=dev)
+    out = torch.empty((R, L), dtype=torch.int32, device=dev)
     _build.check(lib.lz4t_probe_scatter(out.data_ptr(), R, reps,
                                         _build.stream(dev)), "probe_lane")
     scatter_launches += 1
@@ -424,12 +440,12 @@ def main(argv=None) -> int:
         t = torch.from_numpy(tape(R)).to(dev)
         n = reps_of(lane_reps(R))
         best = per_iter(lambda k: gather(t, k), n, 5 * n, dev)
-        print(f"# per-lane gather (R={R}): {best * 1e9:.1f} ns/iter",
+        print(f"# per-lane gather (R={R}): {best * 1e9:.4f} ns/iter",
               flush=True)
     for R in SCATTER_R:
         n = reps_of(lane_reps(R))
         best = per_iter(lambda k: scatter(R, k, dev), n, 5 * n, dev)
-        print(f"# per-lane scatter (R={R}): {best * 1e9:.1f} ns/iter",
+        print(f"# per-lane scatter (R={R}): {best * 1e9:.4f} ns/iter",
               flush=True)
     lo, hi = (reps_of(n) for n in STEP_REPS)
     for label, fn in (("fifo 3-stage bitroll (8,128)", fifo),

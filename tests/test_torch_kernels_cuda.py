@@ -1090,28 +1090,37 @@ def test_t8_probe_banded(dev, span):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("R", [8, 64, 1024, 16384])
+@pytest.mark.parametrize("R", sorted({8, 64, *P3.GATHER_R, *P3.SCATTER_R}))
 def test_t9_t10_probe_lane(dev, R):
-    """The tool's tape and a random one (negatives, so the sum wraps);
-    every cell of the scatter's whole output, zeros where unwritten."""
+    """Every R the tool runs, and 8 (one tile) and 64: the tool's tape
+    and a random one (negatives, so the sum wraps); a few rounds, a count
+    past one wrap of every lane (R + 1) and the tool's two counts
+    (``lane_reps`` and 5x); each call twice with the same bits. T10 on
+    every cell of its whole output, zeros where unwritten, into memory
+    the allocator last held as -1s."""
     rng = np.random.default_rng(R)
+    n = P3.lane_reps(R)
     for t_np in (P3.tape(R), rng.integers(-(1 << 31), 1 << 31, (R, 128))
                  .astype(np.int32)):
         t = torch.from_numpy(t_np).to(dev)
-        for reps in (0, 1, 15, 16, 17, 3000):
+        for reps in (0, 1, 15, 16, 17, R + 1, 3000, n, 5 * n):
             P3.gather_launches = 0
-            got = P3.gather(t, reps)
+            got, again = P3.gather(t, reps), P3.gather(t, reps)
             want = P3.gather_plain(t, reps)
             torch.cuda.synchronize()
-            assert P3.gather_launches == 1
-            assert torch.equal(got, want), reps
-    for reps in (0, 1, 700, 3000):
+            assert P3.gather_launches == 2
+            assert torch.equal(got, want) and torch.equal(again, got), reps
+    for reps in (0, 1, 700, R + 1, 3000, n, 5 * n):
+        # a block of -1s, freed at once: the next output of its size
+        # takes it from the caching allocator
+        torch.full((R, 128), -1, dtype=torch.int32, device=dev)
         P3.scatter_launches = 0
         got = P3.scatter(R, reps, dev, whole=True)
+        again = P3.scatter(R, reps, dev, whole=True)
         want = P3.scatter_plain(R, reps, dev, whole=True)
         torch.cuda.synchronize()
-        assert P3.scatter_launches == 1
-        assert torch.equal(got, want), reps
+        assert P3.scatter_launches == 2
+        assert torch.equal(got, want) and torch.equal(again, got), reps
         assert torch.equal(P3.scatter(R, reps, dev), want[:8])
 
 
